@@ -1,0 +1,335 @@
+"""The public autobatching entry point (the ``vmap``-like surface).
+
+:func:`autobatch` takes an :class:`ir.Program` or a
+:class:`frontend.ProgramBuilder` and returns a callable over positional
+arguments, one per program parameter::
+
+    fib = autobatch(build_fib(), device="cpu")
+    fib(torch.arange(8, dtype=torch.int32))     # -> {"out": [8] int32}
+
+``Batched(spec)`` arguments carry a leading batch axis, whose length is
+the batch size; ``Shared(spec)`` arguments have none and are broadcast to
+every member.  The result is a
+dict of the program's outputs, or of the names an ``out_spec`` dict maps
+them to.
+
+The program goes through the same pipeline as the JAX package's pc
+backend: ``lowering.lower`` -> ``passes.fusion_passes()`` ->
+``DeadCodeElimination``, lowered once per function.  Executors (one VM
+each) are cached under ``(device, batch size, input specs)``.  The stacks
+default to the statically inferred depth bound (a recursive program falls
+back to :data:`DEFAULT_MAX_DEPTH`); a run in which any member overflows
+raises :class:`pc_vm.StackOverflow`.
+
+Everything runs on ``device``: the CUDA card unless the caller passes
+another device (``device="cpu"`` for the tests); with no device given and
+no CUDA present, :func:`autobatch` raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import analysis, frontend, ir, lowering, passes, pc_vm
+
+__all__ = ["Batched", "Shared", "AutobatchedFunction", "autobatch"]
+
+#: Stack depth when ``max_depth=None`` and the program is recursive: an
+#: input-dependent call depth has no static bound.
+DEFAULT_MAX_DEPTH = 32
+
+
+class Batched:
+    """Per-member argument: the call-time tensor carries a leading batch axis."""
+
+    shared = False
+
+    def __init__(self, spec: ir.Spec):
+        self.spec = spec
+
+
+class Shared:
+    """Broadcast argument: one value shared by every batch member."""
+
+    shared = True
+
+    def __init__(self, spec: ir.Spec):
+        self.spec = spec
+
+
+def trace(functions: dict[str, ir.Function], main: str) -> ir.Program:
+    """The program rooted at ``main``: the functions reachable through
+    ``Call`` ops, in the JAX package's discovery order (depth first, last
+    callee first), so both packages number the lowered blocks alike."""
+    found: dict[str, ir.Function] = {}
+    worklist = [main]
+    while worklist:
+        name = worklist.pop()
+        if name in found:
+            continue
+        found[name] = functions[name]
+        for blk in found[name].blocks:
+            for op in blk.ops:
+                if isinstance(op, ir.Call) and op.callee not in found:
+                    worklist.append(op.callee)
+    prog = ir.Program(functions=found, main=main)
+    prog.validate()
+    return prog
+
+
+def _raise_if_overflowed(flags: np.ndarray, batch_size: int, max_depth: int,
+                         hint: str) -> None:
+    """Silently corrupted members (dropped pushes) must never escape."""
+    if flags.any():
+        lanes = np.flatnonzero(flags)
+        shown = ", ".join(str(i) for i in lanes[:8])
+        if len(lanes) > 8:
+            shown += ", ..."
+        raise pc_vm.StackOverflow(
+            f"pc/variable stack overflow: {len(lanes)} of "
+            f"{batch_size} batch members exceeded max_depth={max_depth} "
+            f"(lanes {shown}); their results would be invalid "
+            "(out-of-range pushes are dropped). " + hint,
+            depth_exceeded=flags,
+            lanes=lanes,
+        )
+
+
+class _PcExecutor:
+    def __init__(self, lowered: ir.LoweredProgram, main: str,
+                 config: pc_vm.VMConfig, device, overflow_hint: str):
+        self.main = main
+        self.batch_size = config.batch_size
+        self.overflow_hint = overflow_hint
+        self.vm = pc_vm.ProgramCounterVM(lowered, config, device)
+        self.last_result: Optional[pc_vm.VMResult] = None
+
+    def run(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        res = self.vm.run({ir.qualify(self.main, k): v for k, v in inputs.items()})
+        self.last_result = res
+        _raise_if_overflowed(
+            res.depth_exceeded.cpu().numpy(), self.batch_size,
+            self.vm.config.max_depth, self.overflow_hint,
+        )
+        return {k.split("/", 1)[1]: v for k, v in res.outputs.items()}
+
+
+class AutobatchedFunction:
+    """A batched callable over positional arguments; made by :func:`autobatch`."""
+
+    def __init__(
+        self,
+        program: ir.Program,
+        bindings: tuple[ir.ArgBinding, ...],
+        arg_specs: dict[str, ir.Spec],
+        out_names: dict[str, str],
+        *,
+        max_depth: Optional[int],
+        max_steps: int,
+        device: torch.device,
+    ):
+        self.program = program
+        self.main = program.main
+        self.device = device
+        self.max_depth = max_depth  # None: use the static bound
+        self.max_steps = max_steps
+        self._bindings = bindings
+        self._arg_specs = arg_specs
+        self._out_names = out_names
+        self._lowered: Optional[ir.LoweredProgram] = None
+        self._depth_report: Optional[analysis.StackDepthReport] = None
+        self._executors: dict[tuple, _PcExecutor] = {}
+        self._last_executor: Optional[_PcExecutor] = None
+        self.__name__ = self.main
+
+    @property
+    def lowered(self) -> ir.LoweredProgram:
+        """The fused, dead-code-eliminated stack-explicit program."""
+        if self._lowered is None:
+            low = lowering.lower(self.program, self.device)
+            post = [*passes.fusion_passes(), passes.DeadCodeElimination()]
+            self._lowered = passes.PassPipeline(post).run(low)
+        return self._lowered
+
+    @property
+    def depth_report(self) -> analysis.StackDepthReport:
+        if self._depth_report is None:
+            self._depth_report = analysis.stack_depth_bound(self.lowered)
+        return self._depth_report
+
+    @property
+    def resolved_max_depth(self) -> int:
+        """An explicit ``max_depth`` wins; else the static bound, or
+        :data:`DEFAULT_MAX_DEPTH` for a recursive program."""
+        if self.max_depth is not None:
+            return self.max_depth
+        bound = self.depth_report.required_max_depth
+        return DEFAULT_MAX_DEPTH if bound is None else bound
+
+    def _overflow_hint(self) -> str:
+        rep = self.depth_report
+        if rep.recursive_cycle is not None:
+            cyc = " -> ".join(rep.recursive_cycle + rep.recursive_cycle[:1])
+            return (
+                f"The program is recursive ({cyc}), so the required depth "
+                "depends on the inputs; pass a larger max_depth= to "
+                "autobatch()."
+            )
+        return (
+            "The statically inferred bound for this program is "
+            f"max_depth={rep.required_max_depth}; pass max_depth= at least "
+            "that (or max_depth=None to use the bound) to autobatch()."
+        )
+
+    def _bind(self, args: tuple) -> tuple[dict[str, torch.Tensor], int]:
+        if len(args) != len(self._bindings):
+            raise TypeError(
+                f"{self.main}() takes {len(self._bindings)} positional "
+                f"argument(s), got {len(args)}"
+            )
+        tensors = []
+        z = None
+        for binding, arg in zip(self._bindings, args):
+            (name,) = binding.params
+            spec = self._arg_specs[name]
+            x = torch.as_tensor(arg).to(device=self.device, dtype=spec.dtype)
+            if binding.shared:
+                if tuple(x.shape) != spec.shape:
+                    raise TypeError(
+                        f"{self.main}() shared argument {name!r}: expected "
+                        f"shape {spec.shape}, got {tuple(x.shape)}"
+                    )
+            else:
+                if x.dim() != len(spec.shape) + 1 or tuple(x.shape[1:]) != spec.shape:
+                    raise TypeError(
+                        f"{self.main}() batched argument {name!r}: expected "
+                        f"a leading batch axis over {spec.shape}, got shape "
+                        f"{tuple(x.shape)}"
+                    )
+                if z is None:
+                    z = int(x.shape[0])
+                elif x.shape[0] != z:
+                    raise TypeError(
+                        f"{self.main}() batched argument {name!r}: batch "
+                        f"axis {x.shape[0]} != {z}"
+                    )
+            tensors.append((binding, name, x))
+        if z is None:
+            raise TypeError(f"{self.main}() has no Batched argument to size the batch")
+        inputs = {}
+        for binding, name, x in tensors:
+            if binding.shared:
+                x = x.expand((z,) + tuple(x.shape))
+            inputs[name] = x
+        return inputs, z
+
+    def _executor(self, inputs: dict[str, torch.Tensor], z: int) -> _PcExecutor:
+        key = (
+            self.device,
+            z,
+            tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
+        )
+        ex = self._executors.get(key)
+        if ex is None:
+            ex = _PcExecutor(
+                self.lowered, self.main,
+                pc_vm.VMConfig(
+                    batch_size=z, max_depth=self.resolved_max_depth,
+                    max_steps=self.max_steps,
+                ),
+                self.device, self._overflow_hint(),
+            )
+            self._executors[key] = ex
+        return ex
+
+    def __call__(self, *args) -> dict[str, torch.Tensor]:
+        inputs, z = self._bind(args)
+        ex = self._executor(inputs, z)
+        self._last_executor = ex
+        out = ex.run(inputs)
+        return {key: out[name] for key, name in self._out_names.items()}
+
+    @property
+    def last_result(self) -> Optional[pc_vm.VMResult]:
+        """The :class:`pc_vm.VMResult` of the most recent call."""
+        return self._last_executor.last_result if self._last_executor else None
+
+    @property
+    def tag_stats(self) -> dict[str, tuple[int, int]]:
+        """tag -> (primitive executions, active member-executions) of the
+        most recent call; ``{}`` before any call."""
+        res = self.last_result
+        return dict(res.tag_stats) if res is not None else {}
+
+    @property
+    def utilization(self) -> dict[str, float]:
+        """Per-tag batch utilization of the last run (paper Fig. 6):
+        ``active / (executions * batch_size)``."""
+        ex = self._last_executor
+        if ex is None:
+            return {}
+        z = ex.batch_size
+        return {
+            tag: (act / (execs * z) if execs else 0.0)
+            for tag, (execs, act) in self.tag_stats.items()
+        }
+
+
+def autobatch(
+    target: Any,
+    *,
+    in_specs: Optional[Sequence] = None,
+    out_spec: Optional[dict[str, str]] = None,
+    max_depth: Optional[int] = None,
+    max_steps: int = 1_000_000,
+    device=None,
+) -> AutobatchedFunction:
+    """Autobatch an :class:`ir.Program` or a :class:`frontend.ProgramBuilder`.
+
+    ``in_specs`` has one ``Batched(spec)`` / ``Shared(spec)`` (or a bare
+    spec, meaning ``Batched``) per parameter of the main function, default
+    ``Batched`` of each declared spec.  ``out_spec`` maps result keys to
+    output names (default: every output under its own name).  The batch
+    size is the leading axis of the batched arguments.  ``device`` is where everything runs (default: the CUDA card).
+    """
+    device = resolve_device(device)
+    if isinstance(target, frontend.ProgramBuilder):
+        program = trace(target.functions, target.main)
+    elif isinstance(target, ir.Program):
+        program = target
+    else:
+        raise TypeError(f"cannot autobatch {target!r}")
+    main_fn = program.functions[program.main]
+    params, outputs = main_fn.params, main_fn.outputs
+    if in_specs is None:
+        in_specs = tuple(Batched(main_fn.param_specs[p]) for p in params)
+    if len(in_specs) != len(params):
+        raise TypeError(
+            f"{program.main}: {len(in_specs)} in_specs for {len(params)} "
+            "parameters"
+        )
+    bindings, arg_specs = [], {}
+    for p, entry in zip(params, in_specs):
+        wrap = entry if isinstance(entry, (Batched, Shared)) else Batched(entry)
+        if wrap.spec != main_fn.param_specs[p]:
+            raise TypeError(
+                f"{program.main}: in_specs entry for parameter {p!r} is "
+                f"{wrap.spec} but the program declares {main_fn.param_specs[p]}"
+            )
+        bindings.append(ir.ArgBinding((p,), wrap.shared))
+        arg_specs[p] = wrap.spec
+    out_names = {o: o for o in outputs} if out_spec is None else dict(out_spec)
+    for name in out_names.values():
+        if name not in outputs:
+            raise TypeError(
+                f"{program.main}: out_spec names unknown output {name!r} "
+                f"(have {outputs})"
+            )
+    return AutobatchedFunction(
+        program, tuple(bindings), arg_specs, out_names,
+        max_depth=max_depth, max_steps=max_steps,
+        device=device,
+    )

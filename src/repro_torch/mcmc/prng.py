@@ -1,0 +1,114 @@
+"""Splittable counter-based random numbers: threefry-2x32 as tensor ops.
+
+NUTS draws inside its primitives from splittable keys, as the JAX package
+does with ``jax.random``.  This module reproduces JAX's default
+implementation bit for bit — the ``threefry2x32`` hash with JAX's
+*partitionable* counter layout (``jax_threefry_partitionable=True``, the
+default of JAX 0.9) and its float transforms — so equal keys give equal
+draws in both packages:
+
+* ``split(key, n)[i] = threefry(key, (0, i))`` as a word pair;
+* ``random_bits(key, shape)[i] = w0 ^ w1`` of ``threefry(key, (0, i))``
+  over the flat index ``i``;
+* ``uniform``: the top 23 bits as the mantissa of a float in ``[1, 2)``,
+  minus one, scaled, then ``max(minval, .)``;
+* ``bernoulli``: ``uniform < p``;
+* ``normal``: ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``.
+
+A key is a ``[2]`` tensor of **int32 bit patterns** (JAX keeps uint32; the
+bits are the same).  Arithmetic runs in int64 masked to 32 bits.  Every
+function is pure tensor code on one key, so ``torch.func.vmap`` maps it
+over a batch of keys.  ``normal`` matches JAX to a few ulp only: its
+``erfinv`` is PyTorch's, not XLA's polynomial.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values, in int64."""
+    return x.to(torch.int64) & _M32
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> the same bits as int32."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counters ``(x1, x2)`` under key
+    ``(k1, k2)``; all unsigned 32-bit values held in int64 tensors."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _M32
+    b = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _M32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return a, b
+
+
+def _hash_iota(key: torch.Tensor, shape: Sequence[int]):
+    k = _u32(key)
+    n = math.prod(shape)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(tuple(shape))
+    hi = torch.zeros_like(lo)
+    return threefry2x32(k[0], k[1], hi, lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys, ``[num, 2]`` int32 (``jax.random.split``)."""
+    b1, b2 = _hash_iota(key, (num,))
+    return _as_i32(torch.stack([b1, b2], dim=-1))
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """32 random bits per element as unsigned values in int64."""
+    b1, b2 = _hash_iota(key, shape)
+    return b1 ^ b2
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """float32 uniform on ``[minval, maxval)`` (``jax.random.uniform``)."""
+    # bitcast(bits >> 9 | 0x3F800000) - 1 is exactly mantissa * 2**-23.
+    floats = (random_bits(key, shape) >> 9).to(torch.float32) * (2.0**-23)
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5) -> torch.Tensor:
+    """A bool draw with probability ``p`` (``jax.random.bernoulli``)."""
+    return uniform(key) < p
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """float32 standard normals (``jax.random.normal``), via ``erfinv``."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * torch.erfinv(u)
+
+
+def prng_key(seed: int) -> torch.Tensor:
+    """The key ``jax.random.PRNGKey(seed)`` makes for ``0 <= seed < 2**31``."""
+    if not 0 <= seed < 2**31:
+        raise ValueError(f"seed must be in [0, 2**31), got {seed}")
+    return torch.tensor([0, seed], dtype=torch.int32)

@@ -1,0 +1,81 @@
+"""The integer test programs, built with the PyTorch port's builder.
+
+They are the port's counterparts of ``build_fib``, ``build_pow_loop`` and
+``build_mutual`` in tests/test_core.py and ``build_deep_recursion`` in
+tests/test_fusion.py, written the same way so both packages lower them to
+the same blocks.  The port's tests and ``chip_smoke.py`` build them from
+here, on the CPU and on the card.
+"""
+import torch
+
+from repro_torch.core import frontend, ir
+from repro_torch.core.frontend import BOOL, F32, I32
+
+
+def build_fib():
+    pb = frontend.ProgramBuilder()
+    fb = pb.function("fib", ["n"], ["out"], {"n": I32}, {"out": I32})
+    c = fb.prim(lambda n: n < 2, ["n"], name="lt2")
+    with fb.if_(c):
+        fb.copy("n", out="out")
+        fb.return_()
+    t1 = fb.prim(lambda n: n - 1, ["n"])
+    fb.call("fib", [t1], out="a")
+    t2 = fb.prim(lambda n: n - 2, ["n"])
+    fb.call("fib", [t2], out="b")
+    fb.assign("out", lambda a, b: a + b, ["a", "b"])
+    fb.return_()
+    pb.add(fb)
+    return pb.build()
+
+
+def build_pow_loop():
+    pb = frontend.ProgramBuilder()
+    fb = pb.function("powi", ["x", "k"], ["out"], {"x": F32, "k": I32},
+                     {"out": F32})
+    fb.const(1.0, torch.float32, out="out")
+    fb.copy("k", out="i")
+    with fb.while_(lambda i: i > 0, ["i"]):
+        fb.assign("out", lambda o, x: o * x, ["out", "x"])
+        fb.assign("i", lambda i: i - 1, ["i"])
+    fb.return_()
+    pb.add(fb)
+    return pb.build()
+
+
+def build_mutual():
+    pb = frontend.ProgramBuilder()
+    ev = pb.function("is_even", ["n"], ["out"], {"n": I32}, {"out": BOOL})
+    c = ev.prim(lambda n: n == 0, ["n"])
+    with ev.if_(c):
+        ev.const(True, torch.bool, out="out")
+        ev.return_()
+    t = ev.prim(lambda n: n - 1, ["n"])
+    ev.call("is_odd", [t], out="out")
+    ev.return_()
+    pb.add(ev)
+    od = pb.function("is_odd", ["n"], ["out"], {"n": I32}, {"out": BOOL})
+    c = od.prim(lambda n: n == 0, ["n"])
+    with od.if_(c):
+        od.const(False, torch.bool, out="out")
+        od.return_()
+    t = od.prim(lambda n: n - 1, ["n"])
+    od.call("is_even", [t], out="out")
+    od.return_()
+    pb.add(od)
+    return ir.Program(functions=pb.functions, main="is_even")
+
+
+def build_deep_recursion():
+    pb = frontend.ProgramBuilder()
+    fb = pb.function("depth", ["n"], ["out"], {"n": I32}, {"out": I32})
+    c = fb.prim(lambda n: n <= 0, ["n"])
+    with fb.if_(c):
+        fb.const(0, torch.int32, out="out")
+        fb.return_()
+    t = fb.prim(lambda n: n - 1, ["n"])
+    fb.call("depth", [t], out="r")
+    fb.assign("out", lambda r: r + 1, ["r"])
+    fb.return_()
+    pb.add(fb)
+    return pb.build()

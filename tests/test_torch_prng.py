@@ -1,0 +1,89 @@
+"""The port's threefry keys against ``jax.random`` (threefry2x32 with the
+partitionable counter layout, JAX's default): ``split``, ``uniform`` and
+``bernoulli`` are bit-exact over 64 seeded keys, with and without
+``torch.func.vmap``.
+
+``normal`` goes through ``erfinv``: XLA's polynomial is not PyTorch's, and
+the two differ by a few ulp, so normal draws are held to
+``rtol=1e-6, atol=1e-6`` instead of bit equality.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro_torch import interop  # noqa: E402
+from repro_torch.mcmc import prng  # noqa: E402
+
+N_KEYS = 64
+DIM = 7
+
+
+@pytest.fixture(scope="module")
+def keys():
+    rng = np.random.default_rng(11)
+    raw = rng.integers(0, 2**32, size=(N_KEYS, 2), dtype=np.uint64).astype(np.uint32)
+    return raw, interop.keys_from_numpy(raw, "cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_draws(keys):
+    raw, _ = keys
+    k = jax.numpy.asarray(raw)
+    return {
+        "split3": np.asarray(jax.vmap(lambda x: jax.random.split(x, 3))(k)),
+        "split4": np.asarray(jax.vmap(lambda x: jax.random.split(x, 4))(k)),
+        "uniform": np.asarray(jax.vmap(lambda x: jax.random.uniform(x))(k)),
+        "uniform_vec": np.asarray(jax.vmap(lambda x: jax.random.uniform(x, (DIM,)))(k)),
+        "bernoulli": np.asarray(jax.vmap(lambda x: jax.random.bernoulli(x))(k)),
+        "normal": np.asarray(jax.vmap(lambda x: jax.random.normal(x, (DIM,)))(k)),
+    }
+
+
+TORCH_FNS = {
+    "split3": lambda k: prng.split(k, 3),
+    "split4": lambda k: prng.split(k, 4),
+    "uniform": prng.uniform,
+    "uniform_vec": lambda k: prng.uniform(k, (DIM,)),
+    "bernoulli": prng.bernoulli,
+    "normal": lambda k: prng.normal(k, (DIM,)),
+}
+
+
+def _as_numpy(name: str, x: torch.Tensor) -> np.ndarray:
+    return interop.keys_to_numpy(x) if name.startswith("split") else x.numpy()
+
+
+@pytest.mark.parametrize("vmapped", [True, False], ids=["vmap", "loop"])
+@pytest.mark.parametrize("name", ["split3", "split4", "uniform", "uniform_vec",
+                                  "bernoulli"])
+def test_bits_equal_jax(keys, jax_draws, name, vmapped):
+    _, k = keys
+    fn = TORCH_FNS[name]
+    got = torch.func.vmap(fn)(k) if vmapped else torch.stack([fn(x) for x in k])
+    np.testing.assert_array_equal(_as_numpy(name, got), jax_draws[name])
+
+
+@pytest.mark.parametrize("vmapped", [True, False], ids=["vmap", "loop"])
+def test_normal_matches_jax_to_a_few_ulp(keys, jax_draws, vmapped):
+    _, k = keys
+    fn = TORCH_FNS["normal"]
+    got = torch.func.vmap(fn)(k) if vmapped else torch.stack([fn(x) for x in k])
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), jax_draws["normal"], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 17, 123_456, 2**31 - 1])
+def test_prng_key_matches_jax(seed):
+    np.testing.assert_array_equal(
+        interop.keys_to_numpy(prng.prng_key(seed)),
+        np.asarray(jax.random.PRNGKey(seed)),
+    )
+
+
+def test_key_round_trip_keeps_bits(keys):
+    raw, k = keys
+    assert k.dtype == torch.int32
+    np.testing.assert_array_equal(interop.keys_to_numpy(k), raw)
