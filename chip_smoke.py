@@ -10,8 +10,9 @@ non-zero (nothing is caught):
 
 1. environment: torch, the card, ``nvidia-smi``'s name and power limit,
    ``nvcc``; TF32 is switched off for matmuls and cuDNN;
-2. build: the hand-written CUDA stack kernels, compiled with ``nvcc`` for
-   ``sm_90a`` into ``build/torch_kernels/``;
+2. build: the hand-written CUDA kernels (stack ops, flash attention, decode
+   attention), one ``nvcc`` each, all started together, for ``sm_90a``
+   into ``build/torch_kernels/``, with ``ptxas``'s register and spill lines;
 3. kernels: K1 ``masked_push`` and K2 ``masked_peek`` against their plain
    PyTorch versions at the VM's shapes (exact equality), with their device
    time (CUDA-graph replay) and time per call from Python (CUDA events)
@@ -25,7 +26,26 @@ non-zero (nothing is caught):
    regression with 1024 chains, once to warm up and once measured, with the
    kernels' launch counts held to the counts the dispatched blocks imply;
    a third, profiled run gives the device's busy time (beside its own wall
-   time and the measured run's), its kernel count and top kernels.
+   time and the measured run's), its kernel count and top kernels;
+7. attention kernels: K3 ``flash_attention`` at the prefill shape (B=8,
+   S=T=2048, H=9, Hkv=3, Dh=64) in bf16 and float32 and at Dh=128, G=2,
+   and K4 ``decode_attention`` at the serving shape (B=64, H=9, Hkv=3,
+   Dh=64, W=512, ``count`` drawn from 0 to W) in bf16 and float32, each
+   against its plain version (tolerances stated there), with device time
+   per launch, time per call, the plain version's and one
+   ``scaled_dot_product_attention`` call's device time, and the bound;
+8. prefill at full width: SmolLM-135M on 8 x 2048 tokens through
+   ``make_prefill_step`` with K3, a warm-up and one measured run (tokens/s,
+   30 K3 launches), against the same weights with the plain blocked
+   attention: float32 logits within 1e-3, bf16 largest difference and
+   top-1 agreement reported;
+9. the serving engine at full width: a float32 check (4 lanes x 2
+   requests, 16-token prompts and completions) equal token for token to
+   the sequential oracle on the card, then bf16 with 64 lanes x 2
+   requests (prompts of 2 to 64 tokens, 64 new tokens, a 512-token
+   cache), once to warm up and once measured (generated tokens/s,
+   dispatches, decode utilization, K4 launches held to 30 x decode
+   executions), and a profiled run for the device's busy share.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -39,11 +59,17 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# H100 SXM dense peaks (NVIDIA data sheet, no sparsity): bf16 on the tensor
+# cores; float32 outside them (K3 and K4 compute float32 on CUDA cores).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 CHAINS = 1024  # the paper's widest batch (fig5_throughput.py --full)
+ARCH = "smollm-135m"  # the repo's serving model (examples/serve_lm.py)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -83,19 +109,29 @@ def phase_env(torch) -> str:
 
 
 def phase_build() -> None:
+    """Build every kernel library at once (one ``nvcc`` per source)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_decode import kernel as fd_kernel
     from repro_torch.kernels.stack_ops import kernel as sk_kernel
 
+    mods = {"stack_ops": sk_kernel, "flash_attention": fa_kernel, "flash_decode": fd_kernel}
     t0 = time.perf_counter()
-    path = _build.build("stack_ops", sk_kernel.SOURCES)
-    sk_kernel.library()
-    print(f"build: stack_ops in {time.perf_counter() - t0:.2f} s -> "
-          f"{path.relative_to(ROOT)}")
-    log = path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(mods)) as pool:
+        paths = dict(zip(mods, pool.map(lambda kv: _build.build(kv[0], kv[1].SOURCES),
+                                         mods.items())))
+    for name, mod in mods.items():
+        mod.library()
+        path = paths[name]
+        print(f"build: {name} -> {path.relative_to(ROOT)}")
+        log = path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  ptxas: {line.strip()}")
+    print(f"build: all libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +255,7 @@ def phase_kernels(torch, depth: int, lanes: int) -> dict:
                       f"bound {bound * 1e3:6.3f} us)")
                 if dtype == torch.float32 and feat == 100:
                     report[kname] = dict(ms=kern_dev, plain_ms=plain_dev, bound_ms=bound,
-                                         library_ms=lib_dev, call_ms=call)
+                                         bound_by="bytes", library_ms=lib_dev, call_ms=call)
     for name in report:
         report[name]["max_abs_err"] = max_err[name]
     return report
@@ -353,6 +389,250 @@ def phase_full(torch, chains: int, settings) -> dict:
     return {"masked_push": push, "masked_peek": peek}
 
 
+# ---------------------------------------------------------------------------
+# 7. attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    """The least time for the work: the larger of its FLOPs over the dense
+    peak of its type and its bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_attention_kernels(torch) -> dict:
+    """K3 at the prefill shapes and K4 at the serving shape, against their
+    plain versions; returns per-kernel numbers at the main path's shape
+    (bf16, SmolLM-135M's heads)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    from repro_torch.testing import attention_inputs, decode_inputs
+
+    # Float32: the kernel and the plain version sum 2048-long rows in
+    # another order.  bf16: both compute float32 and round once, so they
+    # differ by about one bf16 ulp (2**-8 relative) of an O(1) output.
+    tol = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+    dev = torch.device("cuda")
+    report = {}
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for b, s, h, hk, dh in ((8, 2048, 9, 3, 64), (2, 2048, 16, 8, 128)):
+        base = attention_inputs(b, s, s, h, hk, dh, seed=7)
+        for dtype in (torch.bfloat16, torch.float32):
+            if dh == 128 and dtype == torch.float32:
+                continue
+            q, k, v = (x.to(dev, dtype) for x in base)
+            got = fa_ops.flash_attention(q, k, v)
+            want = fa_ref.attention(q, k, v)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
+            err = float((got.float() - want.float()).abs().max())
+            max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            name = str(dtype).replace("torch.", "")
+            kern_dev = _device_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 5, 3)
+            call = _call_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 10)
+            plain = _device_ms(torch, lambda: fa_ref.attention(q, k, v), 3, 2)
+            lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 5, 3)
+            flops = 4 * b * h * s * s * dh / 2
+            nbytes = (2 * b * s * h * dh + 2 * b * s * hk * dh) * q.element_size()
+            bound, by = _bound_ms(flops, nbytes, name)
+            print(f"kernel flash_attention {name:8s} B={b} S=T={s} H={h} Hkv={hk} Dh={dh}: "
+                  f"device {kern_dev * 1e3:9.1f} us/launch, call {call * 1e3:9.1f} us "
+                  f"(plain {plain * 1e3:9.1f}, sdpa {lib * 1e3:8.1f}, bound {bound * 1e3:7.1f} us "
+                  f"by {by}; {flops / kern_dev / 1e9:.1f} TFLOP/s); max |err| {err:.3g}")
+            if (dh, dtype) == (64, torch.bfloat16):
+                report["flash_attention"] = dict(ms=kern_dev, plain_ms=plain, bound_ms=bound,
+                                                 bound_by=by, library_ms=lib, call_ms=call)
+
+    b, w, h, hk, dh = 64, 512, 9, 3, 64
+    q0, k0, v0, _ = decode_inputs(b, w, h, hk, dh, seed=8)
+    count = torch.from_numpy(np.random.default_rng(9).integers(0, w + 1, b).astype(np.int32))
+    count[0], count[-1] = 0, w  # an empty and a full cache
+    count = count.to(dev)
+    valid = (torch.arange(w, device=dev)[None] < count[:, None])[:, None, None, :]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dev, dtype) for x in (q0, k0, v0))
+        got = fd_ops.decode_attention(q, k, v, count)
+        want = fd_ref.decode_attention(q, k, v, count)
+        torch.cuda.synchronize()
+        check(bool((got[0] == 0).all()), "decode_attention: count == 0 must give zeros")
+        torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
+        err = float((got.float() - want.float()).abs().max())
+        max_err["decode_attention"] = max(max_err["decode_attention"], err)
+        qt = q[:, :, None]  # [B, H, 1, Dh]
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        name = str(dtype).replace("torch.", "")
+        kern_dev = _device_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
+        call = _call_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
+        plain = _device_ms(torch, lambda: fd_ref.decode_attention(q, k, v, count), 20)
+        lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid, enable_gqa=True))
+        rows = int(count.sum())
+        s_el = q.element_size()
+        nbytes = 2 * b * h * dh * s_el + 4 * b + 2 * rows * hk * dh * s_el
+        bound, by = _bound_ms(4 * h * dh * rows, nbytes, name)
+        print(f"kernel decode_attention {name:8s} B={b} W={w} H={h} Hkv={hk} Dh={dh} "
+              f"(mean count {rows / b:.1f}): device {kern_dev * 1e3:7.2f} us/launch, "
+              f"call {call * 1e3:7.2f} us (plain {plain * 1e3:8.2f}, sdpa {lib * 1e3:7.2f}, "
+              f"bound {bound * 1e3:6.3f} us by {by}); max |err| {err:.3g}")
+        if dtype == torch.bfloat16:
+            report["decode_attention"] = dict(ms=kern_dev, plain_ms=plain, bound_ms=bound,
+                                              bound_by=by, library_ms=lib, call_ms=call)
+    for name in report:
+        report[name]["max_abs_err"] = max_err[name]
+    return report
+
+
+# ---------------------------------------------------------------------------
+# 8. prefill at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_prefill(torch) -> int:
+    """SmolLM-135M prefill through K3; returns K3's launches in the
+    measured run."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import make_prefill_step
+
+    cfg = configs.get_config(ARCH)
+    b, s = 8, 2048  # cut from prefill_32k's 32 x 32768 for the time limit
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    batch = {"tokens": tokens}
+    flash = get_model(cfg, use_flash=True, device="cuda")
+    params = flash.init(torch.Generator(device="cuda").manual_seed(0))
+    step = make_prefill_step(flash)
+    t0 = time.perf_counter()
+    step(params, batch)
+    torch.cuda.synchronize()
+    print(f"prefill: warm-up {time.perf_counter() - t0:.3f} s")
+    fa_ops.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_ops.flash_attention.launches
+    check(launches == cfg.num_layers, f"K3 launched {launches} times, want {cfg.num_layers}")
+    check(tuple(out.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+          f"prefill logits {tuple(out.shape)} not finite")
+    print(f"prefill: {ARCH} full width ({cfg.num_layers} layers, d={cfg.d_model}), "
+          f"{cfg.compute_dtype}, {b} x {s} tokens: {wall * 1e3:.3f} ms, "
+          f"{b * s / wall:.1f} tokens/s, K3 launches {launches}")
+
+    for dtype in ("float32", "bfloat16"):
+        c = replace(cfg, compute_dtype=dtype)
+        lf, _ = get_model(c, use_flash=True, device="cuda").forward(params, batch)
+        lp, _ = get_model(c, use_flash=False, device="cuda").forward(params, batch)
+        diff = float((lf.float() - lp.float()).abs().max())
+        top1 = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+        if dtype == "float32":
+            # TF32 is off: both run in float32 and differ by summation order.
+            torch.testing.assert_close(lf, lp, rtol=1e-3, atol=1e-3)
+        check(bool(torch.isfinite(lf).all()), f"{dtype} flash logits not finite")
+        print(f"prefill: {dtype} K3 vs plain blocked attention, all {b * s} positions: "
+              f"max |logit diff| {diff:.3g}, top-1 agreement {top1:.4f}"
+              + (" (held to 1e-3)" if dtype == "float32" else ""))
+        del lf, lp
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 9. the serving engine at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_engine(torch) -> int:
+    """The closed-loop engine on SmolLM-135M; returns K4's launches in the
+    measured run."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import EngineConfig, GenerationEngine
+    from repro_torch.testing import engine_inputs
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = get_model(cfg, device="cuda").init(gen)
+
+    # Check: float32 (TF32 off), 4 lanes x 2 requests, against the oracle.
+    model32 = get_model(replace(cfg, compute_dtype="float32"), device="cuda")
+    ecfg = EngineConfig(lanes=4, max_context=64, max_prompt_len=16, max_new_tokens=16,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(model32, params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=11)
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, plens)
+    ref = eng.reference_generate(prompts, plens)
+    check(np.array_equal(res["tokens"], ref["tokens"]), "engine tokens != sequential oracle")
+    check(np.array_equal(res["lengths"], ref["lengths"]), "engine lengths != sequential oracle")
+    print(f"engine check: {ARCH} full width float32, 4 lanes x 2 requests: equal to the "
+          f"sequential oracle token for token ({int(res['lengths'].sum())} tokens, "
+          f"{eng.batched.last_result.steps} dispatches; {time.perf_counter() - t0:.2f} s)")
+
+    # Measure: bf16, 64 lanes x 2 requests.
+    ecfg = EngineConfig(lanes=64, max_context=512, max_prompt_len=64, max_new_tokens=64,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(get_model(cfg, device="cuda"), params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=12)
+    t0 = time.perf_counter()
+    eng.generate(prompts, plens)
+    torch.cuda.synchronize()
+    print(f"engine: warm-up run {time.perf_counter() - t0:.2f} s (type inference included)")
+    fd_ops.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, plens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd_ops.decode_attention.launches
+    res = eng.batched.last_result
+    execs, active = eng.batched.tag_stats["decode"]
+    check(res.converged, "engine run did not converge")
+    check(launches == cfg.num_layers * execs,
+          f"K4 launched {launches} times, want {cfg.num_layers} x {execs} decode executions")
+    n_tok = int(out["lengths"].sum())
+    check(n_tok > 0 and bool((out["lengths"] <= ecfg.max_new_tokens).all()),
+          f"engine generated {n_tok} tokens")
+    print(f"engine: {ARCH} full width bf16, 64 lanes x 2 requests, prompts 2-64, "
+          f"64 new tokens, cache 512: wall {wall:.3f} s, {n_tok} tokens generated, "
+          f"{n_tok / wall:.1f} tokens/s, {res.steps} dispatches, "
+          f"{wall / res.steps * 1e3:.3f} ms/dispatch, decode executions {execs} "
+          f"(active lane-steps {active}), decode utilization {out['utilization']:.4f}, "
+          f"K4 launches {launches}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, plens)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    avgs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    dev_us = sum(e.self_device_time_total for e in avgs)
+    n_kernels = sum(e.count for e in avgs)
+    print(f"engine: profiled run: device busy {dev_us / 1e3:.3f} ms of its own "
+          f"{prof_wall * 1e3:.3f} ms wall ({dev_us / 1e6 / prof_wall:.4f} busy share); "
+          f"{n_kernels} device kernels ({n_kernels / res.steps:.1f} per dispatch)")
+    for e in sorted(avgs, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  {e.key[:90]}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -369,20 +649,29 @@ def main() -> int:
     phase_vm(torch, 256)
     phase_nuts(torch)
     launches = phase_full(torch, CHAINS, settings)
+    kernels.update(phase_attention_kernels(torch))
+    launches["flash_attention"] = phase_prefill(torch)
+    launches["decode_attention"] = phase_engine(torch)
 
-    replaces = {"masked_push": "src/repro/kernels/stack_ops/kernel.py:41",
-                "masked_peek": "src/repro/kernels/stack_ops/kernel.py:83"}
+    kdir = "src/repro_torch/kernels"
+    where = {
+        "masked_push": ("stack_ops/csrc/stack_ops.cu", "src/repro/kernels/stack_ops/kernel.py:41"),
+        "masked_peek": ("stack_ops/csrc/stack_ops.cu", "src/repro/kernels/stack_ops/kernel.py:83"),
+        "flash_attention": ("flash_attention/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:81"),
+        "decode_attention": ("flash_decode/csrc/flash_decode.cu",
+                             "src/repro/kernels/flash_decode/kernel.py:77"),
+    }
     line = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/stack_ops/csrc/stack_ops.cu",
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": f"{kdir}/{src}",
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": kernels[name]["max_abs_err"],
          "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": "bytes",
+         "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"]}
-        for name in ("masked_push", "masked_peek")]}
+        for name, (src, replaces) in where.items()]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 """State carried between the JAX package and the port, through numpy.
 
-The system has no model weights: its "weights" are the target's data
-(rebuilt bit-identically from the same numpy seed by ``mcmc.targets``) and
-the chains' initial state.  These helpers turn the JAX package's NUTS
+NUTS has no model weights: its "weights" are the target's data (rebuilt
+bit-identically from the same numpy seed by ``mcmc.targets``) and the
+chains' initial state.  These helpers turn the JAX package's NUTS
 arguments, taken as numpy, into the port's, and keys back again.  Keys are
 ``uint32`` word pairs in JAX and the same bits viewed as ``int32`` here.
+The LM's weights cross with :func:`lm_params_from_numpy`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 
 def keys_from_numpy(keys, device) -> torch.Tensor:
@@ -35,3 +37,30 @@ def nuts_inputs_from_numpy(theta0, eps, keys, device):
         torch.tensor(np.float32(eps), device=device),
         keys_from_numpy(keys, device),
     )
+
+
+def lm_params_from_numpy(params_np, cfg, device) -> dict:
+    """The JAX package's LM parameter pytree as numpy
+    (``jax.tree.map(np.asarray, Model(cfg).init(key))``, layers stacked on
+    a leading ``[L]`` axis) -> the port's params dict for ``cfg`` on
+    ``device``.  The tree structure, shapes and dtypes must be the ones the
+    port's ``Model.init`` makes; anything else raises."""
+    from .models.transformer import Model
+
+    want = Model(cfg, device="meta").init(torch.Generator())
+    got = pytree.tree_map(lambda a: torch.from_numpy(np.array(a)), params_np)
+    want_paths = {pytree.keystr(p): t for p, t in pytree.tree_flatten_with_path(want)[0]}
+    got_paths = {pytree.keystr(p): t for p, t in pytree.tree_flatten_with_path(got)[0]}
+    if want_paths.keys() != got_paths.keys():
+        raise ValueError(
+            f"parameter trees differ: missing {sorted(want_paths.keys() - got_paths.keys())}, "
+            f"unexpected {sorted(got_paths.keys() - want_paths.keys())}"
+        )
+    for name, w in want_paths.items():
+        g = got_paths[name]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise ValueError(
+                f"parameter {name}: got {g.dtype} {tuple(g.shape)}, the port "
+                f"expects {w.dtype} {tuple(w.shape)}"
+            )
+    return pytree.tree_map(lambda t: t.to(device), got)

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), built with ``nvcc`` at
 first use (:mod:`._build`).
 
-``stack_ops`` — the VM's batched stack push/peek (K1/K2), replacing the
-JAX package's Pallas TPU kernels.  Each package ships ``csrc/`` (CUDA),
+``stack_ops`` — the VM's batched stack push/peek (K1/K2);
+``flash_attention`` — causal GQA prefill attention (K3);
+``flash_decode`` — one-token attention against the KV cache (K4).
+Each replaces one of the JAX package's Pallas TPU kernels.  Each package ships ``csrc/`` (CUDA),
 ``kernel.py`` (ctypes binding), ``ops.py`` (checks, device dispatch, launch
 counts) and ``ref.py`` (plain PyTorch versions).
 """

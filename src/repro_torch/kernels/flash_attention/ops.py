@@ -1,0 +1,66 @@
+"""Wrapper for causal GQA flash attention (K3): ``[B, S, H, Dh]`` layout in
+and out, argument checks, device dispatch and a launch count.
+
+A tensor on the CPU runs the plain version in :mod:`.ref`; any other
+tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
+use) or raises.  There is no fallback from the card to the plain version.
+
+``flash_attention.launches`` counts kernel launches (CPU calls do not
+count); callers reset it by assigning 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"need q [B, S, H, Dh] and k, v [B, T, Hkv, Dh]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, h, dh = q.shape
+    _, t, hk, dk = k.shape
+    if k.shape[0] != b or dk != dh or hk == 0 or h % hk:
+        raise ValueError(
+            f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree on batch or "
+            "head dim, or H is not a multiple of Hkv"
+        )
+    if causal and s != t:
+        raise ValueError(
+            f"causal attention needs S == T (top-left mask, as the kernel "
+            f"computes it), got S={s}, T={t}"
+        )
+    for name, n in (("S", s), ("T", t)):
+        tile = min(kernel.BLOCK, n)
+        if n % tile:
+            raise ValueError(
+                f"{name}={n} is not a multiple of the {tile}-row tile "
+                f"(allowed: up to {kernel.BLOCK}, or a multiple of {kernel.BLOCK})"
+            )
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B, S, H, Dh]; k, v: [B, T, Hkv, Dh] -> [B, S, H, Dh] in q's dtype."""
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal)
+    if q.dtype not in kernel.DTYPES:
+        raise TypeError(f"the CUDA kernel takes {list(kernel.DTYPES)}, got {q.dtype}")
+    if q.shape[-1] not in kernel.HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {kernel.HEAD_DIMS}")
+    if any(x.stride(3) != 1 for x in (q, k, v)):
+        raise ValueError("q, k and v need a contiguous last (head-dim) axis")
+    out = kernel.flash_attention(q, k, v, causal=causal)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

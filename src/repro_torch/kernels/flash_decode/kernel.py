@@ -1,0 +1,59 @@
+"""ctypes binding of the hand-written CUDA decode attention
+(``csrc/flash_decode.cu``), which replaces the Pallas TPU kernel
+``src/repro/kernels/flash_decode/kernel.py:decode_attention``.
+
+It takes ``q [B, H, Dh]`` and the cache as it lies, ``k, v [B, W, Hkv,
+Dh]``, read through their batch, row and head strides; :mod:`.ops`
+validates arguments and counts launches.  The library is built with
+``nvcc`` at the first launch (see :mod:`repro_torch.kernels._build`), never
+at import; a failed build raises from :func:`library`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+
+import torch
+
+from .. import _build
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 8  # query heads per KV head
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built and loaded kernel library (built on the first call)."""
+    lib = _build.load("flash_decode", SOURCES)
+    lib.flash_decode_fwd.argtypes = (
+        [_P] * 5 + [_L] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]
+    )
+    lib.flash_decode_fwd.restype = _I
+    return lib
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     count: torch.Tensor) -> torch.Tensor:
+    """q contiguous ``[B, H, Dh]``; k, v ``[B, W, Hkv, Dh]`` with a
+    contiguous last axis; count int32 ``[B]``; one CUDA device, one dtype
+    in :data:`DTYPES` -> a new contiguous ``[B, H, Dh]``."""
+    b, h, dh = q.shape
+    w, hk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    code = library().flash_decode_fwd(
+        out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), count.data_ptr(),
+        *k.stride()[:3], *v.stride()[:3],
+        b, w, h, hk, dh, 1.0 / math.sqrt(dh), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if code != 0:
+        raise RuntimeError(f"flash_decode_fwd launch failed with CUDA error {code}")
+    return out

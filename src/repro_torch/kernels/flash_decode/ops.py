@@ -1,0 +1,65 @@
+"""Wrapper for single-token decode attention (K4): ``q [B, H, Dh]``
+against the cache as the model keeps it, ``k, v [B, W, Hkv, Dh]``, with
+argument checks, device dispatch and a launch count.
+
+A tensor on the CPU runs the plain version in :mod:`.ref`; any other
+tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
+use) or raises.  There is no fallback from the card to the plain version.
+The cache is read where it lies, through its strides: the serving VM hands
+over views whose batch axis is not the outermost, and no copy is made.
+
+``decode_attention.launches`` counts kernel launches (CPU calls do not
+count); callers reset it by assigning 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           count: torch.Tensor) -> None:
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"need q [B, H, Dh] and k, v [B, W, Hkv, Dh]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, h, dh = q.shape
+    _, w, hk, dk = k.shape
+    if k.shape[0] != b or dk != dh or hk == 0 or h % hk:
+        raise ValueError(
+            f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree on batch or "
+            "head dim, or H is not a multiple of Hkv"
+        )
+    if count.dtype != torch.int32 or count.shape != (b,):
+        raise TypeError(f"count must be int32 [{b}], got {count.dtype} {tuple(count.shape)}")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device == count.device):
+        raise ValueError(f"q, k, v, count on {q.device}, {k.device}, {v.device}, {count.device}")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     count: torch.Tensor) -> torch.Tensor:
+    """q: [B, H, Dh]; k, v: [B, W, Hkv, Dh]; count: int32 [B] valid cache
+    rows per sequence -> [B, H, Dh] in q's dtype (zeros where count is 0)."""
+    _check(q, k, v, count)
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, count)
+    if q.dtype not in kernel.DTYPES:
+        raise TypeError(f"the CUDA kernel takes {list(kernel.DTYPES)}, got {q.dtype}")
+    if q.shape[-1] not in kernel.HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {kernel.HEAD_DIMS}")
+    if q.shape[1] // k.shape[2] > kernel.MAX_GROUP:
+        raise ValueError(f"more than {kernel.MAX_GROUP} query heads per KV head")
+    if not q.is_contiguous() or not count.is_contiguous():
+        raise ValueError("q and count must be contiguous")
+    if any(x.stride(3) != 1 for x in (k, v)):
+        raise ValueError("k and v need a contiguous last (head-dim) axis")
+    out = kernel.decode_attention(q, k, v, count)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

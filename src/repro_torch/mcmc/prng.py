@@ -13,13 +13,14 @@ draws in both packages:
 * ``uniform``: the top 23 bits as the mantissa of a float in ``[1, 2)``,
   minus one, scaled, then ``max(minval, .)``;
 * ``bernoulli``: ``uniform < p``;
-* ``normal``: ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``.
+* ``normal``: ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``, with
+  XLA's float32 ``erfinv`` polynomial (``ErfInv32``) written as tensor ops.
 
 A key is a ``[2]`` tensor of **int32 bit patterns** (JAX keeps uint32; the
 bits are the same).  Arithmetic runs in int64 masked to 32 bits.  Every
 function is pure tensor code on one key, so ``torch.func.vmap`` maps it
-over a batch of keys.  ``normal`` matches JAX to a few ulp only: its
-``erfinv`` is PyTorch's, not XLA's polynomial.
+over a batch of keys.  ``normal`` matches JAX to one or two ulp, not bit
+for bit: the polynomial is XLA's, but ``log1p`` is PyTorch's.
 """
 from __future__ import annotations
 
@@ -101,10 +102,34 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+# XLA's ErfInv32 (xla/client/lib/math.cc): a degree-8 polynomial in
+# w - 2.5 for w = -log1p(-x*x) < 5, else in sqrt(w) - 3, times x.
+_ERFINV_SMALL_W = (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+)
+_ERFINV_LARGE_W = (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function with XLA's polynomial (``ErfInv32``),
+    ``+-inf`` at ``|x| == 1``; within an ulp or two of ``jax.lax.erf_inv``."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(small, _ERFINV_SMALL_W[0], _ERFINV_LARGE_W[0])
+    for lo, hi in zip(_ERFINV_SMALL_W[1:], _ERFINV_LARGE_W[1:]):
+        p = torch.where(small, lo, hi) + p * w
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
 def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """float32 standard normals (``jax.random.normal``), via ``erfinv``."""
+    """float32 standard normals (``jax.random.normal``), via :func:`erfinv`."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _SQRT2 * torch.erfinv(u)
+    return _SQRT2 * erfinv(u)
 
 
 def prng_key(seed: int) -> torch.Tensor:

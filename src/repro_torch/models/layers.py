@@ -1,0 +1,302 @@
+"""Foundational layers: norms, RoPE, GQA attention, FFNs, embeddings.
+
+A port of the JAX package's ``models/layers.py`` with its conventions:
+
+* Params are plain nested dicts of tensors, stored in ``cfg.param_dtype``
+  and cast to ``cfg.compute_dtype`` at use sites.
+* Sequence tensors are ``[batch, seq, ...]``; attention heads stay a
+  separate axis ``[B, S, H, Dh]`` until the output projection.
+* Softmax and norm statistics run in float32.
+* KV caches are fixed-shape ring buffers ``{"k": [B, W, Hkv, Dh], "v": ...}``
+  in the compute dtype.
+
+Not ported yet: M-RoPE (the vlm family) and the int8 KV cache.  The
+sharding constraints of ``_project_qkv`` are left out: they do nothing
+without a mesh.  Prefill attention goes through K3 when ``use_flash`` is
+set, decode attention always through K4 (the JAX package computes the
+same masked softmax in plain XLA there).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.flash_decode import ops as decode_ops
+
+Params = dict
+NEG_INF = -1e30
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cdtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+def pdtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def _normal(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ArchConfig, d: int, device) -> Params:
+    p = {"scale": torch.ones((d,), dtype=pdtype(cfg), device=device)}
+    if cfg.norm == "ln":
+        p["bias"] = torch.zeros((d,), dtype=pdtype(cfg), device=device)
+    return p
+
+
+def norm(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "ln":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``[B, S, Dh/2]`` for ``positions [B, S]``."""
+    half = head_dim // 2
+    inv = (theta ** (-np.arange(0, half) * 2.0 / head_dim)).astype(np.float32)
+    inv = torch.from_numpy(inv).to(positions.device)
+    angles = positions[..., None].float() * inv
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE. ``x``: [B, S, H, Dh]; cos/sin: [B, S, Dh/2]."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    cos = cos[:, :, None, :].float()
+    sin = sin[:, :, None, :].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    d = cfg.d_model
+    dh = cfg.resolved_head_dim
+    h, hk = cfg.num_heads, cfg.num_kv_heads
+    dt = pdtype(cfg)
+    scale_in = 1.0 / math.sqrt(d)
+    scale_out = 1.0 / math.sqrt(h * dh)
+    p: Params = {
+        "wq": _normal(gen, (d, h * dh), dt, device) * scale_in,
+        "wk": _normal(gen, (d, hk * dh), dt, device) * scale_in,
+        "wv": _normal(gen, (d, hk * dh), dt, device) * scale_in,
+        "wo": _normal(gen, (h * dh, d), dt, device) * scale_out,
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", hk * dh), ("bv", hk * dh)):
+            p[name] = torch.zeros((n,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=dt, device=device)
+    return p
+
+
+def _project_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    h, hk = cfg.num_heads, cfg.num_kv_heads
+    ct = x.dtype
+    q = x @ params["wq"].to(ct)
+    k = x @ params["wk"].to(ct)
+    v = x @ params["wv"].to(ct)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(ct)
+        k = k + params["bk"].to(ct)
+        v = v + params["bv"].to(ct)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hk, dh)
+    v = v.reshape(b, s, hk, dh)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: [B,S,H,Dh], k: [B,T,Hkv,Dh] -> scores [B,Hkv,G,S,T] (f32)."""
+    b, s, h, dh = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, s, hk, h // hk, dh)
+    # Products of the compute dtype summed in f32 (preferred_element_type).
+    return torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / np.sqrt(dh)
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs: [B,Hkv,G,S,T] (f32), v: [B,T,Hkv,Dh] -> [B,S,H*Dh]."""
+    b, hk, g, s, _ = probs.shape
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, hk * g * v.shape[-1])
+
+
+def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
+              positions: torch.Tensor, *, use_flash: bool = False) -> torch.Tensor:
+    """Full-sequence attention (prefill); ``positions`` [B, S].  Causality
+    comes from ``cfg.causal``.  With ``use_flash`` a causal layer runs K3."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if use_flash and cfg.causal:
+        out = flash_ops.flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+    else:
+        out = _blocked_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk)
+    return out @ params["wo"].to(x.dtype)
+
+
+def _blocked_attention(q, k, v, *, causal: bool, q_chunk: int) -> torch.Tensor:
+    """Row-blocked attention in plain PyTorch: static query chunks, so one
+    ``[B, H, q_chunk, T]`` score block is live at a time; each query row
+    still sees its whole softmax."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    qc = q_chunk
+    while qc > 1 and s % qc:
+        qc //= 2
+    outs = []
+    for i in range(s // qc):
+        scores = _gqa_scores(q[:, i * qc:(i + 1) * qc], k)  # [B,Hkv,G,qc,T]
+        if causal:
+            rows = i * qc + torch.arange(qc, device=q.device)
+            cmask = rows[:, None] >= torch.arange(t, device=q.device)[None, :]
+            scores = torch.where(cmask, scores, NEG_INF)
+        outs.append(_gqa_out(torch.softmax(scores, dim=-1), v))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, window: int, dtype, device) -> Params:
+    if cfg.kv_cache_dtype != "compute":
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 KV cache is not "
+            "ported yet (ROADMAP queue 1, item 12)"
+        )
+    shape = (batch, window, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                     cache: Params, position: torch.Tensor
+                     ) -> tuple[torch.Tensor, Params]:
+    """One decode step against a ring cache.  x: [B, 1, d]; position: [B]
+    absolute position of the new token.  Returns (out [B, 1, d], new cache).
+
+    The new token's K/V go into ring slot ``position % W`` of a new cache
+    (the cache passed in is not written); the attention core is one K4
+    call over the ``min(position + 1, W)`` slots written so far."""
+    b = x.shape[0]
+    window = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(params, x, cfg)  # S = 1
+    cos, sin = rope_angles(position[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k_new = apply_rope(k_new, cos, sin)
+    slot = (position % window).long()
+    bidx = torch.arange(b, device=x.device)
+    k_cache = cache["k"].index_put((bidx, slot), k_new[:, 0])
+    v_cache = cache["v"].index_put((bidx, slot), v_new[:, 0])
+    count = torch.clamp(position + 1, max=window).to(torch.int32)
+    out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache, count)  # [B,H,Dh]
+    out = out.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
+    return out, {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# FFNs
+# ---------------------------------------------------------------------------
+
+
+def init_swiglu(gen: torch.Generator, cfg: ArchConfig, d: int, d_ff: int, device) -> Params:
+    dt = pdtype(cfg)
+    return {
+        "wg": _normal(gen, (d, d_ff), dt, device) / np.sqrt(d),
+        "wu": _normal(gen, (d, d_ff), dt, device) / np.sqrt(d),
+        "wd": _normal(gen, (d_ff, d), dt, device) / np.sqrt(d_ff),
+    }
+
+
+def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+    ct = x.dtype
+    g = F.silu(x @ params["wg"].to(ct))
+    u = x @ params["wu"].to(ct)
+    return (g * u) @ params["wd"].to(ct)
+
+
+def init_gelu_mlp(gen: torch.Generator, cfg: ArchConfig, d: int, d_ff: int, device) -> Params:
+    dt = pdtype(cfg)
+    return {
+        "w1": _normal(gen, (d, d_ff), dt, device) / np.sqrt(d),
+        "b1": torch.zeros((d_ff,), dtype=dt, device=device),
+        "w2": _normal(gen, (d_ff, d), dt, device) / np.sqrt(d_ff),
+        "b2": torch.zeros((d,), dtype=dt, device=device),
+    }
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    ct = x.dtype
+    # jax.nn.gelu defaults to the tanh approximation.
+    h = F.gelu(x @ params["w1"].to(ct) + params["b1"].to(ct), approximate="tanh")
+    return h @ params["w2"].to(ct) + params["b2"].to(ct)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+def init_embed(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    dt = pdtype(cfg)
+    p = {"embedding": _normal(gen, (cfg.vocab_size, cfg.d_model), dt, device) * 0.02}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _normal(gen, (cfg.d_model, cfg.vocab_size), dt, device) / np.sqrt(cfg.d_model)
+    return p
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return params["embedding"].to(cdtype(cfg))[tokens.long()]
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        w = params["embedding"].to(x.dtype).T
+    else:
+        w = params["lm_head"].to(x.dtype)
+    return x @ w

@@ -1,11 +1,14 @@
-"""The integer test programs, built with the PyTorch port's builder.
+"""Shared test programs and seeded inputs of the port's tests and
+``chip_smoke.py``, on the CPU and on the card.
 
-They are the port's counterparts of ``build_fib``, ``build_pow_loop`` and
-``build_mutual`` in tests/test_core.py and ``build_deep_recursion`` in
-tests/test_fusion.py, written the same way so both packages lower them to
-the same blocks.  The port's tests and ``chip_smoke.py`` build them from
-here, on the CPU and on the card.
+The integer programs are the port's counterparts of ``build_fib``,
+``build_pow_loop`` and ``build_mutual`` in tests/test_core.py and
+``build_deep_recursion`` in tests/test_fusion.py, written the same way so
+both packages lower them to the same blocks.  The LM slice's inputs
+(attention operands, a decode cache, prompt batches) are made with numpy
+from a seed.
 """
+import numpy as np
 import torch
 
 from repro_torch.core import frontend, ir
@@ -79,3 +82,36 @@ def build_deep_recursion():
     fb.return_()
     pb.add(fb)
     return pb.build()
+
+
+# ---------------------------------------------------------------------------
+# Seeded inputs of the LM slice (float32 CPU tensors and numpy arrays, made
+# with numpy so that both packages can be fed the same values)
+# ---------------------------------------------------------------------------
+
+
+def attention_inputs(b, s, t, h, hk, dh, seed=0):
+    """q ``[B, S, H, Dh]``, k and v ``[B, T, Hkv, Dh]``: standard normals."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 for shape in ((b, s, h, dh), (b, t, hk, dh), (b, t, hk, dh)))
+
+
+def decode_inputs(b, w, h, hk, dh, seed=0):
+    """q ``[B, H, Dh]``, a cache k and v ``[B, W, Hkv, Dh]`` and int32
+    ``count [B]`` drawn from 1 to ``W``."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((b, h, dh), (b, w, hk, dh), (b, w, hk, dh)))
+    count = torch.from_numpy(rng.integers(1, w + 1, b).astype(np.int32))
+    return q, k, v, count
+
+
+def engine_inputs(ecfg, vocab_size, seed=0, min_len=2):
+    """Prompts ``[lanes, R, P]`` of tokens in ``[1, vocab)`` and their
+    lengths ``[lanes, R]`` drawn from ``min_len`` to ``P`` (numpy int32)."""
+    rng = np.random.default_rng(seed)
+    shape = (ecfg.lanes, ecfg.requests_per_lane)
+    prompts = rng.integers(1, vocab_size, shape + (ecfg.max_prompt_len,)).astype(np.int32)
+    plens = rng.integers(min_len, ecfg.max_prompt_len + 1, shape).astype(np.int32)
+    return prompts, plens

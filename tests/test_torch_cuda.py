@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the hand-written CUDA stack
-kernels against their plain versions, and the VM and NUTS on CUDA against
-the same port on the CPU.  They skip where there is no CUDA device; on the
+"""Tests of the port that need the card: the hand-written CUDA kernels
+(stack ops K1/K2, flash attention K3, decode attention K4) against their
+plain versions, a failed build raising, and the VM, NUTS and the serving
+engine on CUDA against the same port on the CPU or its own oracle.  They skip where there is no CUDA device; on the
 card run them with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
 This file imports no JAX (the card's machine has none): it compares the
@@ -12,10 +13,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import batching  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import kernel as fd_kernel  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.stack_ops import ops, ref  # noqa: E402
 from repro_torch.mcmc import nuts, targets  # noqa: E402
-from repro_torch.testing import build_fib, build_mutual  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.serve.engine import EngineConfig, GenerationEngine  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    attention_inputs, build_fib, build_mutual, decode_inputs, engine_inputs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +103,120 @@ def test_nuts_on_cuda_matches_cpu(cuda):
     assert torch.equal(res_c.lane_steps.cpu(), res_h.lane_steps)
     assert res_c.tag_stats == res_h.tag_stats
     torch.testing.assert_close(th_c, th_h, rtol=1e-4, atol=1e-5)
+
+
+# Float32: the kernel and the plain version sum in another order.  bf16:
+# both compute in float32 and round once, so they differ by at most about
+# one bf16 ulp of the output (2**-8 relative).
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,s,t,h,hk,dh,causal", [
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 256, 256, 8, 8, 32, True),
+    (2, 32, 32, 4, 1, 16, True),
+    (1, 192, 192, 2, 2, 128, True),
+    (2, 64, 128, 4, 2, 64, False),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, h, hk, dh, causal):
+    q, k, v = (x.to(cuda, dtype) for x in attention_inputs(b, s, t, h, hk, dh, seed=1))
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), fa_ref.attention(q, k, v, causal=causal).float(),
+                               **TOL[dtype])
+
+
+def test_flash_attention_reads_strided_heads(cuda):
+    """k and v as head slices of one wider tensor: read through strides."""
+    q, k, v = (x.to(cuda) for x in attention_inputs(2, 64, 64, 4, 2, 32, seed=2))
+    kv = torch.cat([k, v], dim=2)  # [B, T, 2*Hkv, Dh]
+    k_view, v_view = kv[:, :, :2], kv[:, :, 2:]
+    assert not k_view.is_contiguous()
+    got = fa_ops.flash_attention(q, k_view, v_view)
+    torch.testing.assert_close(got, fa_ref.attention(q, k, v), **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,w,h,hk,dh", [
+    (2, 128, 4, 2, 16), (4, 256, 8, 1, 32), (3, 512, 9, 3, 64), (2, 96, 4, 2, 128),
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, w, h, hk, dh):
+    q, k, v, count = decode_inputs(b, w, h, hk, dh, seed=3)
+    count[0] = 0  # an empty cache gives zeros
+    count[-1] = w
+    q, k, v = (x.to(cuda, dtype) for x in (q, k, v))
+    count = count.to(cuda)
+    before = fd_ops.decode_attention.launches
+    got = fd_ops.decode_attention(q, k, v, count)
+    torch.cuda.synchronize()
+    assert fd_ops.decode_attention.launches == before + 1
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got.float(), fd_ref.decode_attention(q, k, v, count).float(),
+                               **TOL[dtype])
+
+
+def test_decode_attention_reads_the_cache_where_it_lies(cuda):
+    """The serving VM hands the cache over lane-first and moves it back as
+    a view whose batch axis is not outermost; K4 reads it without a copy."""
+    q, k, v, count = (x.to(cuda) for x in decode_inputs(3, 64, 4, 2, 32, seed=4))
+    layers_first = torch.stack([k, k + 1])  # [L, B, W, Hkv, Dh]
+    lane_first = layers_first.movedim(1, 0).contiguous().movedim(0, 1)
+    k_view = lane_first[1]
+    assert not k_view.is_contiguous()
+    got = fd_ops.decode_attention(q, k_view, v, count)
+    torch.testing.assert_close(got, fd_ref.decode_attention(q, k + 1, v, count),
+                               **TOL[torch.float32])
+
+
+def _flash_call(x):
+    return fa_ops.flash_attention(x, x[:, :, :2], x[:, :, :2])
+
+
+def _decode_call(x):
+    count = torch.ones(x.shape[0], dtype=torch.int32, device=x.device)
+    return fd_ops.decode_attention(x[:, 0].contiguous(), x[:, :, :2], x[:, :, :2], count)
+
+
+@pytest.mark.parametrize("kern,counter,call", [
+    (fa_kernel, fa_ops.flash_attention, _flash_call),
+    (fd_kernel, fd_ops.decode_attention, _decode_call),
+], ids=["flash_attention", "flash_decode"])
+def test_failed_build_raises(cuda, monkeypatch, kern, counter, call):
+    """A real nvcc failure (an unknown flag) raises from the wrapper; nothing
+    runs the plain version instead, and no launch is counted."""
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-flag",))
+    kern.library.cache_clear()
+    x = torch.zeros((2, 64, 4, 16), device=cuda)
+    before = counter.launches
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call(x)
+    finally:
+        kern.library.cache_clear()
+    assert counter.launches == before
+
+
+def test_engine_on_cuda_matches_its_oracle(cuda):
+    """Float32 smoke SmolLM, 4 lanes x 2 requests: the batched engine on the
+    card gives its sequential oracle's tokens, through K4 on every layer
+    of every decode execution."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke_config("smollm-135m")
+    model = get_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ecfg = EngineConfig(lanes=4, max_context=32, max_prompt_len=6, max_new_tokens=8,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(model, params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=0)
+    eng.batched.lowered  # type inference runs the decode prim once
+    fd_ops.decode_attention.launches = 0
+    res = eng.generate(prompts, plens)
+    execs = eng.batched.tag_stats["decode"][0]
+    assert fd_ops.decode_attention.launches == cfg.num_layers * execs
+    ref_out = eng.reference_generate(prompts, plens)
+    np.testing.assert_array_equal(res["tokens"], ref_out["tokens"])
+    np.testing.assert_array_equal(res["lengths"], ref_out["lengths"])
