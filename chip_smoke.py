@@ -10,9 +10,12 @@ non-zero (nothing is caught):
 
 1. environment: torch, the card, ``nvidia-smi``'s name and power limit,
    ``nvcc``; TF32 is switched off for matmuls and cuDNN;
-2. build: the hand-written CUDA kernels (stack ops, flash attention, decode
-   attention), one ``nvcc`` each, all started together, for ``sm_90a``
-   into ``build/torch_kernels/``, with ``ptxas``'s register and spill lines;
+2. build: the hand-written CUDA kernels (stack ops, flash attention on the
+   CUDA cores and on the tensor cores, decode attention), one ``nvcc``
+   each, all started together, for ``sm_90a`` into ``build/torch_kernels/``,
+   with ``ptxas``'s register and spill lines, and the count of ``HGMMA``
+   and ``UTMALDG`` (TMA load) instructions in the tensor-core kernel's SASS
+   where ``cuobjdump`` is present (both must be there);
 3. kernels: K1 ``masked_push`` and K2 ``masked_peek`` against their plain
    PyTorch versions at the VM's shapes (exact equality), with their device
    time (CUDA-graph replay) and time per call from Python (CUDA events)
@@ -28,24 +31,27 @@ non-zero (nothing is caught):
    a third, profiled run gives the device's busy time (beside its own wall
    time and the measured run's), its kernel count and top kernels;
 7. attention kernels: K3 ``flash_attention`` at the prefill shape (B=8,
-   S=T=2048, H=9, Hkv=3, Dh=64) in bf16 and float32 and at Dh=128, G=2,
-   and K4 ``decode_attention`` at the serving shape (B=64, H=9, Hkv=3,
-   Dh=64, W=512, ``count`` drawn from 0 to W) in bf16 and float32, each
-   against its plain version (tolerances stated there), with device time
-   per launch, time per call, the plain version's and one
-   ``scaled_dot_product_attention`` call's device time, and the bound;
+   S=T=2048, H=9, Hkv=3, Dh=64) in bf16 (tensor cores) and float32 (CUDA
+   cores) and at Dh=128, G=2, and K4 ``decode_attention`` at the serving
+   shape (B=64, H=9, Hkv=3, Dh=64, W=512, ``count`` drawn from 0 to W) in
+   bf16 and float32, each against its plain version (tolerances stated
+   there), with device time per launch, time per call, the plain
+   version's and one ``scaled_dot_product_attention`` call's device time,
+   and the bound (K3's TFLOP/s; K4 timed with a cold L2, rotating over
+   copies of the cache, with its share of the byte bound);
 8. prefill at full width: SmolLM-135M on 8 x 2048 tokens through
    ``make_prefill_step`` with K3, a warm-up and one measured run (tokens/s,
-   30 K3 launches), against the same weights with the plain blocked
-   attention: float32 logits within 1e-3, bf16 largest difference and
-   top-1 agreement reported;
+   30 K3 launches, all on the tensor-core kernel), against the same
+   weights with the plain blocked attention: float32 logits within 1e-3,
+   bf16 largest difference and top-1 agreement reported;
 9. the serving engine at full width: a float32 check (4 lanes x 2
    requests, 16-token prompts and completions) equal token for token to
    the sequential oracle on the card, then bf16 with 64 lanes x 2
    requests (prompts of 2 to 64 tokens, 64 new tokens, a 512-token
    cache), once to warm up and once measured (generated tokens/s,
    dispatches, decode utilization, K4 launches held to 30 x decode
-   executions), and a profiled run for the device's busy share.
+   executions), and a profiled run for the device's busy share and K4's
+   device total.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -65,8 +71,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+L2_BYTES = 50e6  # H100 L2 cache
 # H100 SXM dense peaks (NVIDIA data sheet, no sparsity): bf16 on the tensor
-# cores; float32 outside them (K3 and K4 compute float32 on CUDA cores).
+# cores; float32 outside them (the float32 kernels run on the CUDA cores).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 CHAINS = 1024  # the paper's widest batch (fig5_throughput.py --full)
 ARCH = "smollm-135m"  # the repo's serving model (examples/serve_lm.py)
@@ -109,7 +116,8 @@ def phase_env(torch) -> str:
 
 
 def phase_build() -> None:
-    """Build every kernel library at once (one ``nvcc`` per source)."""
+    """Build every kernel library at once (one ``nvcc`` per source), and
+    count the tensor-core and TMA instructions of K3's Hopper kernel."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -117,13 +125,16 @@ def phase_build() -> None:
     from repro_torch.kernels.flash_decode import kernel as fd_kernel
     from repro_torch.kernels.stack_ops import kernel as sk_kernel
 
-    mods = {"stack_ops": sk_kernel, "flash_attention": fa_kernel, "flash_decode": fd_kernel}
+    libs = {"stack_ops": (sk_kernel.SOURCES, sk_kernel.library),
+            "flash_attention": (fa_kernel.SOURCES, fa_kernel.library),
+            "flash_attention_sm90": (fa_kernel.SM90_SOURCES, fa_kernel.library_sm90),
+            "flash_decode": (fd_kernel.SOURCES, fd_kernel.library)}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        paths = dict(zip(mods, pool.map(lambda kv: _build.build(kv[0], kv[1].SOURCES),
-                                         mods.items())))
-    for name, mod in mods.items():
-        mod.library()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = dict(zip(libs, pool.map(lambda kv: _build.build(kv[0], kv[1][0]),
+                                         libs.items())))
+    for name, (_, library) in libs.items():
+        library()
         path = paths[name]
         print(f"build: {name} -> {path.relative_to(ROOT)}")
         log = path.with_suffix(".log")
@@ -132,6 +143,16 @@ def phase_build() -> None:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"  ptxas: {line.strip()}")
     print(f"build: all libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print("build: cuobjdump not available")
+        return
+    sass = run([str(cuobjdump), "-sass", str(paths["flash_attention_sm90"])])
+    hgmma, tma = sass.count("HGMMA"), sass.count("UTMALDG")
+    print(f"build: flash_attention_sm90 SASS holds {hgmma} HGMMA and {tma} UTMALDG "
+          f"instructions")
+    check(hgmma > 0 and tma > 0, "K3's Hopper kernel has no HGMMA or no TMA load in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +199,19 @@ def _device_ms(torch, fn, iters: int = 100, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def _rotating(fn, args: list):
+    """A call of ``fn`` on the next of ``args`` (tuples) in turn each time it
+    is called; captured in a CUDA graph, the calls keep that order."""
+    state = {"i": 0}
+
+    def call():
+        a = args[state["i"] % len(args)]
+        state["i"] += 1
+        return fn(*a)
+
+    return call
 
 
 def phase_kernels(torch, depth: int, lanes: int) -> dict:
@@ -428,9 +462,13 @@ def phase_attention_kernels(torch) -> dict:
             if dh == 128 and dtype == torch.float32:
                 continue
             q, k, v = (x.to(dev, dtype) for x in base)
+            sm90_before = fa_ops.flash_attention.sm90_launches
             got = fa_ops.flash_attention(q, k, v)
             want = fa_ref.attention(q, k, v)
             torch.cuda.synchronize()
+            on_sm90 = fa_ops.flash_attention.sm90_launches == sm90_before + 1
+            check(on_sm90 == (dtype == torch.bfloat16),
+                  f"K3 {dtype} Dh={dh} took the wrong kernel (tensor cores: {on_sm90})")
             torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
             err = float((got.float() - want.float()).abs().max())
             max_err["flash_attention"] = max(max_err["flash_attention"], err)
@@ -444,7 +482,8 @@ def phase_attention_kernels(torch) -> dict:
             flops = 4 * b * h * s * s * dh / 2
             nbytes = (2 * b * s * h * dh + 2 * b * s * hk * dh) * q.element_size()
             bound, by = _bound_ms(flops, nbytes, name)
-            print(f"kernel flash_attention {name:8s} B={b} S=T={s} H={h} Hkv={hk} Dh={dh}: "
+            kind = "tensor cores" if on_sm90 else "CUDA cores"
+            print(f"kernel flash_attention {name:8s} ({kind}) B={b} S=T={s} H={h} Hkv={hk} Dh={dh}: "
                   f"device {kern_dev * 1e3:9.1f} us/launch, call {call * 1e3:9.1f} us "
                   f"(plain {plain * 1e3:9.1f}, sdpa {lib * 1e3:8.1f}, bound {bound * 1e3:7.1f} us "
                   f"by {by}; {flops / kern_dev / 1e9:.1f} TFLOP/s); max |err| {err:.3g}")
@@ -458,6 +497,7 @@ def phase_attention_kernels(torch) -> dict:
     count[0], count[-1] = 0, w  # an empty and a full cache
     count = count.to(dev)
     valid = (torch.arange(w, device=dev)[None] < count[:, None])[:, None, None, :]
+    rows = int(count.sum())
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (x.to(dev, dtype) for x in (q0, k0, v0))
         got = fd_ops.decode_attention(q, k, v, count)
@@ -467,25 +507,35 @@ def phase_attention_kernels(torch) -> dict:
         torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
         err = float((got.float() - want.float()).abs().max())
         max_err["decode_attention"] = max(max_err["decode_attention"], err)
-        qt = q[:, :, None]  # [B, H, 1, Dh]
-        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-        name = str(dtype).replace("torch.", "")
-        kern_dev = _device_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
-        call = _call_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
-        plain = _device_ms(torch, lambda: fd_ref.decode_attention(q, k, v, count), 20)
-        lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=valid, enable_gqa=True))
-        rows = int(count.sum())
         s_el = q.element_size()
         nbytes = 2 * b * h * dh * s_el + 4 * b + 2 * rows * hk * dh * s_el
+        # Cold L2: each timed call reads its own copy of the cache, and the
+        # copies read between two uses of one copy exceed twice the 50 MB L2.
+        copies = 2 + int(2 * L2_BYTES // nbytes)
+        caches = [(k.clone(), v.clone()) for _ in range(copies)]
+        sdpa_caches = [tuple(x.transpose(1, 2).contiguous() for x in kv) for kv in caches]
+        qt = q[:, :, None]  # [B, H, 1, Dh]
+        name = str(dtype).replace("torch.", "")
+        kern_dev = _device_ms(torch, _rotating(
+            lambda kc, vc: fd_ops.decode_attention(q, kc, vc, count), caches))
+        call = _call_ms(torch, _rotating(
+            lambda kc, vc: fd_ops.decode_attention(q, kc, vc, count), caches))
+        plain = _device_ms(torch, _rotating(
+            lambda kc, vc: fd_ref.decode_attention(q, kc, vc, count), caches), 20)
+        lib = _device_ms(torch, _rotating(
+            lambda kt, vt: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
+                                                          enable_gqa=True), sdpa_caches))
+        warm = _device_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
         bound, by = _bound_ms(4 * h * dh * rows, nbytes, name)
         print(f"kernel decode_attention {name:8s} B={b} W={w} H={h} Hkv={hk} Dh={dh} "
-              f"(mean count {rows / b:.1f}): device {kern_dev * 1e3:7.2f} us/launch, "
-              f"call {call * 1e3:7.2f} us (plain {plain * 1e3:8.2f}, sdpa {lib * 1e3:7.2f}, "
-              f"bound {bound * 1e3:6.3f} us by {by}); max |err| {err:.3g}")
+              f"(mean count {rows / b:.1f}; cold L2, {copies} cache copies): device "
+              f"{kern_dev * 1e3:7.2f} us/launch ({bound / kern_dev:.3f} of its byte bound; "
+              f"warm L2 {warm * 1e3:7.2f}), call {call * 1e3:7.2f} us (plain {plain * 1e3:8.2f}, "
+              f"sdpa {lib * 1e3:7.2f}, bound {bound * 1e3:6.3f} us by {by}); max |err| {err:.3g}")
         if dtype == torch.bfloat16:
             report["decode_attention"] = dict(ms=kern_dev, plain_ms=plain, bound_ms=bound,
                                               bound_by=by, library_ms=lib, call_ms=call)
+        del caches, sdpa_caches
     for name in report:
         report[name]["max_abs_err"] = max_err[name]
     return report
@@ -518,19 +568,21 @@ def phase_prefill(torch) -> int:
     step(params, batch)
     torch.cuda.synchronize()
     print(f"prefill: warm-up {time.perf_counter() - t0:.3f} s")
-    fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.sm90_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = step(params, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
+    sm90 = fa_ops.flash_attention.sm90_launches
     check(launches == cfg.num_layers, f"K3 launched {launches} times, want {cfg.num_layers}")
+    check(sm90 == launches, f"only {sm90} of {launches} K3 launches took the tensor-core kernel")
     check(tuple(out.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(out).all()),
           f"prefill logits {tuple(out.shape)} not finite")
     print(f"prefill: {ARCH} full width ({cfg.num_layers} layers, d={cfg.d_model}), "
           f"{cfg.compute_dtype}, {b} x {s} tokens: {wall * 1e3:.3f} ms, "
-          f"{b * s / wall:.1f} tokens/s, K3 launches {launches}")
+          f"{b * s / wall:.1f} tokens/s, K3 launches {launches} (tensor-core kernel {sm90})")
 
     for dtype in ("float32", "bfloat16"):
         c = replace(cfg, compute_dtype=dtype)
@@ -630,6 +682,10 @@ def phase_engine(torch) -> int:
           f"{n_kernels} device kernels ({n_kernels / res.steps:.1f} per dispatch)")
     for e in sorted(avgs, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  {e.key[:90]}")
+    k4 = [e for e in avgs if "decode_split" in e.key or "decode_combine" in e.key]
+    print(f"engine: K4 device time {sum(e.self_device_time_total for e in k4) / 1e3:.3f} ms "
+          f"in {sum(e.count for e in k4)} kernel launches (split and combine) of the "
+          f"profiled run")
     return launches
 
 
@@ -657,7 +713,7 @@ def main() -> int:
     where = {
         "masked_push": ("stack_ops/csrc/stack_ops.cu", "src/repro/kernels/stack_ops/kernel.py:41"),
         "masked_peek": ("stack_ops/csrc/stack_ops.cu", "src/repro/kernels/stack_ops/kernel.py:83"),
-        "flash_attention": ("flash_attention/csrc/flash_attention.cu",
+        "flash_attention": ("flash_attention/csrc/flash_attention_sm90.cu",
                             "src/repro/kernels/flash_attention/kernel.py:81"),
         "decode_attention": ("flash_decode/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_decode/kernel.py:77"),

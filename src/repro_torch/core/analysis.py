@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from . import ir
 
 
@@ -499,15 +500,17 @@ def eval_spec(op: ir.Prim, in_specs: list[ir.Spec], device) -> tuple[ir.Spec, ..
     return tuple(ir.Spec(tuple(o.shape[1:]), o.dtype) for o in outs)
 
 
-def infer_types(program: ir.Program, device="cpu") -> None:
+def infer_types(program: ir.Program, device=None) -> None:
     """Forward abstract interpretation filling ``Function.var_specs``.
 
     Function parameter and output specs are declared; locals are inferred
-    by running each ``Prim.fn`` once (see :func:`eval_spec`) on ``device``,
-    which must be where the primitives' captured tensors live.  Merge
+    by running each ``Prim.fn`` once (see :func:`eval_spec`) on ``device``
+    (the card unless the caller names another), which must be where the
+    primitives' captured tensors live.  Merge
     points must agree exactly (we do not insert casts — the frontends emit
     explicit casts where needed).
     """
+    device = resolve_device(device)
     for func in program.functions.values():
         specs: dict[str, ir.Spec] = dict(func.param_specs)
         typed: set[int] = set()

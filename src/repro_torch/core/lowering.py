@@ -29,6 +29,7 @@ from __future__ import annotations
 import itertools
 from typing import Any
 
+from ..device import resolve_device
 from . import analysis, ir
 
 # Symbolic jump targets used during emission, patched at the end:
@@ -38,14 +39,15 @@ from . import analysis, ir
 _Sym = Any
 
 
-def lower(program: ir.Program, device="cpu") -> ir.LoweredProgram:
+def lower(program: ir.Program, device=None) -> ir.LoweredProgram:
     """Lower ``program`` to the stack-explicit merged form.
 
     Emission is followed by the block-local optimization passes
     (``passes.lowering_passes()``: pop-push elimination, temp detection).
     ``device`` is where type inference runs the primitives once (see
-    ``analysis.infer_types``).
+    ``analysis.infer_types``): the card unless the caller names another.
     """
+    device = resolve_device(device)
     program.validate()
     analysis.infer_types(program, device)
     cg = analysis.CallGraph(program)

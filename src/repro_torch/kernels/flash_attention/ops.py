@@ -2,16 +2,21 @@
 and out, argument checks, device dispatch and a launch count.
 
 A tensor on the CPU runs the plain version in :mod:`.ref`; any other
-tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
-use) or raises.  There is no fallback from the card to the plain version.
+tensor launches a CUDA kernel in :mod:`.kernel` (building it on first
+use) or raises.  There is no fallback from the card to the plain version,
+and none between the two kernels: :func:`.kernel.route` picks one from the
+dtype and head dim, and operands the tensor-core kernel cannot load (a
+pointer or stride that is not a multiple of 16 bytes) raise.
 
-``flash_attention.launches`` counts kernel launches (CPU calls do not
-count); callers reset it by assigning 0.
+``flash_attention.launches`` counts kernel launches of either kernel and
+``flash_attention.sm90_launches`` those of the tensor-core kernel (CPU
+calls count in neither); callers reset them by assigning 0.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import _layout
 from . import kernel, ref
 
 
@@ -58,9 +63,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {q.shape[-1]} not in {kernel.HEAD_DIMS}")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need a contiguous last (head-dim) axis")
-    out = kernel.flash_attention(q, k, v, causal=causal)
+    if kernel.route(q.dtype, q.shape[-1]) == "sm90":
+        _layout.check_aligned(q=q, k=k, v=v)
+        out = kernel.flash_attention_sm90(q, k, v, causal=causal)
+        flash_attention.sm90_launches += 1
+    else:
+        out = kernel.flash_attention(q, k, v, causal=causal)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.sm90_launches = 0

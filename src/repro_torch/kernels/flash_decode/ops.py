@@ -7,14 +7,19 @@ tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version.
 The cache is read where it lies, through its strides: the serving VM hands
 over views whose batch axis is not the outermost, and no copy is made.
+The kernel loads 16 bytes at a time, so a pointer or stride that is not a
+multiple of 16 bytes raises.
 
-``decode_attention.launches`` counts kernel launches (CPU calls do not
-count); callers reset it by assigning 0.
+``decode_attention.launches`` counts calls that launch the kernel, one
+per layer of a decode step, whether or not the window needed the second,
+combining kernel (CPU calls do not count); callers reset it by assigning
+0.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import _layout
 from . import kernel, ref
 
 
@@ -57,6 +62,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q and count must be contiguous")
     if any(x.stride(3) != 1 for x in (k, v)):
         raise ValueError("k and v need a contiguous last (head-dim) axis")
+    _layout.check_aligned(q=q, k=k, v=v)
     out = kernel.decode_attention(q, k, v, count)
     decode_attention.launches += 1
     return out

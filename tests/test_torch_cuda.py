@@ -140,6 +140,71 @@ def test_flash_attention_reads_strided_heads(cuda):
     torch.testing.assert_close(got, fa_ref.attention(q, k, v), **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("b,s,t,h,hk,dh,causal", [
+    (1, 128, 128, 1, 1, 64, False),   # one CTA, G = 1
+    (2, 192, 192, 4, 2, 64, True),    # a 64-row remainder tile
+    (1, 256, 256, 8, 8, 128, True),   # Dh = 128 (two TMA boxes), G = 1
+    (2, 128, 256, 9, 3, 64, False),   # S != T, G = 3 (SmolLM-135M's heads)
+    (1, 384, 384, 8, 1, 64, True),    # G = 8, three key tiles
+    (1, 320, 320, 6, 2, 128, True),   # Dh = 128 with a remainder tile
+], ids=str)
+def test_flash_attention_sm90_matches_plain(cuda, b, s, t, h, hk, dh, causal):
+    """bf16 with Dh 64 or 128 goes through the TMA + wgmma kernel, within
+    the bf16 tolerance of the plain version."""
+    assert fa_kernel.route(torch.bfloat16, dh) == "sm90"
+    q, k, v = (x.to(cuda, torch.bfloat16) for x in attention_inputs(b, s, t, h, hk, dh, seed=6))
+    before, before_sm90 = fa_ops.flash_attention.launches, fa_ops.flash_attention.sm90_launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.sm90_launches == before_sm90 + 1
+    assert fa_ops.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), fa_ref.attention(q, k, v, causal=causal).float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_misaligned_operands_raise(cuda):
+    """TMA and 16-byte loads need aligned pointers and strides: a view one
+    element into a wider tensor raises instead of launching."""
+    q, k, v = (x.to(cuda, torch.bfloat16) for x in attention_inputs(1, 64, 64, 4, 2, 64))
+    wide = torch.zeros((1, 64, 4, 65), dtype=torch.bfloat16, device=cuda)
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="16"):
+        fa_ops.flash_attention(wide[..., 1:], k, v)
+    assert fa_ops.flash_attention.launches == before
+    dq, dk, dv, count = (x.to(cuda) for x in decode_inputs(2, 64, 4, 2, 64))
+    wide = torch.zeros((2, 64, 2, 65), device=cuda)
+    before = fd_ops.decode_attention.launches
+    with pytest.raises(ValueError, match="16"):
+        fd_ops.decode_attention(dq, wide[..., 1:], dv, count)
+    assert fd_ops.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,hk", [(6, 3), (48, 3)], ids=["18-ctas-a-split", "144-ctas-a-split"])
+def test_decode_attention_splits_at_chunk_boundaries(cuda, dtype, b, hk):
+    """Counts 0, 1, chunk - 1, chunk, chunk + 1 and W on the lane-first view
+    the serving VM hands over, with B x Hkv under and over the card's 132
+    SMs: zeros for an empty cache, the plain version elsewhere."""
+    w, g, dh = 192, 3, 64
+    chunk = fd_kernel.split_plan(b, hk, w).chunk
+    q, k, v, _ = decode_inputs(b, w, hk * g, hk, dh, seed=9)
+    counts = [0, 1, chunk - 1, chunk, chunk + 1, w]
+    count = torch.tensor([counts[i % len(counts)] for i in range(b)], dtype=torch.int32)
+    q, k, v, count = q.to(cuda, dtype), k.to(cuda, dtype), v.to(cuda, dtype), count.to(cuda)
+    lane_first = torch.stack([k + 1, k]).movedim(1, 0).contiguous().movedim(0, 1)
+    k_view = lane_first[1]  # [B, W, Hkv, Dh], batch stride 2 * W * Hkv * Dh
+    assert not k_view.is_contiguous()
+    before = fd_ops.decode_attention.launches
+    got = fd_ops.decode_attention(q, k_view, v, count)
+    torch.cuda.synchronize()
+    assert fd_ops.decode_attention.launches == before + 1
+    empty = count == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    torch.testing.assert_close(got.float(), fd_ref.decode_attention(q, k, v, count).float(),
+                               **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,w,h,hk,dh", [
     (2, 128, 4, 2, 16), (4, 256, 8, 1, 32), (3, 512, 9, 3, 64), (2, 96, 4, 2, 128),
@@ -181,22 +246,28 @@ def _decode_call(x):
     return fd_ops.decode_attention(x[:, 0].contiguous(), x[:, :, :2], x[:, :, :2], count)
 
 
-@pytest.mark.parametrize("kern,counter,call", [
-    (fa_kernel, fa_ops.flash_attention, _flash_call),
-    (fd_kernel, fd_ops.decode_attention, _decode_call),
-], ids=["flash_attention", "flash_decode"])
-def test_failed_build_raises(cuda, monkeypatch, kern, counter, call):
+def _flash_sm90_call(x):
+    x = x.to(torch.bfloat16).repeat(1, 1, 1, 4)  # Dh = 64: the tensor-core kernel
+    return fa_ops.flash_attention(x, x[:, :, :2], x[:, :, :2])
+
+
+@pytest.mark.parametrize("library,counter,call", [
+    (fa_kernel.library, fa_ops.flash_attention, _flash_call),
+    (fa_kernel.library_sm90, fa_ops.flash_attention, _flash_sm90_call),
+    (fd_kernel.library, fd_ops.decode_attention, _decode_call),
+], ids=["flash_attention", "flash_attention_sm90", "flash_decode"])
+def test_failed_build_raises(cuda, monkeypatch, library, counter, call):
     """A real nvcc failure (an unknown flag) raises from the wrapper; nothing
     runs the plain version instead, and no launch is counted."""
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-flag",))
-    kern.library.cache_clear()
+    library.cache_clear()
     x = torch.zeros((2, 64, 4, 16), device=cuda)
     before = counter.launches
     try:
         with pytest.raises(RuntimeError, match="nvcc failed"):
             call(x)
     finally:
-        kern.library.cache_clear()
+        library.cache_clear()
     assert counter.launches == before
 
 

@@ -4,7 +4,9 @@ float32 within 2e-5 (both compute in float32, in another order) and bf16
 within 3e-2 (the same bound as the JAX package's own bf16 test).  Also the
 wrapper's refusals: causal attention with ``S != T`` (the kernel's mask is
 top-left aligned, the JAX ``ref.py``'s bottom-right), tiles that do not
-divide the sequence, and a failed build on a device tensor.
+divide the sequence, and a failed build on a device tensor; the choice
+between the two CUDA kernels (tensor cores for bf16 with Dh 64 or 128,
+CUDA cores otherwise) and the 16-byte layout check of the first.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel itself is
 checked on a card by tests/test_torch_cuda.py and ``chip_smoke.py``.
@@ -17,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import ops as j_ops  # noqa: E402
+from repro_torch.kernels import _layout  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as t_ref  # noqa: E402
@@ -113,3 +116,49 @@ def test_device_tensor_raises_when_the_build_fails(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         t_ops.flash_attention(q, kv, kv)
     assert t_ops.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+], ids=str)
+def test_route_depends_on_dtype_and_head_dim_only(dtype, dh, want):
+    assert t_kernel.route(dtype, dh) == want
+
+
+@pytest.mark.parametrize("ptr,strides,itemsize,bad", [
+    (0x1000, (2048 * 9 * 64, 9 * 64, 64, 1), 2, None),         # prefill q, bf16
+    (0x1000, (2048 * 3 * 64, 3 * 64, 64, 1), 2, None),         # prefill k, v
+    (0x1002, (2048 * 9 * 64, 9 * 64, 64, 1), 2, "pointer"),    # one element in
+    (0x1000, (64 * 4 * 65, 4 * 65, 65, 1), 2, "strides"),      # rows of 65
+    (0x1000, (64 * 4 * 68, 4 * 68, 68, 1), 2, "strides"),      # 136 bytes a head
+    (0x1000, (64 * 4 * 68, 4 * 68, 68, 1), 4, None),           # 272 bytes a head
+], ids=str)
+def test_layout_check_needs_16_byte_pointers_and_strides(ptr, strides, itemsize, bad):
+    err = _layout.misalignment("q", ptr, strides, itemsize)
+    if bad is None:
+        assert err is None
+    else:
+        assert err is not None and bad in err
+
+
+def test_tensor_core_route_checks_layout_before_it_builds(monkeypatch):
+    """On a device tensor the tensor-core route raises on a misaligned
+    stride before anything is built or launched, and a failed build of its
+    own library raises too (meta tensors stand in for the card's)."""
+
+    def failing_build():
+        raise RuntimeError("nvcc failed building flash_attention_sm90")
+
+    monkeypatch.setattr(t_kernel, "library_sm90", failing_build)
+    kv = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device="meta")
+    bad_q = torch.empty_strided((1, 64, 4, 64), (64 * 4 * 68, 4 * 68, 68, 1),
+                                dtype=torch.bfloat16, device="meta")
+    before = (t_ops.flash_attention.launches, t_ops.flash_attention.sm90_launches)
+    with pytest.raises(ValueError, match="16 bytes"):
+        t_ops.flash_attention(bad_q, kv, kv)
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc failed building flash_attention_sm90"):
+        t_ops.flash_attention(q, kv, kv)
+    assert (t_ops.flash_attention.launches, t_ops.flash_attention.sm90_launches) == before

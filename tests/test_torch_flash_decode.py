@@ -4,7 +4,10 @@ float32 within 2e-5 and bf16 within 3e-2, plus the cases that pin the
 port to the kernel rather than to the JAX ``ref.py``: ``count == 0`` gives
 zeros (the JAX ref returns the mean of ``v``), ``count == 1`` collapses
 onto the first cache row, and the ring-cache validity rule of the model's
-decode step, ``count = min(pos + 1, W)``.
+decode step, ``count = min(pos + 1, W)``.  The CUDA kernel splits the
+window into chunks and merges their partial softmax states: its split plan
+is checked here, and ``ref.decode_attention_split``, the same arithmetic in
+plain PyTorch, is held to the Pallas kernel at the chunk boundaries.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel itself is
 checked on a card by tests/test_torch_cuda.py and ``chip_smoke.py``.
@@ -125,3 +128,39 @@ def test_device_tensor_raises_when_the_build_fails(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         t_ops.decode_attention(q, kv, kv, count)
     assert t_ops.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 128, 512, 4096])
+def test_split_plan_covers_the_window(window):
+    plan = t_kernel.split_plan(64, 3, window)
+    assert plan.splits * plan.chunk >= window > (plan.splits - 1) * plan.chunk
+    assert plan.grid == (3, 64, plan.splits)
+    assert (plan.splits == 1) == (window <= plan.chunk)
+
+
+# Counts at the chunk boundaries of a 3-chunk window, one sequence each.
+SPLIT_W = 3 * t_kernel.CHUNK
+SPLIT_COUNTS = [0, 1, t_kernel.CHUNK - 1, t_kernel.CHUNK, t_kernel.CHUNK + 1, SPLIT_W]
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """Inputs (b = 6, W = 3 chunks, H = 9, Hkv = 3, Dh = 64) and the Pallas
+    kernel's output (interpret mode) in float32 and bf16."""
+    q, k, v, _ = decode_inputs(len(SPLIT_COUNTS), SPLIT_W, 9, 3, 64, seed=13)
+    count = torch.tensor(SPLIT_COUNTS, dtype=torch.int32)
+    out = {}
+    for name, tdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = (q.to(tdt), k.to(tdt), v.to(tdt), count)
+        kern = j_ops.decode_attention(*(_jax(x) for x in args), block_k=64)
+        out[name] = (args, np.asarray(kern, np.float32))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_mirror_matches_pallas_kernel_at_chunk_boundaries(split_case, dtype):
+    (q, k, v, count), want = split_case[dtype]
+    got = t_ref.decode_attention_split(q, k, v, count, t_kernel.CHUNK)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert (got[0] == 0).all()  # count == 0: no chunk is merged
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])

@@ -207,3 +207,19 @@ def test_constants_default_to_32_bit():
     assert t_frontend.as_constant(1).dtype == torch.int32
     assert t_frontend.as_constant(1.5).dtype == torch.float32
     assert t_frontend.as_constant(True).dtype == torch.bool
+
+
+@pytest.mark.parametrize("entry", ["lower", "infer_types"])
+def test_lowering_defaults_to_the_card(monkeypatch, entry):
+    """With no device, lowering and type inference run on the card like
+    every other entry point: without one they raise what ``resolve_device``
+    raises instead of running on the CPU."""
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device()
+    fn = t_lowering.lower if entry == "lower" else t_analysis.infer_types
+    with pytest.raises(RuntimeError) as got:
+        fn(build_fib())
+    assert str(got.value) == str(want.value)
