@@ -20,16 +20,21 @@ non-zero (nothing is caught):
    PyTorch versions at the VM's shapes (exact equality), with their device
    time (CUDA-graph replay) and time per call from Python (CUDA events)
    beside their byte bound, the plain version's and one PyTorch indexing
-   call's device time;
+   call's device time; then the same kernels as the VM launches them,
+   grouped: NUTS's block-6 push group and block-7 pop group (12 variables
+   and the pc) at 1024 lanes, against ``ref.push_group``/``pop_group``
+   (exact equality), with device time, time per call and byte bound (no
+   single PyTorch call computes a group);
 4. VM exactness: integer programs (fib, mutual recursion) through
    ``autobatch`` on the card, bit-exact against the unbatched oracle;
 5. card vs CPU: NUTS on a 100-d correlated Gaussian, same control flow
    chain by chain and the same samples to 1e-4;
 6. the slice at full width: NUTS on the paper's 10,000 x 100 logistic
    regression with 1024 chains, once to warm up and once measured, with the
-   kernels' launch counts held to the counts the dispatched blocks imply;
-   a third, profiled run gives the device's busy time (beside its own wall
-   time and the measured run's), its kernel count and top kernels;
+   kernels' launch counts held to the counts the dispatched blocks imply
+   (one launch per push or pop group of each dispatched block); a third,
+   profiled run gives the device's busy time (beside its own wall time and
+   the measured run's), its kernel count, top kernels and K1/K2's total;
 7. attention kernels: K3 ``flash_attention`` at the prefill shape (B=8,
    S=T=2048, H=9, Hkv=3, Dh=64) in bf16 (tensor cores) and float32 (CUDA
    cores) and at Dh=128, G=2, and K4 ``decode_attention`` at the serving
@@ -215,14 +220,13 @@ def _rotating(fn, args: list):
 
 
 def phase_kernels(torch, depth: int, lanes: int) -> dict:
-    """K1/K2 vs ref at the VM's shapes; returns per-kernel numbers at the
-    widest main-path shape (float32 F=100: the theta/momentum stacks)."""
+    """K1/K2 vs ref at the VM's shapes, one stack a launch and grouped as
+    the VM launches them; returns per-kernel numbers of the groups."""
     from repro_torch.kernels.stack_ops import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     lanes_idx = torch.arange(lanes, device=dev)
-    report = {}
     max_err = {"masked_push": 0.0, "masked_peek": 0.0}
     for dtype in (torch.float32, torch.int32, torch.bool):
         for feat in (1, 2, 100):
@@ -287,12 +291,113 @@ def phase_kernels(torch, depth: int, lanes: int) -> dict:
                       f"device {kern_dev * 1e3:7.2f} us/launch, call {call * 1e3:7.2f} us "
                       f"(plain {plain_dev * 1e3:7.2f}, library {lib_dev * 1e3:7.2f}, "
                       f"bound {bound * 1e3:6.3f} us)")
-                if dtype == torch.float32 and feat == 100:
-                    report[kname] = dict(ms=kern_dev, plain_ms=plain_dev, bound_ms=bound,
-                                         bound_by="bytes", library_ms=lib_dev, call_ms=call)
+    # The groups are held to exact equality, so they add no error.
+    report = _stack_groups(torch, depth, lanes)
     for name in report:
         report[name]["max_abs_err"] = max_err[name]
     return report
+
+
+def _row_bytes(spec) -> int:
+    return int(np.prod(spec.shape, dtype=np.int64)) * spec.dtype.itemsize
+
+
+def _push_group_bytes(specs, entries, mask) -> int:
+    """Bytes a push group must move: per entry the old top where a lane
+    keeps it or writes it to the stack, the src of masked lanes, the new
+    top, the stack rows written, pointers in and out and the flag (9 B a
+    lane); the mask once."""
+    z, on = mask.numel(), int(mask.sum())
+    total = z
+    for spec, (_, ptr, _, src) in zip(specs, entries):
+        row = _row_bytes(spec)
+        w = int((mask & (ptr >= 0) & (ptr < spec.depth)).sum())
+        total += 9 * z + 2 * w * row
+        if src is not None:
+            total += (z - on) * row + on * row + z * row
+    return total
+
+
+def _pop_group_bytes(specs, mask) -> int:
+    """Per entry the stack row of masked lanes, the old top of the others,
+    the new top and pointers in and out; the mask once."""
+    z = mask.numel()
+    return z + sum(2 * z * _row_bytes(spec) + 8 * z for spec in specs)
+
+
+def _stack_groups(torch, depth: int, lanes: int) -> dict:
+    """NUTS's block-6 push group and block-7 pop group, as the VM makes
+    them, against the plain versions; their numbers for the kernels line."""
+    from repro_torch.core import pc_vm
+    from repro_torch.kernels.stack_ops import ref
+    from repro_torch.mcmc import nuts, targets
+    from repro_torch.testing import stack_group_inputs, to_torch
+
+    settings = nuts.NutsSettings(max_tree_depth=10, num_steps=2, steps_per_leaf=4)
+    target = targets.logistic_regression(num_data=10_000, dim=100, device="cuda")
+    lowered = nuts.make_nuts_kernel(target, settings, device="cuda").lowered
+    vm = pc_vm.ProgramCounterVM(lowered, pc_vm.VMConfig(batch_size=lanes, max_depth=depth),
+                                "cuda")
+    (push,), (pop,) = vm.stack_groups[6], vm.stack_groups[7]
+    check(push.kind == "push" and push.pc and len(push) == 13, f"block 6 group {push}")
+    check(pop.kind == "pop" and pop.pc and len(pop) == 13, f"block 7 group {pop}")
+    dev = torch.device("cuda")
+
+    def make(group, seed):
+        np_entries, np_mask = stack_group_inputs(group.call.specs, lanes, seed)
+        entries = [(to_torch(st, sp.dtype, dev), torch.from_numpy(p).to(dev),
+                    to_torch(t, sp.dtype, dev), to_torch(src, sp.dtype, dev))
+                   for (st, p, t, src), sp in zip(np_entries, group.call.specs)]
+        if group.pc:  # the pc push has no src
+            entries[-1] = entries[-1][:3] + (None,)
+        return entries, torch.from_numpy(np_mask).to(dev)
+
+    report = {}
+    entries, mask = make(push, 20)
+    clone = [(st.clone(), p, t, src) for st, p, t, src in entries]
+    flags = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    want_flags = flags.clone()
+    got = push.call(entries, mask, flags, depth)
+    want = ref.push_group(clone, mask, want_flags, depth)
+    torch.cuda.synchronize()
+    check(torch.equal(flags, want_flags), "push group: overflow flags != ref")
+    for i, spec in enumerate(push.call.specs):
+        same = (torch.equal(entries[i][0], clone[i][0]) and torch.equal(got[0][i], want[0][i])
+                and (got[1][i] is None) == (want[1][i] is None)
+                and (got[1][i] is None or torch.equal(got[1][i], want[1][i])))
+        check(same, f"push group entry {i} ({spec}) != ref.push_group")
+    nbytes = _push_group_bytes(push.call.specs, entries, mask)
+    report["masked_push"] = _time_group(
+        torch, "push group (block 6)", len(push), lanes, nbytes,
+        lambda: push.call(entries, mask, flags, depth),
+        lambda: ref.push_group(clone, mask, want_flags, depth))
+
+    entries, mask = make(pop, 21)
+    pop_entries = [(st, p, t) for st, p, t, _ in entries]
+    got = pop.call(pop_entries, mask)
+    want = ref.pop_group(pop_entries, mask)
+    torch.cuda.synchronize()
+    for i, spec in enumerate(pop.call.specs):
+        check(torch.equal(got[0][i], want[0][i]) and torch.equal(got[1][i], want[1][i]),
+              f"pop group entry {i} ({spec}) != ref.pop_group")
+    nbytes = _pop_group_bytes(pop.call.specs, mask)
+    report["masked_peek"] = _time_group(
+        torch, "pop group (block 7)", len(pop), lanes, nbytes,
+        lambda: pop.call(pop_entries, mask), lambda: ref.pop_group(pop_entries, mask))
+    return report
+
+
+def _time_group(torch, what: str, n: int, lanes: int, nbytes: int, kern, plain) -> dict:
+    call = _call_ms(torch, kern)
+    kern_dev = _device_ms(torch, kern)
+    plain_dev = _device_ms(torch, plain, 20)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel {what}: {n} stacks, Z={lanes}, exact vs plain: device "
+          f"{kern_dev * 1e3:7.2f} us/launch, call {call * 1e3:7.2f} us (plain "
+          f"{plain_dev * 1e3:8.2f}, library -, bound {bound * 1e3:6.3f} us for "
+          f"{nbytes / 1e6:.3f} MB; {bound / kern_dev:.3f} of it)")
+    return dict(ms=kern_dev, plain_ms=plain_dev, bound_ms=bound, bound_by="bytes",
+                library_ms=None, call_ms=call)
 
 
 # ---------------------------------------------------------------------------
@@ -380,16 +485,10 @@ def phase_full(torch, chains: int, settings) -> dict:
         check(tuple(v.shape) == (chains, 100), f"{k} has shape {tuple(v.shape)}")
         check(bool(torch.isfinite(v).all()), f"{k} has non-finite values")
     blocks = kern.lowered.blocks
-    want_push = sum(
-        int(res.block_exec[b]) * (
-            sum(isinstance(op, ir.LPush) for op in blk.ops)
-            + isinstance(blk.term, ir.LPushJump))
-        for b, blk in enumerate(blocks))
-    want_peek = sum(
-        int(res.block_exec[b]) * (
-            sum(isinstance(op, ir.LPop) for op in blk.ops)
-            + isinstance(blk.term, ir.LReturn))
-        for b, blk in enumerate(blocks))
+    per_push = [_group_launches(blk, ir.LPush, ir.LPushJump) for blk in blocks]
+    per_peek = [_group_launches(blk, ir.LPop, ir.LReturn) for blk in blocks]
+    want_push = sum(int(n) * k for n, k in zip(res.block_exec, per_push))
+    want_peek = sum(int(n) * k for n, k in zip(res.block_exec, per_peek))
     check(push == want_push, f"masked_push launches {push} != {want_push} from block_exec")
     check(peek == want_peek, f"masked_peek launches {peek} != {want_peek} from block_exec")
     execs, active = res.tag_stats["grad"]
@@ -400,8 +499,9 @@ def phase_full(torch, chains: int, settings) -> dict:
     print(f"full: wall {wall:.3f} s, {res.steps} dispatches, "
           f"{wall / res.steps * 1e3:.3f} ms/dispatch, {grads} gradient evaluations, "
           f"{grads / wall:.1f} grads/s, grad utilization {util:.3f}")
-    print(f"full: launches masked_push={push} masked_peek={peek} "
-          f"(= block_exec x per-block pushes/pops)")
+    print(f"full: launches masked_push={push} masked_peek={peek} (= block_exec x "
+          f"push/pop groups of each block; {sum(k > 0 for k in per_push)} blocks push, "
+          f"{sum(k > 0 for k in per_peek)} pop)")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -420,7 +520,27 @@ def phase_full(torch, chains: int, settings) -> dict:
           f"({n_kernels / res.steps:.1f} per dispatch)")
     for e in sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    for name in ("push_kernel", "pop_kernel"):
+        k = [e for e in avgs if name in e.key]
+        print(f"full: {name} device time {sum(e.self_device_time_total for e in k) / 1e3:.3f} "
+              f"ms in {sum(e.count for e in k)} launches of the profiled run")
     return {"masked_push": push, "masked_peek": peek}
+
+
+def _group_launches(blk, op_type, pc_term) -> int:
+    """Stack-kernel launches of one dispatch of ``blk``: its runs of
+    ``op_type`` ops, the pc's push or pop joining the last (or alone), one
+    launch per 16 stacks."""
+    runs, n = [], 0
+    for op in blk.ops:
+        if isinstance(op, op_type):
+            n += 1
+        elif n:
+            runs, n = runs + [n], 0
+    runs += [n] if n else []
+    if isinstance(blk.term, pc_term):
+        runs = runs[:-1] + [runs[-1] + 1] if runs else [1]
+    return sum(-(-r // 16) for r in runs)
 
 
 # ---------------------------------------------------------------------------

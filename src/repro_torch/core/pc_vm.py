@@ -16,10 +16,15 @@ eager has neither, so this VM drives the same loop from the host:
 Recursion is materialized into fixed-shape ``[depth, batch, ...]`` stacks,
 so members at *different stack depths* batch together whenever their
 pc-tops coincide.  All stack traffic — the variable stacks and the pc
-stack — goes through :mod:`repro_torch.kernels.stack_ops`: on a CUDA
-device the hand-written kernels (pushes write the stack in place), on the
-CPU their plain versions.  No caller keeps a reference to an older stack,
-so the in-place push is safe.
+stack — goes through :mod:`repro_torch.kernels.stack_ops` in groups
+(:class:`StackGroup`, fixed when the VM is made): each maximal run of a
+block's pushes, or of its pops, with the pointer, overflow and select
+arithmetic around them, is one call — on a CUDA device one kernel launch
+per 16 stacks (pushes write the stack in place), on the CPU the plain
+versions.  A ``LPushJump``'s pc push joins the block's last push run and a
+``LReturn``'s pc pop its last pop run (no primitive touches the pc state).
+No caller keeps a reference to an older stack, so the in-place push is
+safe.
 
 Pc, pointer and counter state is int32 as in the JAX VM, so overflow,
 ``steps`` and the statistics match it bit for bit.  Unbatched primitives
@@ -85,6 +90,54 @@ class VMResult:
     lane_steps: torch.Tensor  # [batch] int32 active-dispatch counts
 
 
+@dataclass(frozen=True)
+class StackGroup:
+    """A run of a block's pushes (``kind == "push"``) or pops that runs as one
+    stack-ops call: ``vars`` in order (``srcs``: each push's source), then
+    the pc stack if ``pc``.  ``call`` is the :class:`stack_ops.PushGroup` or
+    :class:`stack_ops.PopGroup` made for it."""
+
+    kind: str
+    vars: tuple[str, ...]
+    srcs: tuple[str, ...]
+    pc: bool
+    call: Any
+
+    def __len__(self) -> int:
+        return len(self.vars) + self.pc
+
+
+def stack_runs(blk: ir.LBlock) -> list:
+    """The block's ops with each run of pushes or pops gathered into a
+    ``(kind, [ops], pc)`` triple.  A run is split where a push's ``src``
+    names a variable pushed earlier in it (that push must read the new top)
+    or where a variable repeats; the terminator's pc push or pop joins the
+    last run of its kind, or ends the block as a run of its own."""
+    items: list = []
+    for op in blk.ops:
+        kind = "push" if isinstance(op, ir.LPush) else "pop" if isinstance(op, ir.LPop) else None
+        if kind is None:
+            items.append(op)
+            continue
+        run = items[-1] if items and isinstance(items[-1], list) and items[-1][0] == kind else None
+        if run is not None:
+            seen = {o.var for o in run[1]}
+            if op.var in seen or (kind == "push" and op.src in seen):
+                run = None
+        if run is None:
+            items.append([kind, [op], False])
+        else:
+            run[1].append(op)
+    pc_kind = {ir.LPushJump: "push", ir.LReturn: "pop"}.get(type(blk.term))
+    if pc_kind is not None:
+        runs = [it for it in items if isinstance(it, list) and it[0] == pc_kind]
+        if runs:
+            runs[-1][2] = True
+        else:
+            items.append([pc_kind, [], True])
+    return [tuple(it) if isinstance(it, list) else it for it in items]
+
+
 def _bcast(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Broadcast a [Z] bool mask against a [Z, ...] value."""
     return mask.view(mask.shape + (1,) * (val.dim() - 1))
@@ -121,6 +174,8 @@ class ProgramCounterVM:
                     )
                 elif not op.batched:
                     self._vmapped[id(op)] = torch.func.vmap(op.fn)
+        # Per block, its stack groups in order (see stack_runs).
+        self.stack_groups: list[list[StackGroup]] = []
         self._block_fns = [
             self._make_block_fn(i, blk) for i, blk in enumerate(lowered.blocks)
         ]
@@ -179,17 +234,49 @@ class ProgramCounterVM:
     # Block bodies
     # ------------------------------------------------------------------
 
+    def _stack_group(self, kind: str, ops: list, pc: bool) -> StackGroup:
+        lp, cfg = self.lowered, self.config
+        specs, srcs = [], []
+        for op in ops:
+            spec = lp.var_specs[op.var]
+            if kind == "push":
+                src = lp.var_specs[op.src]
+                if (src.shape, src.dtype) != (spec.shape, spec.dtype):
+                    raise TypeError(
+                        f"push {op.var} <- {op.src}: the source is {src.dtype} "
+                        f"{src.shape}, the variable {spec.dtype} {spec.shape}"
+                    )
+                srcs.append(op.src)
+            specs.append(stack_ops.StackSpec(cfg.max_depth, spec.shape, spec.dtype))
+        if pc:
+            specs.append(stack_ops.StackSpec(cfg.max_depth, (), _I32))
+        if kind == "push":
+            call = stack_ops.PushGroup(specs, [True] * len(ops) + [False] * pc,
+                                       cfg.batch_size)
+        else:
+            call = stack_ops.PopGroup(specs, cfg.batch_size)
+        return StackGroup(kind, tuple(op.var for op in ops), tuple(srcs), pc, call)
+
     def _make_block_fn(self, bidx: int, blk: ir.LBlock) -> Callable:
         temp_vars = self.lowered.temp_vars
         max_depth = self.config.max_depth
         consts, vmapped = self._consts, self._vmapped
         t = blk.term
-        branch_targets = None
+        items = [
+            it if isinstance(it, ir.LPrim) else self._stack_group(*it)
+            for it in stack_runs(blk)
+        ]
+        self.stack_groups.append([it for it in items if isinstance(it, StackGroup)])
+        branch_targets = ret_top = None
         if isinstance(t, ir.LBranch):
             branch_targets = (
                 torch.tensor(t.true, dtype=_I32, device=self.device),
                 torch.tensor(t.false, dtype=_I32, device=self.device),
             )
+        elif isinstance(t, ir.LPushJump):
+            # The return address, the pc push's old top.
+            ret_top = torch.full((self.config.batch_size,), t.ret, dtype=_I32,
+                                 device=self.device)
 
         def run(state: dict[str, Any], mask: torch.Tensor) -> None:
             imask = mask.to(_I32)
@@ -206,12 +293,7 @@ class ProgramCounterVM:
                 else:
                     tops[v] = _masked(mask, val.to(tops[v].dtype), tops[v])
 
-            def overflow(ptr: torch.Tensor) -> None:
-                state["depth_exceeded"] = state["depth_exceeded"] | (
-                    mask & (ptr >= max_depth)
-                )
-
-            for op in blk.ops:
+            for op in items:
                 if isinstance(op, ir.LPrim):
                     if op.fn is ir.identity:
                         outs = (read(op.ins[0]),)
@@ -225,44 +307,39 @@ class ProgramCounterVM:
                             outs = (outs,)
                     for name, val in zip(op.outs, outs):
                         write(name, val)
-                elif isinstance(op, ir.LPush):
-                    old_top = tops[op.var]
-                    overflow(ptrs[op.var])
-                    stack_ops.masked_push(
-                        stacks[op.var], ptrs[op.var], old_top.contiguous(), mask
-                    )
-                    ptrs[op.var] = ptrs[op.var] + imask
-                    tops[op.var] = _masked(mask, read(op.src), old_top)
-                elif isinstance(op, ir.LPop):
-                    new_ptr = ptrs[op.var] - imask
-                    restored = stack_ops.masked_peek(stacks[op.var], new_ptr)
-                    tops[op.var] = _masked(mask, restored, tops[op.var])
-                    ptrs[op.var] = new_ptr
-                else:  # pragma: no cover
-                    raise AssertionError(op)
+                elif op.kind == "push":
+                    entries = [(stacks[v], ptrs[v], tops[v], read(s))
+                               for v, s in zip(op.vars, op.srcs)]
+                    if op.pc:
+                        entries.append((state["pc_stack"], state["pc_ptr"], ret_top, None))
+                    new_ptrs, new_tops = op.call(entries, mask, state["depth_exceeded"],
+                                                 max_depth)
+                    for v, p, top in zip(op.vars, new_ptrs, new_tops):
+                        ptrs[v], tops[v] = p, top
+                    if op.pc:
+                        state["pc_ptr"] = new_ptrs[-1]
+                else:
+                    entries = [(stacks[v], ptrs[v], tops[v]) for v in op.vars]
+                    if op.pc:
+                        entries.append((state["pc_stack"], state["pc_ptr"], state["pc_top"]))
+                    new_ptrs, new_tops = op.call(entries, mask)
+                    for v, p, top in zip(op.vars, new_ptrs, new_tops):
+                        ptrs[v], tops[v] = p, top
+                    if op.pc:
+                        state["pc_ptr"], state["pc_top"] = new_ptrs[-1], new_tops[-1]
 
-            pc_top, pc_ptr = state["pc_top"], state["pc_ptr"]
-            if isinstance(t, ir.LJump):
+            # The pc stack's push or pop already ran in its group.
+            pc_top = state["pc_top"]
+            if isinstance(t, (ir.LJump, ir.LPushJump)):
                 pc_top = pc_top.masked_fill(mask, t.target)
             elif isinstance(t, ir.LBranch):
                 cond = read(t.var)
                 cond = cond if cond.dtype == torch.bool else cond != 0
                 chosen = torch.where(cond, *branch_targets)
                 pc_top = torch.where(mask, chosen, pc_top)
-            elif isinstance(t, ir.LPushJump):
-                # Bury the return address; jump to the callee entry.
-                overflow(pc_ptr)
-                ret = torch.full((z,), t.ret, dtype=_I32, device=mask.device)
-                stack_ops.masked_push(state["pc_stack"], pc_ptr, ret, mask)
-                pc_ptr = pc_ptr + imask
-                pc_top = pc_top.masked_fill(mask, t.target)
-            elif isinstance(t, ir.LReturn):
-                pc_ptr = pc_ptr - imask
-                restored = stack_ops.masked_peek(state["pc_stack"], pc_ptr)
-                pc_top = torch.where(mask, restored, pc_top)
-            else:  # pragma: no cover
+            elif not isinstance(t, ir.LReturn):  # pragma: no cover
                 raise AssertionError(t)
-            state["pc_top"], state["pc_ptr"] = pc_top, pc_ptr
+            state["pc_top"] = pc_top
             state["lane_steps"] = state["lane_steps"] + imask
 
         return run

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), built with ``nvcc`` at
 first use (:mod:`._build`).
 
-``stack_ops`` — the VM's batched stack push/peek (K1/K2);
+``stack_ops`` — the VM's batched stack push/peek (K1/K2), grouped: one
+launch per run of a block's pushes or pops;
 ``flash_attention`` — causal GQA prefill attention (K3; TMA and ``wgmma``
 on the tensor cores for bf16 with a head dim of 64 or 128);
 ``flash_decode`` — one-token attention against the KV cache (K4; split

@@ -115,3 +115,38 @@ def engine_inputs(ecfg, vocab_size, seed=0, min_len=2):
     prompts = rng.integers(1, vocab_size, shape + (ecfg.max_prompt_len,)).astype(np.int32)
     plens = rng.integers(min_len, ecfg.max_prompt_len + 1, shape).astype(np.int32)
     return prompts, plens
+
+
+def stack_values(rng, shape, dtype: torch.dtype) -> np.ndarray:
+    """Seeded values of ``shape`` for a stack of ``dtype``, as numpy (bf16
+    as the float32 values it holds exactly)."""
+    if dtype == torch.bool:
+        return rng.integers(0, 2, shape).astype(bool)
+    if dtype == torch.int32:
+        return rng.integers(-2**31, 2**31 - 1, shape, dtype=np.int64).astype(np.int32)
+    x = (rng.normal(size=shape) * 10).astype(np.float32)
+    if dtype == torch.bfloat16:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
+def stack_group_inputs(specs, lanes, seed=0, mask="random"):
+    """Operands of a stack group of ``specs`` (``ops.StackSpec``s) over
+    ``lanes`` lanes, as numpy: per spec ``(stack [D, Z, ...], ptr [Z]
+    int32 drawn from -2 to D + 1, top [Z, ...], src [Z, ...])``, and a bool
+    ``[Z]`` mask that is random, all on (``"on"``) or all off (``"off"``)."""
+    rng = np.random.default_rng(seed)
+    entries = []
+    for s in specs:
+        rows = (lanes,) + tuple(s.shape)
+        entries.append((stack_values(rng, (s.depth,) + rows, s.dtype),
+                        rng.integers(-2, s.depth + 2, lanes).astype(np.int32),
+                        stack_values(rng, rows, s.dtype), stack_values(rng, rows, s.dtype)))
+    m = {"random": rng.integers(0, 2, lanes).astype(bool),
+         "on": np.ones(lanes, bool), "off": np.zeros(lanes, bool)}[mask]
+    return entries, m
+
+
+def to_torch(x: np.ndarray, dtype: torch.dtype, device="cpu") -> torch.Tensor:
+    """A numpy array of :func:`stack_values` as a tensor of ``dtype``."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dtype)

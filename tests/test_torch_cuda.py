@@ -22,12 +22,14 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel as fd_kernel  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
+from repro_torch.kernels.stack_ops import kernel as sk_kernel  # noqa: E402
 from repro_torch.kernels.stack_ops import ops, ref  # noqa: E402
 from repro_torch.mcmc import nuts, targets  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, GenerationEngine  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     attention_inputs, build_fib, build_mutual, decode_inputs, engine_inputs,
+    stack_group_inputs, to_torch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +71,122 @@ def test_kernels_match_plain_versions(cuda, dtype, feat):
     assert torch.equal(got, ref.masked_push(stack, ptr, val, mask))
     assert torch.equal(got_peek, ref.masked_peek(stack, ptr))
     assert (ops.masked_push.launches, ops.masked_peek.launches) == (pushes + 1, peeks + 1)
+
+
+GROUP_DTYPES = (torch.float32, torch.int32, torch.bool, torch.bfloat16)
+GROUP_SHAPES = ((), (2,), (100,), (3, 5), (7,))
+
+
+def _group(specs, lanes, seed, device, mask="random"):
+    """Seeded push entries ``(stack, ptr, top, src)`` and a mask on ``device``."""
+    np_entries, np_mask = stack_group_inputs(specs, lanes, seed, mask)
+    entries = [(to_torch(st, s.dtype, device), torch.from_numpy(p).to(device),
+                to_torch(t, s.dtype, device), to_torch(src, s.dtype, device))
+               for (st, p, t, src), s in zip(np_entries, specs)]
+    return entries, torch.from_numpy(np_mask).to(device)
+
+
+def _check_group(specs, entries, mask, lanes, max_depth=4):
+    """Push and pop groups against ref.push_group / pop_group on clones of
+    the same tensors, bit for bit; one launch per 16 entries of each."""
+    per = -(-len(specs) // sk_kernel.MAX_ENTRIES)
+    has_src = [e[3] is not None for e in entries]
+    clone = [(st.clone(), p, t, src) for st, p, t, src in entries]
+    flags = torch.zeros(lanes, dtype=torch.bool, device=mask.device)
+    want_flags = flags.clone()
+    pushes, peeks = ops.masked_push.launches, ops.masked_peek.launches
+    got = ops.PushGroup(specs, has_src, lanes)(entries, mask, flags, max_depth)
+    want = ref.push_group(clone, mask, want_flags, max_depth)
+    pops = ops.PopGroup(specs, lanes)([(st, p, t) for st, p, t, _ in clone], mask)
+    want_pops = ref.pop_group([(st, p, t) for st, p, t, _ in clone], mask)
+    torch.cuda.synchronize()
+    assert (ops.masked_push.launches, ops.masked_peek.launches) == (pushes + per, peeks + per)
+    assert torch.equal(flags, want_flags)
+    for i in range(len(specs)):
+        assert torch.equal(entries[i][0], clone[i][0]), f"stack {i} ({specs[i]})"
+        assert torch.equal(got[0][i], want[0][i]), f"new ptr {i}"
+        if has_src[i]:
+            assert torch.equal(got[1][i], want[1][i]), f"new top {i} ({specs[i]})"
+        else:
+            assert got[1][i] is None
+        assert torch.equal(pops[0][i], want_pops[0][i]), f"pop ptr {i}"
+        assert torch.equal(pops[1][i], want_pops[1][i]), f"pop top {i} ({specs[i]})"
+
+
+@pytest.mark.parametrize("mask", ["random", "on", "off"])
+@pytest.mark.parametrize("n", [1, 13, 17])
+def test_group_kernels_match_plain_versions(cuda, n, mask):
+    """Random groups of 1, 13 and 17 entries (17 takes two launches) over
+    every dtype and row shape, pointers out of range and negative."""
+    specs = [ops.StackSpec(6, GROUP_SHAPES[i % 5], GROUP_DTYPES[i % 4]) for i in range(n)]
+    entries, m = _group(specs, 300, seed=n, device=cuda, mask=mask)
+    _check_group(specs, entries, m, 300)
+
+
+def _offset(x, by):
+    """``x``'s values in a tensor of the same layout that starts ``by``
+    elements into its storage (a base aligned to fewer bytes)."""
+    buf = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
+    out = buf[by:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (100,)),   # 400 B rows: 16-byte accesses
+    (torch.int32, (2,)),       # 8 B: the PRNG keys
+    (torch.float32, ()),       # 4 B
+    (torch.float32, (3,)),     # 12 B: 4-byte accesses
+    (torch.bfloat16, ()),      # 2 B
+    (torch.bfloat16, (3,)),    # 6 B: 2-byte accesses
+    (torch.bool, ()),          # 1 B
+    (torch.bool, (3,)),        # 3 B: 1-byte accesses
+], ids=str)
+@pytest.mark.parametrize("moved", ["aligned", "stack", "top", "src"])
+def test_group_kernels_every_alignment_class(cuda, dtype, shape, moved):
+    """Each row size, and each operand moved one element off its aligned
+    base, which narrows the accesses (down to the element size)."""
+    specs = [ops.StackSpec(5, shape, dtype)]
+    entries, m = _group(specs, 130, seed=7, device=cuda)
+    st, p, t, src = entries[0]
+    if moved != "aligned":
+        st, t, src = (_offset(x, 1) if moved == name else x
+                      for x, name in ((st, "stack"), (t, "top"), (src, "src")))
+    _check_group(specs, [(st, p, t, src)], m, 130)
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (100,)), (torch.bool, ()),
+                                         (torch.int32, (2,))], ids=str)
+def test_group_kernels_take_a_broadcast_src(cuda, dtype, shape):
+    """A constant src with a lane stride of 0, as the VM broadcasts its
+    constants, beside an ordinary entry; and a pc-like entry with no src."""
+    specs = [ops.StackSpec(5, shape, dtype)] * 2 + [ops.StackSpec(5, (), torch.int32)]
+    entries, m = _group(specs, 200, seed=8, device=cuda)
+    const = entries[0][3][:1].expand(entries[0][3].shape)
+    assert const.stride()[0] == 0
+    entries[0] = entries[0][:3] + (const,)
+    entries[2] = entries[2][:3] + (None,)
+    _check_group(specs, entries, m, 200)
+
+
+def _launches_per_dispatch(vm, kind):
+    return [sum(-(-len(g) // sk_kernel.MAX_ENTRIES) for g in groups if g.kind == kind)
+            for groups in vm.stack_groups]
+
+
+@pytest.mark.parametrize("build,hi", [(build_fib, 11), (build_mutual, 20)], ids=["fib", "mutual"])
+def test_vm_launches_one_kernel_per_stack_group(cuda, build, hi):
+    """K1/K2 launches in a VM run equal the dispatches of each block times
+    its push (pop) groups: none per op, none outside a group."""
+    n = torch.from_numpy(np.random.default_rng(1).integers(0, hi, 9).astype(np.int32))
+    fn = batching.autobatch(build(), max_depth=24, device=cuda)
+    fn(n.to(cuda))
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    fn(n.to(cuda))
+    vm, be = fn._last_executor.vm, fn.last_result.block_exec
+    want = [int(np.dot(be, _launches_per_dispatch(vm, k))) for k in ("push", "pop")]
+    assert [ops.masked_push.launches, ops.masked_peek.launches] == want
+    assert all(want)
 
 
 @pytest.mark.parametrize("build,hi", [(build_fib, 11), (build_mutual, 20)], ids=["fib", "mutual"])
@@ -251,11 +369,29 @@ def _flash_sm90_call(x):
     return fa_ops.flash_attention(x, x[:, :, :2], x[:, :, :2])
 
 
+def _push_group_call(x):
+    stack = x.reshape(4, 2, 64, 16).transpose(0, 1).contiguous()  # [D=2, Z=4, ...]
+    ptr = torch.zeros(4, dtype=torch.int32, device=x.device)
+    mask = torch.ones(4, dtype=torch.bool, device=x.device)
+    return ops.push_group([(stack, ptr, stack[0], stack[1])], mask,
+                          torch.zeros_like(mask), 2)
+
+
+def _pop_group_call(x):
+    stack = x.reshape(4, 2, 64, 16).transpose(0, 1).contiguous()
+    mask = torch.ones(4, dtype=torch.bool, device=x.device)
+    return ops.pop_group([(stack, torch.ones(4, dtype=torch.int32, device=x.device),
+                           stack[0])], mask)
+
+
 @pytest.mark.parametrize("library,counter,call", [
     (fa_kernel.library, fa_ops.flash_attention, _flash_call),
     (fa_kernel.library_sm90, fa_ops.flash_attention, _flash_sm90_call),
     (fd_kernel.library, fd_ops.decode_attention, _decode_call),
-], ids=["flash_attention", "flash_attention_sm90", "flash_decode"])
+    (sk_kernel.library, ops.masked_push, _push_group_call),
+    (sk_kernel.library, ops.masked_peek, _pop_group_call),
+], ids=["flash_attention", "flash_attention_sm90", "flash_decode", "push_group",
+        "pop_group"])
 def test_failed_build_raises(cuda, monkeypatch, library, counter, call):
     """A real nvcc failure (an unknown flag) raises from the wrapper; nothing
     runs the plain version instead, and no launch is counted."""

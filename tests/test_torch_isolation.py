@@ -53,6 +53,7 @@ def _imports(path: Path) -> list[str]:
 # chip_smoke.py and the card's tests run where there is no JAX.
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "tools" / "torch_nuts_ab.py",
 ]
 
 
