@@ -56,7 +56,18 @@ non-zero (nothing is caught):
    cache), once to warm up and once measured (generated tokens/s,
    dispatches, decode utilization, K4 launches held to 30 x decode
    executions), and a profiled run for the device's busy share and K4's
-   device total.
+   device total;
+10. the paper's evaluation: Fig. 5's arms on the 10,000 x 100 logistic
+    regression (``num_steps=2`` as in phase 6) — the pc VM under every
+    schedule (earliest, popular, lookahead, sweep) and earliest with lane
+    compaction every dispatch, and the hand-batched iterative NUTS, all at
+    1024 chains; local static batching with CUDA-graph segments and op by
+    op (``local``, ``local_eager``) and the unbatched interpreter on one
+    chain — each with grads/s, wall, dispatches, ms per dispatch and
+    occupancy; the pc arms bit-identical to each other with K1/K2 launches
+    held to block_exec x groups (iterations x all groups for sweep),
+    ``local`` equal to ``local_eager``; then Fig. 6 at its ``--full``
+    setting with batch 64 (pc and local gradient utilization, their ratio).
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -809,6 +820,182 @@ def phase_engine(torch) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10. the paper's evaluation: Fig. 5 arms and Fig. 6
+# ---------------------------------------------------------------------------
+
+#: Fig. 5's pc arms: (schedule, compact_every).
+PC_ARMS = (("earliest", None), ("popular", None), ("lookahead", None), ("sweep", None),
+           ("earliest", 1))
+#: Chains of the arms that run below full width (printed as cuts).
+LOCAL_CHAINS = CHAINS
+UNBATCHED_CHAINS = 1
+
+
+def _timed_run(torch, fn):
+    """``fn()``'s result and wall seconds, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _busy(torch, fn) -> tuple[float, int, float]:
+    """Device busy ms, device kernels and wall s of one profiled ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed_run(torch, fn)
+    avgs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    return (sum(e.self_device_time_total for e in avgs) / 1e3, sum(e.count for e in avgs),
+            wall)
+
+
+def _compaction_cost(torch, kern, args) -> None:
+    """One lane compaction of the full-width NUTS state: time per call
+    (CUDA events), device time (profiled) and the bytes it must move."""
+    from repro_torch.core import ir
+
+    vm = kern._last_executor.vm
+    inputs, _ = kern._bind(args)
+    state = vm.init_state({ir.qualify(kern.main, k): v for k, v in inputs.items()})
+    lane_major = [state[k] for k in ("pc_top", "pc_ptr", "depth_exceeded", "lane_steps",
+                                     "lane_ids", "pc_stack")]
+    for group in ("tops", "ptrs", "stacks"):
+        lane_major += list(state[group].values())
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in lane_major)
+    call = _call_ms(torch, lambda: vm._compact(state), iters=50)
+    dev_ms, kernels, _ = _busy(torch, lambda: [vm._compact(state) for _ in range(10)])
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"paper: one compaction at {CHAINS} lanes: {len(lane_major)} tensors, "
+          f"{nbytes / 1e6:.1f} MB moved; device {dev_ms / 10 * 1e3:.1f} us in "
+          f"{kernels // 10} kernels, call {call * 1e3:.1f} us, byte bound {bound * 1e3:.1f} us")
+
+
+def phase_paper(torch, settings) -> None:
+    """Fig. 5's arms at full width and Fig. 6 at ``--full``, batch 64."""
+    from repro_torch.core import ir
+    from repro_torch.kernels.stack_ops import ops
+    from repro_torch.mcmc import iterative, nuts, targets
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_fig6
+
+    t_phase = time.perf_counter()
+    gpl = settings.grads_per_leaf
+    target = targets.logistic_regression(num_data=10_000, dim=100, device="cuda")
+    args = nuts.initial_state(target, CHAINS, eps=0.01, seed=0, device="cuda")
+    print(f"paper: Fig. 5 arms, logistic_regression(10000, 100), {settings}, eps 0.01")
+
+    def report(arm, z, grads, wall, dispatches, what, occupancy):
+        print(f"paper: {arm:22s} {z:5d} chains: {grads / wall:12.1f} grads/s, wall "
+              f"{wall:.3f} s, {dispatches} {what} at {wall / dispatches * 1e3:.3f} ms "
+              f"each, occupancy {occupancy:.4f}")
+
+    outs = {}
+    for schedule, ce in PC_ARMS:
+        arm = f"pc[{schedule}" + (f",ce{ce}]" if ce else "]")
+        kern = nuts.make_nuts_kernel(target, settings, schedule=schedule, compact_every=ce,
+                                     device="cuda")
+        kern(*args)  # warm-up
+        ops.masked_push.launches = ops.masked_peek.launches = 0
+        outs[arm], wall = _timed_run(torch, lambda: kern(*args))
+        push, peek = ops.masked_push.launches, ops.masked_peek.launches
+        res, st = kern.last_result, kern.scheduler_stats
+        check(res.converged, f"{arm} did not converge")
+        per_push = [_group_launches(blk, ir.LPush, ir.LPushJump) for blk in kern.lowered.blocks]
+        per_peek = [_group_launches(blk, ir.LPop, ir.LReturn) for blk in kern.lowered.blocks]
+        if schedule == "sweep":
+            runs = [res.steps] * len(per_push)  # every block, every iteration
+        else:
+            runs = [int(n) for n in res.block_exec]
+        want = (sum(n * k for n, k in zip(runs, per_push)),
+                sum(n * k for n, k in zip(runs, per_peek)))
+        check((push, peek) == want, f"{arm}: K1/K2 launches {(push, peek)} != {want}")
+        _, active = res.tag_stats["grad"]
+        what = "sweeps" if schedule == "sweep" else "dispatches"
+        report(arm, CHAINS, active * gpl, wall, res.steps, what, st.mean_occupancy)
+        dev_ms, kernels, prof_wall = _busy(torch, lambda: kern(*args))
+        print(f"paper: {arm}: lane occupancy {st.mean_lane_occupancy:.4f}, block runs "
+              f"with residents {int(res.block_exec.sum())}, masked updates "
+              f"{st.masked_updates}, K1/K2 launches {push}/{peek} (= {want}); profiled "
+              f"run: device busy {dev_ms:.3f} ms of {prof_wall * 1e3:.3f} ms "
+              f"({dev_ms / 1e3 / prof_wall:.4f}), {kernels} kernels")
+        if ce:
+            _compaction_cost(torch, kern, args)
+    base = outs["pc[earliest]"]
+    for arm, out in outs.items():
+        same = all(torch.equal(out[k], base[k]) for k in base)
+        err = max(float((out[k] - base[k]).abs().max()) for k in base)
+        check(same, f"{arm} differs from pc[earliest] (max |diff| {err:.3g})")
+    print(f"paper: the {len(outs)} pc arms are bit-identical")
+    for k, v in base.items():
+        check(tuple(v.shape) == (CHAINS, 100) and bool(torch.isfinite(v).all()),
+              f"pc {k}: shape {tuple(v.shape)} or non-finite values")
+
+    run_it = iterative.make_batched(target, settings, device="cuda")
+    run_it(*args)  # warm-up
+    out, wall = _timed_run(torch, lambda: run_it(*args))
+    grads, iters = int(out["grads"].sum()), run_it.chain.iterations
+    for k in ("theta", "sum_theta", "sum_sq"):
+        check(bool(torch.isfinite(out[k]).all()), f"iterative {k} not finite")
+    report("iterative", CHAINS, grads, wall, iters, "leaf steps", grads / (gpl * iters * CHAINS))
+    dev_ms, kernels, prof_wall = _busy(torch, lambda: run_it(*args))
+    print(f"paper: iterative: profiled run: device busy {dev_ms:.3f} ms of "
+          f"{prof_wall * 1e3:.3f} ms ({dev_ms / 1e3 / prof_wall:.4f}), {kernels} kernels")
+
+    local_args = tuple(a[:LOCAL_CHAINS] if a.dim() else a for a in args)
+    if LOCAL_CHAINS != CHAINS:
+        print(f"paper: cut: local and local_eager run {LOCAL_CHAINS} chains, not {CHAINS}")
+    local_outs, local_tags = {}, {}
+    for backend in ("local", "local_eager"):
+        kern = nuts.make_nuts_kernel(target, settings, backend=backend, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        _, first = _timed_run(torch, lambda: kern(*local_args))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        local_outs[backend], wall = _timed_run(torch, lambda: kern(*local_args))
+        local_tags[backend] = kern.tag_stats
+        execs, active = kern.tag_stats["grad"]
+        st = kern.local_stats
+        report(backend, LOCAL_CHAINS, active * gpl, wall, st.block_execs, "blocks",
+               active / (execs * LOCAL_CHAINS))
+        dev_ms, kernels, prof_wall = _busy(torch, lambda: kern(*local_args))
+        print(f"paper: {backend}: first call {first:.2f} s"
+              + (" (captures the graphs)" if backend == "local" else "")
+              + f", peak memory {peak:.1f} MiB, {st.primitive_execs} primitive executions; "
+              f"profiled run: device busy {dev_ms:.3f} ms of {prof_wall * 1e3:.3f} ms "
+              f"({dev_ms / 1e3 / prof_wall:.4f}), {kernels} kernels")
+    check(local_tags["local"] == local_tags["local_eager"], "local and local_eager counted "
+          f"differently: {local_tags}")
+    for k, v in local_outs["local_eager"].items():
+        check(torch.equal(local_outs["local"][k], v), f"local {k} != local_eager {k}")
+    pc_same = all(torch.equal(local_outs["local"][k], base[k][:LOCAL_CHAINS]) for k in base)
+    print(f"paper: local equals local_eager bit for bit; equal to pc[earliest]: {pc_same}")
+
+    one = tuple(a[:UNBATCHED_CHAINS] if a.dim() else a for a in args)
+    print(f"paper: cut: unbatched runs {UNBATCHED_CHAINS} chain (the reference interpreter)")
+    counter = nuts.make_nuts_kernel(target, settings, device="cuda")
+    want = counter(*one)
+    _, active = counter.tag_stats["grad"]
+    ref = nuts.make_nuts_kernel(target, settings, backend="reference", device="cuda")
+    out, wall = _timed_run(torch, lambda: ref(*one))
+    err = max(float((out[k] - want[k]).abs().max()) for k in want)
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()), "unbatched not finite")
+    print(f"paper: {'unbatched':22s} {UNBATCHED_CHAINS:5d} chains: "
+          f"{active * gpl / wall:12.1f} grads/s, wall {wall:.3f} s; max |diff| from the pc "
+          f"VM on the same chain {err:.3g}")
+
+    full6 = dict(dim=100, num_steps=10, max_tree_depth=10)  # fig6_utilization --full
+    t0 = time.perf_counter()
+    _, (rec,) = torch_fig6.utilization_sweep([64], device="cuda", **full6)
+    check(0 < rec["local"] <= rec["pc"]["pc"] <= 1, f"Fig. 6 utilizations {rec}")
+    print(f"paper: Fig. 6, correlated_gaussian(100, 0.95), {full6}, eps 0.1, 64 chains: "
+          f"grad utilization pc {rec['pc']['pc']:.4f}, local {rec['local']:.4f}, ratio "
+          f"{rec['ratio']:.3f} ({time.perf_counter() - t0:.1f} s)")
+    print(f"paper: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -828,6 +1015,7 @@ def main() -> int:
     kernels.update(phase_attention_kernels(torch))
     launches["flash_attention"] = phase_prefill(torch)
     launches["decode_attention"] = phase_engine(torch)
+    phase_paper(torch, settings)
 
     kdir = "src/repro_torch/kernels"
     where = {

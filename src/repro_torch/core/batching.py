@@ -13,13 +13,25 @@ every member.  The result is a
 dict of the program's outputs, or of the names an ``out_spec`` dict maps
 them to.
 
-The program goes through the same pipeline as the JAX package's pc
-backend: ``lowering.lower`` -> ``passes.fusion_passes()`` ->
-``DeadCodeElimination``, lowered once per function.  Executors (one VM
-each) are cached under ``(device, batch size, input specs)``.  The stacks
-default to the statically inferred depth bound (a recursive program falls
-back to :data:`DEFAULT_MAX_DEPTH`); a run in which any member overflows
-raises :class:`pc_vm.StackOverflow`.
+Backends, as in the JAX package:
+
+* ``"pc"`` (default): the program goes through ``lowering.lower`` ->
+  ``passes.fusion_passes()`` (unless ``fuse=False``) ->
+  ``DeadCodeElimination``, lowered once per function, and runs on the
+  program-counter VM (:mod:`.pc_vm`) with its ``schedule``,
+  ``compact_every`` and ``collect_stats`` knobs.  The stacks default to
+  the statically inferred depth bound (a recursive program falls back to
+  :data:`DEFAULT_MAX_DEPTH`); a run in which any member overflows raises
+  :class:`pc_vm.StackOverflow`;
+* ``"local"`` / ``"local_eager"``: local static autobatching
+  (:mod:`.local_static`, paper Algorithm 1) with each block segment
+  replayed from a CUDA graph, or op by op;
+* ``"reference"``: the unbatched interpreter, one member at a time.
+
+Executors are cached under ``(backend, device, batch size, input
+specs)``.  ``tag_stats`` and ``utilization`` cover the most recent call on
+every backend (``{}`` for ``reference``, which keeps no counters);
+``scheduler_stats`` is the pc VM's :class:`pc_vm.SchedulerStats`.
 
 Everything runs on ``device``: the CUDA card unless the caller passes
 another device (``device="cpu"`` for the tests); with no device given and
@@ -33,9 +45,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import analysis, frontend, ir, lowering, passes, pc_vm
+from . import analysis, frontend, ir, local_static, lowering, passes, pc_vm, reference
 
 __all__ = ["Batched", "Shared", "AutobatchedFunction", "autobatch"]
+
+BACKENDS = ("pc", "local", "local_eager", "reference")
 
 #: Stack depth when ``max_depth=None`` and the program is recursive: an
 #: input-dependent call depth has no static bound.
@@ -116,6 +130,45 @@ class _PcExecutor:
         )
         return {k.split("/", 1)[1]: v for k, v in res.outputs.items()}
 
+    @property
+    def tag_stats(self) -> dict[str, tuple[int, int]]:
+        return dict(self.last_result.tag_stats) if self.last_result else {}
+
+
+class _LocalExecutor:
+    def __init__(self, program: ir.Program, batch_size: int, jit_blocks: bool, device):
+        self.batch_size = batch_size
+        self.batcher = local_static.LocalStaticBatcher(
+            program, batch_size, jit_blocks=jit_blocks, device=device
+        )
+        self._ran = False
+        self.last_result = None
+
+    def run(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        # Counters of this run only, as the pc executor's.
+        self.batcher.stats = local_static.LocalStats()
+        out = self.batcher.run(inputs)
+        self._ran = True
+        return out
+
+    @property
+    def tag_stats(self) -> dict[str, tuple[int, int]]:
+        if not self._ran:
+            return {}
+        st = self.batcher.stats
+        return {tag: (st.tag_execs[tag], st.tag_active.get(tag, 0)) for tag in st.tag_execs}
+
+
+class _ReferenceExecutor:
+    def __init__(self, program: ir.Program, batch_size: int):
+        self.program = program
+        self.batch_size = batch_size
+        self.last_result = None
+        self.tag_stats: dict[str, tuple[int, int]] = {}
+
+    def run(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return reference.run_reference_batch(self.program, inputs)
+
 
 class AutobatchedFunction:
     """A batched callable over positional arguments; made by :func:`autobatch`."""
@@ -127,30 +180,48 @@ class AutobatchedFunction:
         arg_specs: dict[str, ir.Spec],
         out_names: dict[str, str],
         *,
+        backend: str,
         max_depth: Optional[int],
         max_steps: int,
+        collect_stats: bool,
+        schedule: str,
+        fuse: bool,
+        compact_every: Optional[int],
         device: torch.device,
     ):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if schedule not in pc_vm.SCHEDULES:
+            raise ValueError(
+                f"schedule must be one of {pc_vm.SCHEDULES}, got {schedule!r}"
+            )
         self.program = program
         self.main = program.main
+        self.backend = backend
         self.device = device
         self.max_depth = max_depth  # None: use the static bound
         self.max_steps = max_steps
+        self.collect_stats = collect_stats
+        self.schedule = schedule
+        self.fuse = fuse
+        self.compact_every = compact_every
         self._bindings = bindings
         self._arg_specs = arg_specs
         self._out_names = out_names
         self._lowered: Optional[ir.LoweredProgram] = None
         self._depth_report: Optional[analysis.StackDepthReport] = None
-        self._executors: dict[tuple, _PcExecutor] = {}
-        self._last_executor: Optional[_PcExecutor] = None
+        self._executors: dict[tuple, Any] = {}
+        self._last_executor: Any = None
         self.__name__ = self.main
 
     @property
     def lowered(self) -> ir.LoweredProgram:
-        """The fused, dead-code-eliminated stack-explicit program."""
+        """The stack-explicit program of the pc backend: fused (unless
+        ``fuse=False``) and dead-code-eliminated."""
         if self._lowered is None:
             low = lowering.lower(self.program, self.device)
-            post = [*passes.fusion_passes(), passes.DeadCodeElimination()]
+            post = [*(passes.fusion_passes() if self.fuse else []),
+                    passes.DeadCodeElimination()]
             self._lowered = passes.PassPipeline(post).run(low)
         return self._lowered
 
@@ -226,23 +297,32 @@ class AutobatchedFunction:
             inputs[name] = x
         return inputs, z
 
-    def _executor(self, inputs: dict[str, torch.Tensor], z: int) -> _PcExecutor:
+    def _executor(self, inputs: dict[str, torch.Tensor], z: int):
         key = (
+            self.backend,
             self.device,
             z,
             tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
         )
         ex = self._executors.get(key)
-        if ex is None:
+        if ex is not None:
+            return ex
+        if self.backend == "pc":
             ex = _PcExecutor(
                 self.lowered, self.main,
                 pc_vm.VMConfig(
                     batch_size=z, max_depth=self.resolved_max_depth,
                     max_steps=self.max_steps,
+                    collect_block_stats=self.collect_stats,
+                    schedule=self.schedule, compact_every=self.compact_every,
                 ),
                 self.device, self._overflow_hint(),
             )
-            self._executors[key] = ex
+        elif self.backend in ("local", "local_eager"):
+            ex = _LocalExecutor(self.program, z, self.backend == "local", self.device)
+        else:
+            ex = _ReferenceExecutor(self.program, z)
+        self._executors[key] = ex
         return ex
 
     def __call__(self, *args) -> dict[str, torch.Tensor]:
@@ -254,15 +334,29 @@ class AutobatchedFunction:
 
     @property
     def last_result(self) -> Optional[pc_vm.VMResult]:
-        """The :class:`pc_vm.VMResult` of the most recent call."""
+        """The :class:`pc_vm.VMResult` of the most recent pc-backend call."""
         return self._last_executor.last_result if self._last_executor else None
+
+    @property
+    def scheduler_stats(self) -> Optional[pc_vm.SchedulerStats]:
+        """The VM's scheduling summary of the most recent pc-backend call
+        (schedule, steps, occupancies, masked updates); None before one."""
+        res = self.last_result
+        return res.sched if res is not None else None
+
+    @property
+    def local_stats(self) -> Optional[local_static.LocalStats]:
+        """The counters (blocks, primitives, tags) of the most recent
+        ``local``/``local_eager`` call; None before one."""
+        ex = self._last_executor
+        return ex.batcher.stats if isinstance(ex, _LocalExecutor) and ex._ran else None
 
     @property
     def tag_stats(self) -> dict[str, tuple[int, int]]:
         """tag -> (primitive executions, active member-executions) of the
-        most recent call; ``{}`` before any call."""
-        res = self.last_result
-        return dict(res.tag_stats) if res is not None else {}
+        most recent call on every backend; ``{}`` before any call (and
+        always for ``reference``)."""
+        return self._last_executor.tag_stats if self._last_executor else {}
 
     @property
     def utilization(self) -> dict[str, float]:
@@ -283,8 +377,13 @@ def autobatch(
     *,
     in_specs: Optional[Sequence] = None,
     out_spec: Optional[dict[str, str]] = None,
+    backend: str = "pc",
     max_depth: Optional[int] = None,
     max_steps: int = 1_000_000,
+    collect_stats: bool = True,
+    schedule: str = "earliest",
+    fuse: bool = True,
+    compact_every: Optional[int] = None,
     device=None,
 ) -> AutobatchedFunction:
     """Autobatch an :class:`ir.Program` or a :class:`frontend.ProgramBuilder`.
@@ -293,7 +392,14 @@ def autobatch(
     spec, meaning ``Batched``) per parameter of the main function, default
     ``Batched`` of each declared spec.  ``out_spec`` maps result keys to
     output names (default: every output under its own name).  The batch
-    size is the leading axis of the batched arguments.  ``device`` is where everything runs (default: the CUDA card).
+    size is the leading axis of the batched arguments.  ``backend`` is one
+    of :data:`BACKENDS`.  The pc backend's knobs (the others ignore them;
+    all are bit-exact): ``schedule`` (one of ``pc_vm.SCHEDULES``), ``fuse``
+    (superblock fusion; dead-code elimination runs either way),
+    ``compact_every`` (lane compaction every k loop iterations) and
+    ``collect_stats`` (per-block counters, ``tag_stats`` and
+    ``scheduler_stats``).  ``device`` is where everything runs (default:
+    the CUDA card).
     """
     device = resolve_device(device)
     if isinstance(target, frontend.ProgramBuilder):
@@ -330,6 +436,7 @@ def autobatch(
             )
     return AutobatchedFunction(
         program, tuple(bindings), arg_specs, out_names,
-        max_depth=max_depth, max_steps=max_steps,
-        device=device,
+        backend=backend, max_depth=max_depth, max_steps=max_steps,
+        collect_stats=collect_stats, schedule=schedule, fuse=fuse,
+        compact_every=compact_every, device=device,
     )

@@ -2,16 +2,33 @@
 
 The JAX package runs the whole batch as one compiled ``lax.while_loop``
 whose body picks a block and dispatches it through ``lax.switch``.  PyTorch
-eager has neither, so this VM drives the same loop from the host:
+eager has neither, so this VM drives the same loop from the host, one
+loop iteration at a time:
 
-  1. compute the earliest live block on the device,
-     ``min(where(live, pc_top, exit))`` (the paper's heuristic, the
-     ``"earliest"`` schedule), and read that one index back — one host
-     read per dispatch, which is also the liveness test;
+  1. the schedule (``VMConfig.schedule``) picks a block on the device and
+     the host reads that one index back — one host read per dispatch,
+     which is also the liveness test;
   2. stop at ``exit_index`` or at ``max_steps``;
   3. otherwise run that block's Python body, which issues the block's
      tensor operations with every state update masked to the lanes whose
      pc-top selects the block.
+
+Schedules, as in the JAX VM (all bit-exact with each other):
+
+* ``"earliest"`` — the smallest block index any live lane's pc-top points
+  at, ``min(pc_top)`` (halted lanes hold ``exit_index``);
+* ``"popular"`` — the block where the most live lanes rest (first index
+  on ties);
+* ``"lookahead"`` — the argmax of ``2*count[b] + sum(count[s] for s in
+  successors(b))`` over resident blocks (first index on ties); the
+  successor product is an int64 broadcast-and-sum (CUDA has no integer
+  matmul);
+* ``"sweep"`` — no choice: every block runs once per loop iteration, in
+  index order, each under its own mask, so a lane can pass through several
+  blocks in one iteration.  The host reads only liveness, once an
+  iteration; each block's stack groups launch whether or not a lane rests
+  there, and its ``block_exec`` counter (a device tensor under this
+  schedule) counts only sweeps in which it had residents.
 
 Recursion is materialized into fixed-shape ``[depth, batch, ...]`` stacks,
 so members at *different stack depths* batch together whenever their
@@ -26,13 +43,25 @@ versions.  A ``LPushJump``'s pc push joins the block's last push run and a
 No caller keeps a reference to an older stack, so the in-place push is
 safe.
 
-Pc, pointer and counter state is int32 as in the JAX VM, so overflow,
-``steps`` and the statistics match it bit for bit.  Unbatched primitives
-run under ``torch.func.vmap``; constants are evaluated once and broadcast.
+Lane compaction (``VMConfig.compact_every=k``): every ``k`` loop
+iterations the lane axis of the whole state is permuted by a stable
+argsort on ``(liveness, pc_top)``, so lanes resting at one block are
+contiguous and halted lanes sink to the end.  Each permuted tensor is a
+fresh contiguous one (no reference to the old stacks survives, and the
+stack groups keep reading dense rows); ``lane_ids`` records which caller
+lane each row holds, and every per-lane result is put back in caller
+order.  Schedules read only permutation-invariant statistics, so the
+dispatch sequence and every result are bit-exact with the uncompacted run.
 
-The VM exposes one dispatch at a time (:meth:`ProgramCounterVM.pick` /
-:meth:`ProgramCounterVM.dispatch`) as well as :meth:`ProgramCounterVM.run`,
-so tests can replay the dispatch sequence against an independent oracle.
+Pc, pointer and counter state is int32 as in the JAX VM, so overflow,
+``steps`` and the statistics (:class:`SchedulerStats`) match it bit for
+bit.  Unbatched primitives run under ``torch.func.vmap``; constants are
+evaluated once and broadcast.
+
+The VM exposes one loop iteration at a time (:meth:`ProgramCounterVM.pick`
+/ :meth:`ProgramCounterVM.dispatch`, :meth:`ProgramCounterVM.sweep`) as
+well as :meth:`ProgramCounterVM.run`, so tests can replay the dispatch
+sequence against an independent oracle.
 """
 from __future__ import annotations
 
@@ -71,23 +100,93 @@ class StackOverflow(RuntimeError):
         self.lanes = lanes
 
 
+SCHEDULES = ("earliest", "popular", "sweep", "lookahead")
+
+#: SIMD tile width (lanes) of the occupancy metric, as in the JAX VM: a
+#: dispatch's occupancy is its active lanes over the capacity of the tiles
+#: holding at least one active lane.
+OCCUPANCY_TILE = 8
+
+
 @dataclass(frozen=True)
 class VMConfig:
     batch_size: int
     max_depth: int = 32  # stack slots (usable call depth = max_depth - 1)
     max_steps: int = 1_000_000
+    collect_block_stats: bool = True
+    schedule: str = "earliest"  # one of SCHEDULES
+    # Permute the lane axis by (liveness, pc-top) every this many loop
+    # iterations; None: never.
+    compact_every: Optional[int] = None
+
+    def __post_init__(self):
+        if self.schedule not in SCHEDULES:
+            raise ValueError(
+                f"schedule must be one of {SCHEDULES}, got {self.schedule!r}"
+            )
+        if self.compact_every is not None and self.compact_every < 1:
+            raise ValueError(
+                "compact_every must be >= 1 (or None to disable), got "
+                f"{self.compact_every}"
+            )
+
+
+@dataclass(frozen=True)
+class SchedulerStats:
+    """Per-run scheduling summary (host values), as the JAX VM's.
+
+    With ``collect_block_stats=False`` ``steps`` and ``masked_updates`` are
+    None and the occupancies nan."""
+
+    schedule: str
+    fused: bool  # whether the program went through superblock fusion
+    num_blocks: int
+    steps: Optional[int]  # loop iterations (one sweep each for "sweep")
+    # Active lanes per dispatch over the capacity of the OCCUPANCY_TILE
+    # tiles that held an active lane: what compaction raises.
+    mean_occupancy: float
+    fused_from: Optional[dict[int, tuple[int, ...]]]
+    # Active lanes per dispatch over the whole batch.
+    mean_lane_occupancy: float = float("nan")
+    compact_every: Optional[int] = None
+    # sum over blocks of block_exec[b] x (masked top writes of block b).
+    masked_updates: Optional[int] = None
 
 
 @dataclass
 class VMResult:
-    outputs: dict[str, torch.Tensor]
-    steps: int  # dispatches run
+    outputs: dict[str, torch.Tensor]  # caller lane order
+    steps: int  # loop iterations run (dispatches; sweeps for "sweep")
     converged: bool  # all members halted within max_steps
-    block_exec: np.ndarray  # [num_blocks] int32: times each block ran
-    block_active: np.ndarray  # [num_blocks] int32: total active members
+    # Per-block counters (None without collect_block_stats): times each
+    # block ran with residents, and its active lanes summed over them.
+    block_exec: Optional[np.ndarray]  # [num_blocks] int32
+    block_active: Optional[np.ndarray]  # [num_blocks] int32
     tag_stats: dict[str, tuple[int, int]]  # tag -> (execs, active)
     depth_exceeded: torch.Tensor  # [batch] bool: stack overflowed
     lane_steps: torch.Tensor  # [batch] int32 active-dispatch counts
+    sched: SchedulerStats
+
+
+def tile_capacity(mask: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
+    """Lane capacity (int32 scalar) of the OCCUPANCY_TILE-lane tiles of a
+    ``[Z]`` bool mask that hold a set lane; ``caps`` is each tile's width
+    (:func:`tile_widths`), a trailing partial tile counting its real
+    width."""
+    t = OCCUPANCY_TILE
+    pad = caps.numel() * t - mask.numel()
+    if pad:
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    occupied = mask.view(-1, t).any(dim=1)
+    return (occupied * caps).sum(dtype=_I32)
+
+
+def tile_widths(lanes: int, device) -> torch.Tensor:
+    """The int32 widths of the OCCUPANCY_TILE-lane tiles over ``lanes``."""
+    t = OCCUPANCY_TILE
+    caps = torch.full((-(-lanes // t),), t, dtype=_I32, device=device)
+    caps[-1] = lanes - t * (caps.numel() - 1)
+    return caps
 
 
 @dataclass(frozen=True)
@@ -185,6 +284,28 @@ class ProgramCounterVM:
             for op in blk.ops:
                 if isinstance(op, ir.LPrim) and op.tag:
                     self._tag_blocks.setdefault(op.tag, []).append((i, 1))
+        # Masked top writes of one dispatch of each block (a primitive's
+        # outputs that land in VM state, one per push or pop), as the JAX
+        # VM counts them for SchedulerStats.masked_updates.
+        self._masked_writes = [
+            sum(len([o for o in op.outs if o not in lowered.temp_vars])
+                if isinstance(op, ir.LPrim) else 1 for op in blk.ops)
+            for blk in lowered.blocks
+        ]
+        nb, dev = self.num_blocks, self.device
+        self._tile_caps = tile_widths(config.batch_size, dev)
+        self._block_ids = torch.arange(nb, dtype=_I32, device=dev).unsqueeze(1)
+        # "lookahead": the [B, B] 0/1 successor matrix (LPushJump: the
+        # callee entry only; LReturn: none), int64 for the product.
+        succ = np.zeros((nb, nb), np.int64)
+        for i, blk in enumerate(lowered.blocks):
+            t = blk.term
+            targets = ((t.target,) if isinstance(t, (ir.LJump, ir.LPushJump))
+                       else (t.true, t.false) if isinstance(t, ir.LBranch) else ())
+            for b in targets:
+                if 0 <= b < nb:
+                    succ[i, b] = 1
+        self._succ = torch.from_numpy(succ).to(dev)
 
     # ------------------------------------------------------------------
     # State
@@ -213,7 +334,7 @@ class ProgramCounterVM:
                     f"{(z,) + spec.shape}, got {tuple(x.shape)}"
                 )
             tops[p] = x.to(device=dev, dtype=spec.dtype).contiguous()
-        return {
+        state = {
             "pc_top": torch.full((z,), lp.entry, dtype=_I32, device=dev),
             # Slot 0 holds the exit sentinel.
             "pc_stack": torch.full((d, z), lp.exit_index, dtype=_I32, device=dev),
@@ -226,9 +347,22 @@ class ProgramCounterVM:
             # beyond max_depth (the push drops it, invalidating the member).
             "depth_exceeded": torch.zeros((z,), dtype=torch.bool, device=dev),
             "lane_steps": torch.zeros((z,), dtype=_I32, device=dev),
-            "block_exec": np.zeros((self.num_blocks,), np.int32),
-            "block_active": torch.zeros((self.num_blocks,), dtype=_I32, device=dev),
         }
+        if self.config.compact_every is not None:
+            # Which caller lane each row holds (compaction permutes rows).
+            state["lane_ids"] = torch.arange(z, dtype=_I32, device=dev)
+        if self.config.collect_block_stats:
+            nb = self.num_blocks
+            # The switch schedules bump block_exec from the host, which
+            # knows the block; a sweep counts on the device.
+            state["block_exec"] = (
+                torch.zeros((nb,), dtype=_I32, device=dev)
+                if self.config.schedule == "sweep" else np.zeros((nb,), np.int32)
+            )
+            state["block_active"] = torch.zeros((nb,), dtype=_I32, device=dev)
+            # Occupied-tile capacity summed over dispatches.
+            state["tile_acc"] = torch.zeros((), dtype=_I32, device=dev)
+        return state
 
     # ------------------------------------------------------------------
     # Block bodies
@@ -349,26 +483,98 @@ class ProgramCounterVM:
     # ------------------------------------------------------------------
 
     def pick(self, state: dict[str, Any]) -> int:
-        """The earliest live block (``exit_index`` once every lane halted).
+        """The schedule's block (``exit_index`` once every lane halted);
+        the value read back is the one host synchronisation of a dispatch.
 
-        Halted lanes hold ``pc_top == exit_index``, so the minimum over all
-        lanes is ``min(where(live, pc_top, exit))``; reading it back is the
-        one host synchronisation of a dispatch."""
-        return int(state["pc_top"].min())
+        Halted lanes hold ``pc_top == exit_index``, so ``earliest`` is the
+        minimum over all lanes, and the per-block counts of the others see
+        only live lanes.  ``argmax`` takes the first maximum, as
+        ``jnp.argmax`` does."""
+        schedule, pc = self.config.schedule, state["pc_top"]
+        if schedule == "earliest":
+            return int(pc.min())
+        if schedule not in ("popular", "lookahead"):
+            raise ValueError(f"schedule {schedule!r} picks no block")
+        counts = (pc.unsqueeze(0) == self._block_ids).sum(dim=1)  # int64 [B]
+        score = counts
+        if schedule == "lookahead":
+            score = 2 * counts + (self._succ * counts).sum(dim=1)
+            score = torch.where(counts > 0, score, -1)
+        b = score.argmax()
+        return int(torch.where(counts.sum() > 0, b, self.lowered.exit_index))
+
+    def live(self, state: dict[str, Any]) -> bool:
+        """Whether any lane still runs (one host read)."""
+        return bool((state["pc_top"] < self.lowered.exit_index).any())
 
     def dispatch(self, state: dict[str, Any], b: int) -> None:
-        """Run block ``b`` once over the lanes resting there (in place)."""
+        """One loop iteration of a switch schedule: run block ``b`` over
+        the lanes resting there (in place), then compact when due."""
         mask = state["pc_top"] == b
-        state["block_exec"][b] += 1
-        state["block_active"][b] += mask.sum(dtype=_I32)
+        if self.config.collect_block_stats:
+            state["block_exec"][b] += 1
+            state["block_active"][b] += mask.sum(dtype=_I32)
+            state["tile_acc"] += tile_capacity(mask, self._tile_caps)
         self._block_fns[b](state, mask)
+        self._end_iteration(state)
+
+    def sweep(self, state: dict[str, Any]) -> None:
+        """One loop iteration of ``"sweep"``: every block once, in index
+        order, each under the mask of the lanes resting there when its
+        turn comes; a block counts in ``block_exec`` only when it had
+        residents (all on the device)."""
+        collect = self.config.collect_block_stats
+        active = []
+        for b, fn in enumerate(self._block_fns):
+            mask = state["pc_top"] == b
+            if collect:
+                active.append(mask.sum(dtype=_I32))
+                state["tile_acc"] += tile_capacity(mask, self._tile_caps)
+            fn(state, mask)
+        if collect:
+            active = torch.stack(active)
+            state["block_active"] += active
+            state["block_exec"] += (active > 0).to(_I32)
+        self._end_iteration(state)
+
+    def _end_iteration(self, state: dict[str, Any]) -> None:
         state["steps"] += 1
+        k = self.config.compact_every
+        if k is not None and state["steps"] % k == 0:
+            self._compact(state)
+
+    def _compact(self, state: dict[str, Any]) -> None:
+        """Permute the lane axis of the whole state (in the dict) by a
+        stable argsort on ``(liveness, pc_top)``; every permuted tensor is
+        a fresh contiguous one."""
+        pc = state["pc_top"]
+        key = torch.where(pc < self.lowered.exit_index, pc, self.num_blocks + 1)
+        perm = torch.argsort(key, stable=True)
+        for k in ("pc_top", "pc_ptr", "depth_exceeded", "lane_steps", "lane_ids"):
+            state[k] = state[k].index_select(0, perm)
+        state["pc_stack"] = state["pc_stack"].index_select(1, perm)
+        for group, dim in (("tops", 0), ("ptrs", 0), ("stacks", 1)):
+            d = state[group]
+            for v in d:
+                d[v] = d[v].index_select(dim, perm)
+
+    def unpermute(self, state: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        """A row-order ``[batch, ...]`` tensor in caller lane order."""
+        if self.config.compact_every is None:
+            return x
+        return x.index_select(0, torch.argsort(state["lane_ids"]))
 
     def run(self, inputs: dict[str, torch.Tensor]) -> VMResult:
         """Execute the batched program to completion (or ``max_steps``)."""
         state = self.init_state(inputs)
         exit_idx = self.lowered.exit_index
+        sweep = self.config.schedule == "sweep"
         while state["steps"] < self.config.max_steps:
+            if sweep:
+                if not self.live(state):
+                    break
+                self.sweep(state)
+                continue
             b = self.pick(state)
             if b >= exit_idx:
                 break
@@ -376,23 +582,44 @@ class ProgramCounterVM:
         return self.result(state)
 
     def result(self, state: dict[str, Any]) -> VMResult:
-        lp = self.lowered
-        be = state["block_exec"].copy()
-        ba = state["block_active"].cpu().numpy()
-        tag_stats = {
-            tag: (
-                sum(int(be[b]) * m for b, m in entries),
-                sum(int(ba[b]) * m for b, m in entries),
-            )
-            for tag, entries in self._tag_blocks.items()
-        }
+        lp, cfg = self.lowered, self.config
+        be = ba = None
+        tag_stats: dict[str, tuple[int, int]] = {}
+        steps = masked_updates = None
+        occ = lane_occ = float("nan")
+        if cfg.collect_block_stats:
+            be = state["block_exec"]
+            be = be.cpu().numpy() if isinstance(be, torch.Tensor) else be.copy()
+            ba = state["block_active"].cpu().numpy()
+            tag_stats = {
+                tag: (
+                    sum(int(be[b]) * m for b, m in entries),
+                    sum(int(ba[b]) * m for b, m in entries),
+                )
+                for tag, entries in self._tag_blocks.items()
+            }
+            dispatches, active = int(be.sum()), float(ba.sum())
+            tile = int(state["tile_acc"])
+            if dispatches:
+                lane_occ = active / (dispatches * cfg.batch_size)
+            if tile:
+                occ = active / tile
+            steps = state["steps"]
+            masked_updates = sum(int(be[b]) * w for b, w in enumerate(self._masked_writes))
+        sched = SchedulerStats(
+            schedule=cfg.schedule, fused=lp.fused_from is not None,
+            num_blocks=self.num_blocks, steps=steps, mean_occupancy=occ,
+            fused_from=lp.fused_from, mean_lane_occupancy=lane_occ,
+            compact_every=cfg.compact_every, masked_updates=masked_updates,
+        )
         return VMResult(
-            outputs={o: state["tops"][o] for o in lp.main_outputs},
+            outputs={o: self.unpermute(state, state["tops"][o]) for o in lp.main_outputs},
             steps=state["steps"],
             converged=bool((state["pc_top"] >= lp.exit_index).all()),
             block_exec=be,
             block_active=ba,
             tag_stats=tag_stats,
-            depth_exceeded=state["depth_exceeded"],
-            lane_steps=state["lane_steps"],
+            depth_exceeded=self.unpermute(state, state["depth_exceeded"]),
+            lane_steps=self.unpermute(state, state["lane_steps"]),
+            sched=sched,
         )

@@ -23,9 +23,16 @@ def run_reference_single(
     max_depth: int = 10_000,
     max_steps: int = 1_000_000,
 ) -> dict[str, torch.Tensor]:
-    """Run one (unbatched) member through the program."""
+    """Run one (unbatched) member through the program, on the device of
+    its inputs (constants are moved there)."""
     program.validate()
     steps = [0]
+    main = program.functions[program.main]
+    args = [
+        torch.as_tensor(inputs[p]).to(main.param_specs[p].dtype)
+        for p in main.params
+    ]
+    device = args[0].device if args else torch.device("cpu")
 
     def call(fname: str, args: list[Any], depth: int) -> list[Any]:
         if depth > max_depth:
@@ -44,7 +51,7 @@ def run_reference_single(
                     if len(op.outs) == 1:
                         outs = (outs,)
                     for name, val in zip(op.outs, outs):
-                        env[name] = torch.as_tensor(val)
+                        env[name] = torch.as_tensor(val).to(device)
                 else:
                     env_outs = call(op.callee, [env[a] for a in op.ins], depth + 1)
                     for name, val in zip(op.outs, env_outs):
@@ -57,11 +64,6 @@ def run_reference_single(
             elif isinstance(t, ir.Return):
                 return [env[o] for o in func.outputs]
 
-    main = program.functions[program.main]
-    args = [
-        torch.as_tensor(inputs[p]).to(main.param_specs[p].dtype)
-        for p in main.params
-    ]
     outs = call(program.main, args, 0)
     return dict(zip(main.outputs, outs))
 

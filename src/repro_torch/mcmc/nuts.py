@@ -20,6 +20,7 @@ with per-chain ``theta0`` ``[chains, dim]`` float32 and ``key``
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -304,7 +305,11 @@ def make_nuts_kernel(
     target: Target,
     settings: NutsSettings = NutsSettings(),
     *,
+    backend: str = "pc",
     max_steps: int = 1_000_000,
+    schedule: str = "earliest",
+    fuse: bool = True,
+    compact_every: Optional[int] = None,
     device=None,
 ) -> batching.AutobatchedFunction:
     """The public NUTS entry point: ``kernel(theta0, eps, key) -> state``.
@@ -314,9 +319,13 @@ def make_nuts_kernel(
     * ``key`` is per-chain (``Batched``): ``[chains, 2]`` int32 key words,
 
     and ``state`` is ``{"theta", "sum_theta", "sum_sq"}``, each
-    ``[chains, dim]``: final positions and running moments.  It runs on
-    ``device`` (default: the CUDA card; no CUDA and no device raises), which
-    must be where the target's data lives.
+    ``[chains, dim]``: final positions and running moments.  ``backend``
+    is one of ``batching.BACKENDS``; ``schedule``, ``fuse`` and
+    ``compact_every`` are the pc backend's knobs, all bit-exact, so every
+    combination samples identical chains.  On the card the pc backend's
+    stack traffic always goes through K1/K2.  It runs on ``device``
+    (default: the CUDA card; no CUDA and no device raises), which must be
+    where the target's data lives.
     """
     device = resolve_device(device)
     program = build_nuts_program(target, settings)
@@ -325,8 +334,12 @@ def make_nuts_kernel(
         program,
         in_specs=(Batched(vec), Shared(F32), Batched(KEY)),
         out_spec={"theta": "theta", "sum_theta": "sum_theta", "sum_sq": "sum_sq"},
+        backend=backend,
         max_depth=recommended_max_depth(settings),
         max_steps=max_steps,
+        schedule=schedule,
+        fuse=fuse,
+        compact_every=compact_every,
         device=device,
     )
 

@@ -88,8 +88,9 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
     """float32 uniform on ``[minval, maxval)`` (``jax.random.uniform``)."""
     # bitcast(bits >> 9 | 0x3F800000) - 1 is exactly mantissa * 2**-23.
     floats = (random_bits(key, shape) >> 9).to(torch.float32) * (2.0**-23)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # Filled on the device (no host copy, so a CUDA graph can capture it).
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -84,6 +84,110 @@ def build_deep_recursion():
     return pb.build()
 
 
+def build_tagged_fib():
+    """fib with its leaf tagged ``"leaf"`` (tests/test_core.py's program for
+    the pc-beats-local utilization property)."""
+    pb = frontend.ProgramBuilder()
+    fb = pb.function("fib", ["n"], ["out"], {"n": I32}, {"out": I32})
+    c = fb.prim(lambda n: n < 2, ["n"], name="lt2")
+    with fb.if_(c):
+        fb.prim(lambda n: n, ["n"], out="out", name="leaf", tag="leaf")
+        fb.return_()
+    t1 = fb.prim(lambda n: n - 1, ["n"])
+    fb.call("fib", [t1], out="a")
+    t2 = fb.prim(lambda n: n - 2, ["n"])
+    fb.call("fib", [t2], out="b")
+    fb.assign("out", lambda a, b: a + b, ["a", "b"])
+    fb.return_()
+    pb.add(fb)
+    return pb.build()
+
+
+# Small int32 arithmetic, as in the scheduler oracle's random programs.
+_BINOPS = [
+    ("add", lambda a, b: a + b),
+    ("sub", lambda a, b: a - b),
+    ("xor", lambda a, b: a ^ b),
+    ("min", lambda a, b: torch.minimum(a, b)),
+    ("max", lambda a, b: torch.maximum(a, b)),
+]
+_CMPS = [
+    ("lt", lambda a, b: a < b),
+    ("le", lambda a, b: a <= b),
+    ("eq", lambda a, b: (a & 3) == (b & 3)),
+]
+
+
+class RandomProgram:
+    """Seeded random control-flow programs ``f(n, x) -> out`` (int32):
+    divergent branches, bounded loops and recursion on ``n``; the port's
+    copy of tests/test_core_property.py's ``_Gen``, drawing from the
+    generator in the same order, so one seed builds the same CFG in both
+    packages."""
+
+    def __init__(self, rng: np.random.Generator):
+        self.rng = rng
+
+    def expr(self, fb, scope):
+        a, b = self.rng.choice(scope, 2)
+        name, fn = _BINOPS[self.rng.integers(len(_BINOPS))]
+        return fb.prim(fn, [a, b], name=name)
+
+    def cond(self, fb, scope):
+        a, b = self.rng.choice(scope, 2)
+        name, fn = _CMPS[self.rng.integers(len(_CMPS))]
+        return fb.prim(fn, [a, b], name=name)
+
+    def stmts(self, fb, scope, depth, allow_call):
+        for _ in range(int(self.rng.integers(1, 4))):
+            kind = self.rng.integers(4)
+            if kind == 0 or depth >= 2:
+                scope.append(self.expr(fb, scope))
+            elif kind == 1:
+                c = self.cond(fb, scope)
+                with fb.if_(c):
+                    self.stmts(fb, list(scope), depth + 1, allow_call)
+                if self.rng.integers(2):
+                    with fb.orelse():
+                        self.stmts(fb, list(scope), depth + 1, allow_call)
+            elif kind == 2:
+                # Bounded counter loop (always terminates).
+                i = fb.prim(lambda: torch.tensor(3, dtype=torch.int32), (), name="c3")
+                with fb.while_(lambda i: i > 0, [i]):
+                    self.stmts(fb, list(scope) + [i], depth + 1, False)
+                    fb.assign(i, lambda i: i - 1, [i])
+            elif allow_call:
+                # Structurally decreasing recursion on 'n'.
+                t = fb.prim(lambda n: n - 1, ["n"], name="dec")
+                arg = self.rng.choice(scope)
+                scope.append(fb.call("f", [t, arg]))
+
+    def build(self):
+        pb = frontend.ProgramBuilder()
+        fb = pb.function("f", ["n", "x"], ["out"], {"n": I32, "x": I32}, {"out": I32})
+        c = fb.prim(lambda n: n <= 0, ["n"], name="base")
+        with fb.if_(c):
+            fb.copy("x", out="out")
+            fb.return_()
+        scope = ["n", "x"]
+        self.stmts(fb, scope, 0, allow_call=True)
+        a, b = self.rng.choice(scope, 2)
+        fb.assign("out", lambda a, b: a + b, [a, b])
+        fb.return_()
+        pb.add(fb)
+        return pb.build()
+
+
+def random_program_inputs(seed: int, z: int = 8):
+    """The seeded random program and its ``n``, ``x`` int32 inputs, as
+    tests/test_scheduler_oracle.py's ``_seeded_inputs`` draws them."""
+    rng = np.random.default_rng(seed)
+    prog = RandomProgram(rng).build()
+    n = rng.integers(0, 5, size=z).astype(np.int32)
+    x = rng.integers(-50, 51, size=z).astype(np.int32)
+    return prog, n, x
+
+
 # ---------------------------------------------------------------------------
 # Seeded inputs of the LM slice (float32 CPU tensors and numpy arrays, made
 # with numpy so that both packages can be fed the same values)

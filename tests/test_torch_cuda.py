@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
 (stack ops K1/K2, flash attention K3, decode attention K4) against their
-plain versions, a failed build raising, and the VM, NUTS and the serving
-engine on CUDA against the same port on the CPU or its own oracle.  They skip where there is no CUDA device; on the
+plain versions, a failed build raising, and the VM (every schedule, lane
+compaction), local static batching from CUDA graphs, NUTS (pc and
+iterative) and the serving engine on CUDA against the same port on the CPU,
+its eager mode or its own oracle.  They skip where there is no CUDA device; on the
 card run them with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
 This file imports no JAX (the card's machine has none): it compares the
@@ -24,7 +26,7 @@ from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.stack_ops import kernel as sk_kernel  # noqa: E402
 from repro_torch.kernels.stack_ops import ops, ref  # noqa: E402
-from repro_torch.mcmc import nuts, targets  # noqa: E402
+from repro_torch.mcmc import iterative, nuts, targets  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, GenerationEngine  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
@@ -221,6 +223,105 @@ def test_nuts_on_cuda_matches_cpu(cuda):
     assert torch.equal(res_c.lane_steps.cpu(), res_h.lane_steps)
     assert res_c.tag_stats == res_h.tag_stats
     torch.testing.assert_close(th_c, th_h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("compact_every", [None, 1, 3], ids=lambda c: f"ce{c}")
+@pytest.mark.parametrize("schedule", ["earliest", "popular", "lookahead", "sweep"])
+@pytest.mark.parametrize("build,hi", [(build_fib, 11), (build_mutual, 20)], ids=["fib", "mutual"])
+def test_schedules_on_cuda_match_cpu(cuda, build, hi, schedule, compact_every):
+    """Every schedule, with and without lane compaction, is bit-exact with
+    the port on the CPU: outputs, counters, per-lane steps, occupancy."""
+    n = torch.from_numpy(np.random.default_rng(2).integers(0, hi, 13).astype(np.int32))
+    knobs = dict(max_depth=24, schedule=schedule, compact_every=compact_every)
+    cpu_fn = batching.autobatch(build(), device="cpu", **knobs)
+    gpu_fn = batching.autobatch(build(), device=cuda, **knobs)
+    assert torch.equal(gpu_fn(n.to(cuda))["out"].cpu(), cpu_fn(n)["out"])
+    cpu_res, gpu_res = cpu_fn.last_result, gpu_fn.last_result
+    assert gpu_res.steps == cpu_res.steps
+    np.testing.assert_array_equal(gpu_res.block_exec, cpu_res.block_exec)
+    np.testing.assert_array_equal(gpu_res.block_active, cpu_res.block_active)
+    assert torch.equal(gpu_res.lane_steps.cpu(), cpu_res.lane_steps)
+    assert gpu_res.sched == cpu_res.sched
+
+
+@pytest.mark.parametrize("build,hi", [(build_fib, 11), (build_mutual, 20)], ids=["fib", "mutual"])
+def test_sweep_launches_every_group_of_every_block(cuda, build, hi):
+    """A sweep runs every block each iteration, so K1/K2 launch iterations
+    x the push (pop) groups of all blocks, residents or not."""
+    n = torch.from_numpy(np.random.default_rng(1).integers(0, hi, 9).astype(np.int32))
+    fn = batching.autobatch(build(), max_depth=24, schedule="sweep", device=cuda)
+    fn(n.to(cuda))
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    fn(n.to(cuda))
+    vm, steps = fn._last_executor.vm, fn.last_result.steps
+    want = [steps * sum(_launches_per_dispatch(vm, k)) for k in ("push", "pop")]
+    assert [ops.masked_push.launches, ops.masked_peek.launches] == want
+    assert all(want)
+
+
+def test_nuts_schedules_and_compaction_on_cuda(cuda):
+    """NUTS samples identical chains under every schedule and with lane
+    compaction on the card."""
+    settings = nuts.NutsSettings(max_tree_depth=5, num_steps=3, steps_per_leaf=2)
+    target = targets.logistic_regression(200, 8, device=cuda)
+    args = nuts.initial_state(target, 16, eps=0.05, seed=5, device=cuda)
+    want = nuts.make_nuts_kernel(target, settings, device=cuda)(*args)
+    for schedule in ("earliest", "popular", "lookahead", "sweep"):
+        for ce in (None, 1):
+            kern = nuts.make_nuts_kernel(target, settings, schedule=schedule,
+                                         compact_every=ce, device=cuda)
+            got = kern(*args)
+            for k, v in want.items():
+                assert torch.equal(got[k], v), (schedule, ce, k)
+
+
+def test_local_graph_segments_equal_eager(cuda):
+    """``local`` replays each segment from a CUDA graph; it computes what
+    ``local_eager`` computes, bit for bit, with the same counters."""
+    settings = nuts.NutsSettings(max_tree_depth=5, num_steps=3, steps_per_leaf=2)
+    target = targets.logistic_regression(200, 8, device=cuda)
+    args = nuts.initial_state(target, 16, eps=0.05, seed=5, device=cuda)
+    runs = {}
+    for backend in ("local", "local_eager", "pc"):
+        kern = nuts.make_nuts_kernel(target, settings, backend=backend, device=cuda)
+        kern(*args)  # the first call captures the graphs
+        runs[backend] = (kern(*args), kern.tag_stats)
+    (out, tags), (out_e, tags_e) = runs["local"], runs["local_eager"]
+    assert tags == tags_e
+    for k in out:
+        assert torch.equal(out[k], out_e[k]), k
+    assert runs["pc"][1]["grad"][1] == tags["grad"][1]
+    fn = batching.autobatch(build_fib(), backend="local", device=cuda)
+    n = torch.arange(12, dtype=torch.int32)
+    assert torch.equal(fn(n.to(cuda))["out"].cpu(),
+                       batching.autobatch(build_fib(), backend="local_eager",
+                                          device=cuda)(n.to(cuda))["out"].cpu())
+
+
+def test_reference_interpreter_runs_on_cuda(cuda):
+    """The unbatched interpreter runs on the device of its inputs; the
+    program's constants (made on the host) are moved there."""
+    settings = nuts.NutsSettings(max_tree_depth=4, num_steps=2, steps_per_leaf=2)
+    outs = {}
+    for dev in ("cpu", cuda):
+        target = targets.logistic_regression(200, 8, device=dev)
+        kern = nuts.make_nuts_kernel(target, settings, backend="reference", device=dev)
+        outs[str(dev)] = kern(*nuts.initial_state(target, 2, eps=0.05, seed=5, device=dev))
+    for k, v in outs["cpu"].items():
+        assert outs[str(cuda)][k].device.type == "cuda"
+        torch.testing.assert_close(outs[str(cuda)][k].cpu(), v, rtol=1e-4, atol=1e-5)
+
+
+def test_iterative_on_cuda_matches_cpu(cuda):
+    settings = nuts.NutsSettings(max_tree_depth=5, num_steps=3, steps_per_leaf=2)
+    outs = {}
+    for dev in ("cpu", cuda):
+        target = targets.logistic_regression(200, 8, device=dev)
+        run = iterative.make_batched(target, settings, device=dev)
+        outs[str(dev)] = run(*nuts.initial_state(target, 8, eps=0.05, seed=5, device=dev))
+    got, want = outs[str(cuda)], outs["cpu"]
+    assert torch.equal(got["grads"].cpu(), want["grads"])
+    torch.testing.assert_close(got["theta"].cpu(), want["theta"], rtol=1e-4, atol=1e-5)
 
 
 # Float32: the kernel and the plain version sum in another order.  bf16:

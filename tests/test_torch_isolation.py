@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the JAX package, and no source of the port (nor
-``chip_smoke.py`` and the card's tests) imports either."""
+``chip_smoke.py``, the card's tests and the port's Fig. 5 / Fig. 6
+benchmarks) imports either."""
 import ast
 import json
 import os
@@ -50,10 +51,12 @@ def _imports(path: Path) -> list[str]:
     return found
 
 
-# chip_smoke.py and the card's tests run where there is no JAX.
+# chip_smoke.py, the card's tests and the port's benchmarks (with the shared
+# benchmark helpers they import) run where there is no JAX.
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
-    REPO / "tools" / "torch_nuts_ab.py",
+    REPO / "tools" / "torch_nuts_ab.py", REPO / "benchmarks" / "torch_fig5.py",
+    REPO / "benchmarks" / "torch_fig6.py", REPO / "benchmarks" / "common.py",
 ]
 
 
@@ -62,3 +65,21 @@ def test_no_jax_or_reference_import_in_source(path):
     for mod in _imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+_BENCH_PROBE = """
+import json, sys
+import benchmarks.torch_fig5, benchmarks.torch_fig6
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(json.dumps(bad))
+"""
+
+
+def test_importing_the_fig_benchmarks_loads_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BENCH_PROBE], capture_output=True, text=True,
+        timeout=300, cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

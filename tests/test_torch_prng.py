@@ -105,3 +105,25 @@ def test_key_round_trip_keeps_bits(keys):
     raw, k = keys
     assert k.dtype == torch.int32
     np.testing.assert_array_equal(interop.keys_to_numpy(k), raw)
+
+
+def test_draws_copy_nothing_from_the_host(keys):
+    """Every draw is made on the key's device: no host tensor is copied in
+    (``torch.tensor(..., device=...)`` would be, and a CUDA graph cannot
+    capture that copy, so ``local``'s graph segments could not draw)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        seen: set = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    _, k = keys
+    with Ops() as mode:
+        prng.split(k[0], 3)
+        prng.uniform(k[1])
+        prng.bernoulli(k[2])
+        prng.normal(k[3], (DIM,))
+    assert not mode.seen & {"lift_fresh", "lift_fresh_copy"}, mode.seen
