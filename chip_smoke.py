@@ -67,7 +67,25 @@ non-zero (nothing is caught):
     occupancy; the pc arms bit-identical to each other with K1/K2 launches
     held to block_exec x groups (iterations x all groups for sweep),
     ``local`` equal to ``local_eager``; then Fig. 6 at its ``--full``
-    setting with batch 64 (pc and local gradient utilization, their ratio).
+    setting with batch 64 (pc and local gradient utilization, their ratio);
+11. segments and faults: phase 6's NUTS through a ``Stepper`` in segments
+    of 7 dispatches, bit-identical to phase 6's single run (outputs,
+    dispatches, ``block_exec``, K1/K2 launches); ``tools/torch_chaos.py``'s
+    schedule x fuse matrix at batch 64 (every fault code as injected,
+    healthy lanes bit-exact with a fault-free run); fib overflowing a
+    5-deep stack under quarantine and a lane step budget with no
+    ``max_steps`` bound, which must halt;
+12. open-loop serving (``GenerationEngine.serve``), SmolLM-135M at full
+    width: a float32 check (4 lanes, 8 requests arriving on a virtual
+    clock and a hog request under a lane step budget: the hog faulted by
+    the watchdog, every other completion equal to the sequential oracle),
+    then bf16 with 64 lanes and 128 requests (prompts of 2
+    to 64 tokens, 64 new tokens, a 512-token cache, 16 dispatches a
+    segment): a warm-up, a burst at t=0 and Poisson arrivals at half the
+    burst's completion rate (tokens/s, completions by status, p50/p99
+    latency, segments, dispatches, lane occupancy, K4 launches held to 30
+    x decode executions), and a profiled burst of the first 64 requests
+    for the device's busy share.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -535,7 +553,8 @@ def phase_full(torch, chains: int, settings) -> dict:
         k = [e for e in avgs if name in e.key]
         print(f"full: {name} device time {sum(e.self_device_time_total for e in k) / 1e3:.3f} "
               f"ms in {sum(e.count for e in k)} launches of the profiled run")
-    return {"masked_push": push, "masked_peek": peek}
+    return {"masked_push": push, "masked_peek": peek}, dict(kern=kern, args=args, out=out,
+                                                            res=res)
 
 
 def _group_launches(blk, op_type, pc_term) -> int:
@@ -996,6 +1015,207 @@ def phase_paper(torch, settings) -> None:
     print(f"paper: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 11. segments and faults on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_segments(torch, run6: dict, launches6: dict) -> None:
+    """Phase 6's NUTS in segments; the chaos matrix; an overflow that halts."""
+    from repro_torch.core import batching, pc_vm
+    from repro_torch.kernels.stack_ops import ops
+    from repro_torch.testing import build_fib
+
+    sys.path.insert(0, str(ROOT))
+    from tools import torch_chaos
+
+    t_phase = time.perf_counter()
+    kern, args = run6["kern"], run6["args"]
+    st = kern.stepper(*args)
+    state = st.init()
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    segments = 0
+    t0 = time.perf_counter()
+    while not st.done(state):
+        state = st.step(state, 7)
+        segments += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    push, peek = ops.masked_push.launches, ops.masked_peek.launches
+    out, res, want = st.result(state), st.vm.result(state), run6["res"]
+    for k, v in run6["out"].items():
+        check(torch.equal(out[k], v), f"segmented NUTS {k} differs from phase 6's run")
+    check(res.steps == want.steps, f"segmented NUTS ran {res.steps} dispatches, not {want.steps}")
+    check(np.array_equal(res.block_exec, want.block_exec), "segmented NUTS block_exec differs")
+    check((push, peek) == (launches6["masked_push"], launches6["masked_peek"]),
+          f"segmented NUTS K1/K2 launches {(push, peek)} != phase 6's "
+          f"{(launches6['masked_push'], launches6['masked_peek'])}")
+    check(not res.fault_code.any(), "segmented NUTS reported faults")
+    print(f"segments: NUTS {CHAINS} chains in {segments} segments of 7 dispatches: "
+          f"bit-identical to phase 6 (outputs, {res.steps} dispatches, block_exec, K1/K2 "
+          f"launches {push}/{peek}); wall {wall:.3f} s")
+
+    t0 = time.perf_counter()
+    records = torch_chaos.run_matrix(batch=64, rate=0.25, seed=0, device="cuda")
+    for r in records:
+        check(r["ok"], f"chaos cell {r['schedule']} fuse={r['fuse']}: {r['violations']}")
+    print(f"segments: chaos matrix, batch 64, {len(records)} cells (schedule x fuse), "
+          f"{records[0]['injected']} injected: every code as injected, healthy lanes "
+          f"bit-exact; dispatches {[r['steps'] for r in records]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    n = np.random.default_rng(1).integers(0, 11, 9).astype(np.int32)
+    fn = batching.autobatch(build_fib(), max_depth=5, on_fault="quarantine",
+                            lane_step_budget=10_000, device="cuda")
+    fn(torch.from_numpy(n).cuda())
+    res = fn.last_result
+    codes = res.fault_code.cpu().numpy()
+    check(res.converged and res.steps < fn.max_steps, "the overflow program did not halt")
+    check(codes.any() and bool((codes[codes != 0] == pc_vm.FAULT_STACK_OVERFLOW).all()),
+          f"overflow codes {codes}")
+    check(np.array_equal(codes != 0, res.depth_exceeded.cpu().numpy()),
+          "overflow codes and depth_exceeded disagree")
+    print(f"segments: fib({n.tolist()}) at max_depth=5, quarantine, lane_step_budget=10000, "
+          f"no max_steps bound: halted after {res.steps} dispatches, lanes "
+          f"{np.flatnonzero(codes).tolist()} stack_overflow")
+    print(f"segments: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 12. open-loop serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _requests(engine_mod, n: int, lo: int, hi: int, vocab: int, seed: int, arrivals=None):
+    rng = np.random.default_rng(seed)
+    return [engine_mod.Request(rid=i, prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
+                               .astype(np.int32),
+                               arrival=0.0 if arrivals is None else float(arrivals[i]))
+            for i in range(n)]
+
+
+def _clock(tick: float):
+    t = {"now": 0.0}
+
+    def now():
+        t["now"] += tick
+        return t["now"]
+
+    return now
+
+
+def phase_serve(torch) -> int:
+    """Open-loop serving of SmolLM-135M; returns K4's launches in the
+    measured burst run."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine as E
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(ARCH)
+    params = get_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+
+    # Check: float32 (TF32 off), 4 lanes, 8 requests arriving over a
+    # virtual clock and a hog (a 16-token prompt among 2..8-token ones)
+    # under a lane step budget between the hog's and the longest healthy
+    # request's step counts, measured one request at a time; every healthy
+    # completion is held to the oracle, request by request.
+    t0 = time.perf_counter()
+    model32 = get_model(replace(cfg, compute_dtype="float32"), device="cuda")
+    kw = dict(lanes=4, max_context=64, max_prompt_len=16, max_new_tokens=16,
+              requests_per_lane=1, eos_id=0, segment_steps=16)
+    reqs = _requests(E, 8, 2, 8, cfg.vocab_size, seed=13, arrivals=np.arange(8) * 1.5)
+    hog = E.Request(rid=8, prompt=np.full((16,), 7, np.int32), arrival=2.0)
+    one = E.GenerationEngine(model32, params, E.EngineConfig(**dict(kw, lanes=1)))
+    steps = []
+    for r in (max(reqs, key=lambda r: len(r.prompt)), hog):
+        one.serve([E.Request(rid=0, prompt=r.prompt)])
+        steps.append(int(one.last_serve_result.lane_steps[0]))
+    check(steps[0] < steps[1], f"hog lane steps {steps[1]} not above the healthy {steps[0]}")
+    budget = sum(steps) // 2
+    eng = E.GenerationEngine(model32, params, E.EngineConfig(**kw, lane_step_budget=budget))
+    comps, stats = eng.serve(reqs + [hog], now_fn=_clock(1.0))
+    t_serve = time.perf_counter() - t0
+    oracle = E.GenerationEngine(model32, params, E.EngineConfig(**dict(kw, lanes=len(reqs))))
+    prompts = np.zeros((len(reqs), 1, 16), np.int32)
+    plens = np.zeros((len(reqs), 1), np.int32)
+    for i, r in enumerate(reqs):
+        prompts[i, 0, : len(r.prompt)] = r.prompt
+        plens[i, 0] = len(r.prompt)
+    ref = oracle.reference_generate(prompts, plens)
+    by = {c.rid: c for c in comps}
+    check((by[8].status, by[8].fault) == ("faulted", "watchdog"),
+          f"hog resolved {by[8].status} ({by[8].fault})")
+    for r in reqs:
+        c = by[r.rid]
+        check(c.status == "ok" and np.array_equal(
+            c.tokens, ref["tokens"][c.rid, 0, : ref["lengths"][c.rid, 0]]),
+              f"serve check: request {c.rid} ({c.status}) != the sequential oracle")
+    print(f"serve check: {ARCH} full width float32, 4 lanes, 8 requests arriving every 1.5 "
+          f"ticks of a virtual clock and a 16-token hog under lane_step_budget={budget} "
+          f"(lane steps: longest healthy {steps[0]}, hog {steps[1]}): the hog faulted "
+          f"(watchdog), every healthy completion equal to the sequential oracle "
+          f"({stats.generated_tokens} tokens, {stats.segments} segments, {stats.vm_steps} "
+          f"dispatches, lanes {sorted({c.lane for c in comps})}; serving {t_serve:.1f} s, "
+          f"oracle {time.perf_counter() - t0 - t_serve:.1f} s)")
+
+    # Measure: bf16, 64 lanes, 128 requests.
+    ecfg = E.EngineConfig(lanes=64, max_context=512, max_prompt_len=64, max_new_tokens=64,
+                          requests_per_lane=1, eos_id=0, segment_steps=16)
+    eng = E.GenerationEngine(get_model(cfg, device="cuda"), params, ecfg)
+    burst = _requests(E, 128, 2, 64, cfg.vocab_size, seed=14)
+    t0 = time.perf_counter()
+    eng.serve(burst[:64])
+    torch.cuda.synchronize()
+    print(f"serve: warm-up (64 requests, type inference included) "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def measured(what, reqs):
+        fd_ops.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        comps, st = eng.serve(reqs)
+        torch.cuda.synchronize()
+        launches = fd_ops.decode_attention.launches
+        res = eng.last_serve_result
+        execs, active = res.tag_stats["decode"]
+        check(launches == cfg.num_layers * execs,
+              f"{what}: K4 launched {launches} times, want {cfg.num_layers} x {execs}")
+        statuses = {s: getattr(st, s) for s in E.COMPLETION_STATUSES}
+        check(statuses["ok"] == len(reqs), f"{what}: statuses {statuses}")
+        check(all(0 < c.tokens.size <= 64 for c in comps), f"{what}: token counts")
+        print(f"serve: {ARCH} full width bf16, 64 lanes, {what}: wall {st.wall_time:.3f} s, "
+              f"{st.generated_tokens} tokens, {st.generated_tokens / st.wall_time:.1f} "
+              f"tokens/s, {len(reqs) / st.wall_time:.2f} completions/s {statuses}, latency "
+              f"p50 {st.p50_latency:.3f} s p99 {st.p99_latency:.3f} s, {st.segments} "
+              f"segments, {st.vm_steps} dispatches, {st.wall_time / st.vm_steps * 1e3:.3f} "
+              f"ms/dispatch, lane occupancy {st.occupancy:.4f} a segment "
+              f"({res.sched.mean_lane_occupancy:.4f} a dispatch), decode executions "
+              f"{execs}, K4 launches {launches}")
+        return st, launches
+
+    bstats, launches = measured("128 requests at t=0", burst)
+    rate = 0.5 * len(burst) / bstats.wall_time
+    gaps = np.random.default_rng(15).exponential(1.0 / rate, len(burst))
+    poisson = [E.Request(rid=r.rid, prompt=r.prompt, arrival=float(t))
+               for r, t in zip(burst, np.cumsum(gaps))]
+    measured(f"128 Poisson arrivals at {rate:.2f}/s", poisson)
+
+    # The profiled burst is the first 64 requests (one a lane): processing
+    # the profile of all 128 (~595k kernels) took about 100 s.
+    t0 = time.perf_counter()
+    dev_ms, kernels, wall = _busy(torch, lambda: eng.serve(burst[:64]))
+    steps = eng.last_serve_result.steps
+    print(f"serve: profiled burst of 64 requests: device busy {dev_ms:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall ({dev_ms / 1e3 / wall:.4f} busy share), {kernels} "
+          f"kernels ({kernels / steps:.1f} per dispatch); with the profile's processing "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"serve: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1011,11 +1231,13 @@ def main() -> int:
     kernels = phase_kernels(torch, nuts.recommended_max_depth(settings), CHAINS)
     phase_vm(torch, 256)
     phase_nuts(torch)
-    launches = phase_full(torch, CHAINS, settings)
+    launches, run6 = phase_full(torch, CHAINS, settings)
     kernels.update(phase_attention_kernels(torch))
     launches["flash_attention"] = phase_prefill(torch)
-    launches["decode_attention"] = phase_engine(torch)
+    print(f"engine: K4 launches {phase_engine(torch)} on the closed-loop path")
     phase_paper(torch, settings)
+    phase_segments(torch, run6, launches)
+    launches["decode_attention"] = phase_serve(torch)
 
     kdir = "src/repro_torch/kernels"
     where = {

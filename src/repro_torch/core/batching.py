@@ -21,15 +21,20 @@ Backends, as in the JAX package:
   program-counter VM (:mod:`.pc_vm`) with its ``schedule``,
   ``compact_every`` and ``collect_stats`` knobs.  The stacks default to
   the statically inferred depth bound (a recursive program falls back to
-  :data:`DEFAULT_MAX_DEPTH`); a run in which any member overflows raises
-  :class:`pc_vm.StackOverflow`;
+  :data:`DEFAULT_MAX_DEPTH`).  Faults follow ``on_fault``: under
+  ``"raise"`` (the default) a run in which any member overflows raises
+  :class:`pc_vm.StackOverflow`, and one with a non-finite write
+  (``detect_nonfinite``) or a lane over its ``lane_step_budget`` raises
+  :class:`pc_vm.LaneFault`; under ``"quarantine"`` nothing raises and the
+  faulted lanes are flagged in ``last_result.fault_code``.
+  :meth:`AutobatchedFunction.stepper` runs it in segments (:class:`Stepper`);
 * ``"local"`` / ``"local_eager"``: local static autobatching
   (:mod:`.local_static`, paper Algorithm 1) with each block segment
   replayed from a CUDA graph, or op by op;
 * ``"reference"``: the unbatched interpreter, one member at a time.
 
 Executors are cached under ``(backend, device, batch size, input
-specs)``.  ``tag_stats`` and ``utilization`` cover the most recent call on
+specs, fault options)``.  ``tag_stats`` and ``utilization`` cover the most recent call on
 every backend (``{}`` for ``reference``, which keeps no counters);
 ``scheduler_stats`` is the pc VM's :class:`pc_vm.SchedulerStats`.
 
@@ -47,7 +52,7 @@ import torch
 from ..device import resolve_device
 from . import analysis, frontend, ir, local_static, lowering, passes, pc_vm, reference
 
-__all__ = ["Batched", "Shared", "AutobatchedFunction", "autobatch"]
+__all__ = ["Batched", "Shared", "AutobatchedFunction", "Stepper", "autobatch"]
 
 BACKENDS = ("pc", "local", "local_eager", "reference")
 
@@ -112,6 +117,28 @@ def _raise_if_overflowed(flags: np.ndarray, batch_size: int, max_depth: int,
         )
 
 
+def _raise_if_faulted(codes: np.ndarray, batch_size: int) -> None:
+    """The gate for non-finite and watchdog faults under ``on_fault="raise"``:
+    the batch is aborted with the per-lane codes on the exception."""
+    bad = codes >= pc_vm.FAULT_NONFINITE
+    if bad.any():
+        lanes = np.flatnonzero(bad)
+        kinds = sorted({pc_vm.FAULT_NAMES[int(codes[i])] for i in lanes})
+        shown = ", ".join(str(i) for i in lanes[:8])
+        if len(lanes) > 8:
+            shown += ", ..."
+        raise pc_vm.LaneFault(
+            f"lane fault ({'/'.join(kinds)}): {len(lanes)} of {batch_size} "
+            f"batch members faulted (lanes {shown}); their results would "
+            "be invalid. Pass on_fault='quarantine' to autobatch() to "
+            "contain faults per lane instead of aborting the batch.",
+            fault_codes=codes,
+        )
+
+
+_trace_program = trace  # autobatch's ``trace`` argument shadows the name
+
+
 class _PcExecutor:
     def __init__(self, lowered: ir.LoweredProgram, main: str,
                  config: pc_vm.VMConfig, device, overflow_hint: str):
@@ -121,13 +148,24 @@ class _PcExecutor:
         self.vm = pc_vm.ProgramCounterVM(lowered, config, device)
         self.last_result: Optional[pc_vm.VMResult] = None
 
+    def qualify(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return {ir.qualify(self.main, k): v for k, v in inputs.items()}
+
+    def check(self, depth_exceeded: torch.Tensor, fault_code: torch.Tensor) -> None:
+        """Under ``on_fault="raise"``, raise on the faults of a finished run
+        (caller lane order): overflow, then the enabled detectors."""
+        cfg = self.vm.config
+        if cfg.on_fault != "raise":
+            return
+        _raise_if_overflowed(depth_exceeded.cpu().numpy(), self.batch_size,
+                             cfg.max_depth, self.overflow_hint)
+        if cfg.detect_nonfinite or cfg.lane_step_budget is not None:
+            _raise_if_faulted(fault_code.cpu().numpy(), self.batch_size)
+
     def run(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        res = self.vm.run({ir.qualify(self.main, k): v for k, v in inputs.items()})
+        res = self.vm.run(self.qualify(inputs))
         self.last_result = res
-        _raise_if_overflowed(
-            res.depth_exceeded.cpu().numpy(), self.batch_size,
-            self.vm.config.max_depth, self.overflow_hint,
-        )
+        self.check(res.depth_exceeded, res.fault_code)
         return {k.split("/", 1)[1]: v for k, v in res.outputs.items()}
 
     @property
@@ -170,6 +208,117 @@ class _ReferenceExecutor:
         return reference.run_reference_batch(self.program, inputs)
 
 
+class Stepper:
+    """Segmented, resumable execution of an autobatched function (pc
+    backend only); made by :meth:`AutobatchedFunction.stepper`.
+
+    The caller holds the VM state and advances it in segments, so a host
+    loop can retire finished lanes and refill them between segments::
+
+        st = fn.stepper(*args)
+        state = st.init()
+        while not st.done(state):
+            state = st.step(state, 64)  # <= 64 loop iterations
+        out = st.result(state)          # == fn(*args), bit for bit
+
+    ``step``, ``inject`` and ``park`` update the state in place and return
+    it (the JAX package's donate the snapshot); a chain of segments of any
+    sizes is bit-exact with the single call.  Per-lane views are in the
+    caller's lane order whatever ``compact_every`` does.
+    """
+
+    def __init__(self, fn: "AutobatchedFunction", inputs: dict, z: int):
+        self._fn = fn
+        self._ex = fn._executor(inputs, z)
+        self._inputs = inputs
+        self.batch_size = z
+
+    @property
+    def vm(self) -> pc_vm.ProgramCounterVM:
+        """The VM (shared with plain calls at this batch size)."""
+        return self._ex.vm
+
+    def _bind(self, args: tuple, what: str) -> dict:
+        inputs, z = self._fn._bind(args)
+        if z != self.batch_size:
+            raise TypeError(f"stepper.{what}: batch size {z} != {self.batch_size}")
+        return self._ex.qualify(inputs)
+
+    def init(self, *args) -> dict:
+        """A fresh initial state: of the values ``stepper(...)`` was made
+        with, or of new ones (same shapes)."""
+        inputs = self._bind(args, "init") if args else self._ex.qualify(self._inputs)
+        return self.vm.init_state(inputs)
+
+    def step(self, state: dict, num_steps: int) -> dict:
+        """Advance by at most ``num_steps`` VM loop iterations."""
+        return self.vm.run_segment(state, num_steps)
+
+    def lane_done(self, state: dict) -> torch.Tensor:
+        """``[batch]`` bool: which lanes have halted."""
+        return self.vm.lane_done(state)
+
+    def fault_code(self, state: dict) -> torch.Tensor:
+        """``[batch]`` int32 fault codes (``pc_vm.FAULT_NAMES``)."""
+        return self.vm.lane_fault(state)
+
+    def lane_faulted(self, state: dict) -> torch.Tensor:
+        """``[batch]`` bool: which lanes have faulted; under
+        ``on_fault="quarantine"`` they never advance again until
+        ``inject`` resets them."""
+        return self.vm.lane_faulted(state)
+
+    def lane_status(self, state: dict) -> tuple[np.ndarray, np.ndarray]:
+        """The halt flags (bool) and fault codes (int32) as host arrays,
+        read in one transfer."""
+        status = self.vm.lane_status(state).cpu().numpy()
+        return status[0].astype(bool), status[1]
+
+    def done(self, state: dict) -> bool:
+        """True once the VM cannot advance this state: every lane halted or
+        faulted, a fatal fault stopped the loop (``"raise"`` with a
+        detector on), or ``max_steps`` is spent — exactly when a single
+        call would return."""
+        done, codes = self.lane_status(state)
+        if (done | (codes != pc_vm.FAULT_OK)).all():
+            return True
+        if self.vm._fail_fast() and (codes >= pc_vm.FAULT_NONFINITE).any():
+            return True
+        return self.steps(state) >= self.vm.config.max_steps
+
+    def steps(self, state: dict) -> int:
+        """VM loop iterations run on this state, over all segments."""
+        return int(state["steps"])
+
+    def park(self, state: dict, mask) -> dict:
+        """Park the masked lanes at the exit block (idle until injected)."""
+        return self.vm.park(state, mask)
+
+    def inject(self, state: dict, mask, *args) -> dict:
+        """Re-initialize the masked lanes with fresh arguments, given with
+        the function's calling convention at full batch width (only the
+        masked rows are read).  Other lanes are untouched."""
+        return self.vm.inject(state, mask, self._bind(args, "inject"))
+
+    def depth_exceeded(self, state: dict) -> torch.Tensor:
+        """``[batch]`` bool: lanes whose stacks overflowed ``max_depth``."""
+        return self.vm.lane_depth_exceeded(state)
+
+    def outputs(self, state: dict) -> dict[str, torch.Tensor]:
+        """The outputs of a state, without the fault checks: final rows for
+        halted lanes, whatever in-flight lanes wrote so far."""
+        main = self._ex.main
+        return {key: self.vm.unpermute(state, state["tops"][ir.qualify(main, name)])
+                for key, name in self._fn._out_names.items()}
+
+    def result(self, state: dict) -> dict[str, torch.Tensor]:
+        """The outputs with a plain call's fault checks: under
+        ``on_fault="raise"`` raise :class:`pc_vm.StackOverflow` or
+        :class:`pc_vm.LaneFault`; under ``"quarantine"`` never raise."""
+        self._ex.check(self.vm.lane_depth_exceeded(state), self.vm.lane_fault(state))
+        return self.outputs(state)
+
+
 class AutobatchedFunction:
     """A batched callable over positional arguments; made by :func:`autobatch`."""
 
@@ -187,6 +336,9 @@ class AutobatchedFunction:
         schedule: str,
         fuse: bool,
         compact_every: Optional[int],
+        on_fault: str,
+        detect_nonfinite: bool,
+        lane_step_budget: Optional[int],
         device: torch.device,
     ):
         if backend not in BACKENDS:
@@ -205,6 +357,9 @@ class AutobatchedFunction:
         self.schedule = schedule
         self.fuse = fuse
         self.compact_every = compact_every
+        self.on_fault = on_fault
+        self.detect_nonfinite = detect_nonfinite
+        self.lane_step_budget = lane_step_budget
         self._bindings = bindings
         self._arg_specs = arg_specs
         self._out_names = out_names
@@ -303,6 +458,9 @@ class AutobatchedFunction:
             self.device,
             z,
             tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
+            self.on_fault,
+            self.detect_nonfinite,
+            self.lane_step_budget,
         )
         ex = self._executors.get(key)
         if ex is not None:
@@ -315,6 +473,8 @@ class AutobatchedFunction:
                     max_steps=self.max_steps,
                     collect_block_stats=self.collect_stats,
                     schedule=self.schedule, compact_every=self.compact_every,
+                    on_fault=self.on_fault, detect_nonfinite=self.detect_nonfinite,
+                    lane_step_budget=self.lane_step_budget,
                 ),
                 self.device, self._overflow_hint(),
             )
@@ -331,6 +491,14 @@ class AutobatchedFunction:
         self._last_executor = ex
         out = ex.run(inputs)
         return {key: out[name] for key, name in self._out_names.items()}
+
+    def stepper(self, *args) -> Stepper:
+        """A :class:`Stepper` over these arguments (pc backend only); it
+        shares the executor of plain calls at this batch size."""
+        if self.backend != "pc":
+            raise ValueError("stepper requires the 'pc' backend")
+        inputs, z = self._bind(args)
+        return Stepper(self, inputs, z)
 
     @property
     def last_result(self) -> Optional[pc_vm.VMResult]:
@@ -384,6 +552,11 @@ def autobatch(
     schedule: str = "earliest",
     fuse: bool = True,
     compact_every: Optional[int] = None,
+    on_fault: str = "raise",
+    detect_nonfinite: bool = False,
+    lane_step_budget: Optional[int] = None,
+    trace: Any = None,
+    mesh: Any = None,
     device=None,
 ) -> AutobatchedFunction:
     """Autobatch an :class:`ir.Program` or a :class:`frontend.ProgramBuilder`.
@@ -398,12 +571,23 @@ def autobatch(
     (superblock fusion; dead-code elimination runs either way),
     ``compact_every`` (lane compaction every k loop iterations) and
     ``collect_stats`` (per-block counters, ``tag_stats`` and
-    ``scheduler_stats``).  ``device`` is where everything runs (default:
-    the CUDA card).
+    ``scheduler_stats``).  Fault containment, pc backend only:
+    ``on_fault`` (one of ``pc_vm.ON_FAULT``), ``detect_nonfinite`` and
+    ``lane_step_budget`` (see :class:`pc_vm.VMConfig`).  ``device`` is
+    where everything runs (default: the CUDA card).  ``trace`` and ``mesh``
+    are not ported and raise when set.
     """
+    if trace is not None:
+        raise NotImplementedError(
+            "trace= (dispatch tracing) is not ported yet (ROADMAP item 9)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (lane sharding over devices) is not ported yet (ROADMAP item 14)")
+    if on_fault not in pc_vm.ON_FAULT:
+        raise ValueError(f"on_fault must be one of {pc_vm.ON_FAULT}, got {on_fault!r}")
     device = resolve_device(device)
     if isinstance(target, frontend.ProgramBuilder):
-        program = trace(target.functions, target.main)
+        program = _trace_program(target.functions, target.main)
     elif isinstance(target, ir.Program):
         program = target
     else:
@@ -438,5 +622,7 @@ def autobatch(
         program, tuple(bindings), arg_specs, out_names,
         backend=backend, max_depth=max_depth, max_steps=max_steps,
         collect_stats=collect_stats, schedule=schedule, fuse=fuse,
-        compact_every=compact_every, device=device,
+        compact_every=compact_every, on_fault=on_fault,
+        detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
+        device=device,
     )

@@ -58,6 +58,30 @@ Pc, pointer and counter state is int32 as in the JAX VM, so overflow,
 bit.  Unbatched primitives run under ``torch.func.vmap``; constants are
 evaluated once and broadcast.
 
+Fault containment (``VMConfig.on_fault``, ``detect_nonfinite``,
+``lane_step_budget``), as in the JAX VM: each lane carries an int32
+``fault_code`` (first fault wins; :data:`FAULT_NAMES`).  A push group's
+overflow flags become ``FAULT_STACK_OVERFLOW`` after the group; with
+``detect_nonfinite`` every floating write into VM state (a primitive's
+state outputs, the new tops of a push) is checked before the masked
+write, in the reference's order (each push: overflow, then the new top;
+the pc push's overflow at the terminator); the watchdog faults a lane that
+is still running once it was active in ``lane_step_budget`` dispatches.
+Under ``"quarantine"`` a faulted lane leaves every dispatch mask, the
+schedule's statistics and the liveness test, so the batch runs on; under
+``"raise"`` with a detector set, the loop stops at the first
+non-finite or watchdog fault.  Both fold into the one value the host
+reads a dispatch.
+
+Segments: :meth:`ProgramCounterVM.init_state` makes a state,
+:meth:`ProgramCounterVM.run_segment` runs at most ``num_steps`` more loop
+iterations of the same host loop, so a chain of segments is bit-exact with
+one :meth:`ProgramCounterVM.run`.  Between segments
+:meth:`ProgramCounterVM.park` sends lanes to the exit block and
+:meth:`ProgramCounterVM.inject` re-initializes lanes with fresh inputs;
+both take caller-order masks and write into the state's tensors in place
+(their shapes, dtypes and layouts stay as the stack groups expect).
+
 The VM exposes one loop iteration at a time (:meth:`ProgramCounterVM.pick`
 / :meth:`ProgramCounterVM.dispatch`, :meth:`ProgramCounterVM.sweep`) as
 well as :meth:`ProgramCounterVM.run`, so tests can replay the dispatch
@@ -100,7 +124,38 @@ class StackOverflow(RuntimeError):
         self.lanes = lanes
 
 
+class LaneFault(RuntimeError):
+    """One or more lanes faulted (non-finite write or watchdog) under
+    ``on_fault="raise"``.
+
+    ``fault_codes`` is the ``[batch]`` int32 code array (host numpy, see
+    :data:`FAULT_NAMES`), ``lanes`` the faulted lanes and ``faults``
+    ``{lane: name}`` for them.
+    """
+
+    def __init__(self, message: str, *, fault_codes: np.ndarray):
+        super().__init__(message)
+        codes = np.asarray(fault_codes)
+        self.fault_codes = codes
+        self.lanes = np.flatnonzero(codes != FAULT_OK)
+        self.faults = {int(i): FAULT_NAMES[int(codes[i])] for i in self.lanes}
+
+
 SCHEDULES = ("earliest", "popular", "sweep", "lookahead")
+
+#: Fault policies (``VMConfig.on_fault``): ``"raise"`` makes faults fatal
+#: to the batch (the executor raises after the run); ``"quarantine"`` takes
+#: faulted lanes out of every dispatch, so the batch runs on.
+ON_FAULT = ("raise", "quarantine")
+
+# Per-lane fault codes (int32, first fault wins; 0 = healthy).
+FAULT_OK = 0
+FAULT_STACK_OVERFLOW = 1  # a push landed at or beyond max_depth
+FAULT_NONFINITE = 2  # a masked state write produced NaN/Inf (opt-in)
+FAULT_WATCHDOG = 3  # a lane exceeded its per-lane step budget (opt-in)
+
+#: Names, indexed by fault code.
+FAULT_NAMES = ("ok", "stack_overflow", "nonfinite", "watchdog")
 
 #: SIMD tile width (lanes) of the occupancy metric, as in the JAX VM: a
 #: dispatch's occupancy is its active lanes over the capacity of the tiles
@@ -118,8 +173,23 @@ class VMConfig:
     # Permute the lane axis by (liveness, pc-top) every this many loop
     # iterations; None: never.
     compact_every: Optional[int] = None
+    # Fault containment: the policy (one of ON_FAULT), the opt-in check of
+    # floating state writes, and the per-lane watchdog (dispatches a lane
+    # may be active in without halting; None: off).
+    on_fault: str = "raise"
+    detect_nonfinite: bool = False
+    lane_step_budget: Optional[int] = None
 
     def __post_init__(self):
+        if self.on_fault not in ON_FAULT:
+            raise ValueError(
+                f"on_fault must be one of {ON_FAULT}, got {self.on_fault!r}"
+            )
+        if self.lane_step_budget is not None and self.lane_step_budget < 1:
+            raise ValueError(
+                "lane_step_budget must be >= 1 (or None to disable), got "
+                f"{self.lane_step_budget}"
+            )
         if self.schedule not in SCHEDULES:
             raise ValueError(
                 f"schedule must be one of {SCHEDULES}, got {self.schedule!r}"
@@ -166,6 +236,12 @@ class VMResult:
     depth_exceeded: torch.Tensor  # [batch] bool: stack overflowed
     lane_steps: torch.Tensor  # [batch] int32 active-dispatch counts
     sched: SchedulerStats
+    fault_code: Optional[torch.Tensor] = None  # [batch] int32, FAULT_NAMES
+
+    @property
+    def fault_mask(self) -> Optional[torch.Tensor]:
+        """[batch] bool: lanes that faulted."""
+        return None if self.fault_code is None else self.fault_code != FAULT_OK
 
 
 def tile_capacity(mask: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
@@ -333,7 +409,9 @@ class ProgramCounterVM:
                     f"input {p!r}: expected batched shape "
                     f"{(z,) + spec.shape}, got {tuple(x.shape)}"
                 )
-            tops[p] = x.to(device=dev, dtype=spec.dtype).contiguous()
+            # A copy of its own: inject writes the tops in place.
+            tops[p] = x.to(device=dev, dtype=spec.dtype).clone(
+                memory_format=torch.contiguous_format)
         state = {
             "pc_top": torch.full((z,), lp.entry, dtype=_I32, device=dev),
             # Slot 0 holds the exit sentinel.
@@ -347,6 +425,8 @@ class ProgramCounterVM:
             # beyond max_depth (the push drops it, invalidating the member).
             "depth_exceeded": torch.zeros((z,), dtype=torch.bool, device=dev),
             "lane_steps": torch.zeros((z,), dtype=_I32, device=dev),
+            # Per-lane fault code (FAULT_*); first fault wins, inject clears.
+            "fault_code": torch.zeros((z,), dtype=_I32, device=dev),
         }
         if self.config.compact_every is not None:
             # Which caller lane each row holds (compaction permutes rows).
@@ -394,6 +474,9 @@ class ProgramCounterVM:
     def _make_block_fn(self, bidx: int, blk: ir.LBlock) -> Callable:
         temp_vars = self.lowered.temp_vars
         max_depth = self.config.max_depth
+        detect_nonfinite = self.config.detect_nonfinite
+        budget = self.config.lane_step_budget
+        exit_idx = self.lowered.exit_index
         consts, vmapped = self._consts, self._vmapped
         t = blk.term
         items = [
@@ -401,6 +484,7 @@ class ProgramCounterVM:
             for it in stack_runs(blk)
         ]
         self.stack_groups.append([it for it in items if isinstance(it, StackGroup)])
+        pushes = any(isinstance(it, StackGroup) and it.kind == "push" for it in items)
         branch_targets = ret_top = None
         if isinstance(t, ir.LBranch):
             branch_targets = (
@@ -418,6 +502,19 @@ class ProgramCounterVM:
             tops, stacks, ptrs = state["tops"], state["stacks"], state["ptrs"]
             temps: dict[str, torch.Tensor] = {}
 
+            def set_fault(where: torch.Tensor, code: int) -> None:
+                # First fault wins: only healthy lanes take a new code.
+                fc = state["fault_code"]
+                state["fault_code"] = torch.where(where & (fc == FAULT_OK), code, fc)
+
+            def check_finite(val: torch.Tensor) -> None:
+                if not (val.is_floating_point() or val.is_complex()):
+                    return
+                bad = ~torch.isfinite(val)
+                if bad.dim() > 1:
+                    bad = bad.flatten(1).any(dim=1)
+                set_fault(mask & bad, FAULT_NONFINITE)
+
             def read(v: str) -> torch.Tensor:
                 return temps[v] if v in temp_vars else tops[v]
 
@@ -425,6 +522,8 @@ class ProgramCounterVM:
                 if v in temp_vars:
                     temps[v] = val
                 else:
+                    if detect_nonfinite:
+                        check_finite(val)
                     tops[v] = _masked(mask, val.to(tops[v].dtype), tops[v])
 
             for op in items:
@@ -444,6 +543,12 @@ class ProgramCounterVM:
                 elif op.kind == "push":
                     entries = [(stacks[v], ptrs[v], tops[v], read(s))
                                for v, s in zip(op.vars, op.srcs)]
+                    if detect_nonfinite:
+                        # The reference's order, push by push: overflow,
+                        # then the new top (no src is pushed in the group).
+                        for _, ptr, _, src in entries:
+                            set_fault(mask & (ptr >= max_depth), FAULT_STACK_OVERFLOW)
+                            check_finite(src)
                     if op.pc:
                         entries.append((state["pc_stack"], state["pc_ptr"], ret_top, None))
                     new_ptrs, new_tops = op.call(entries, mask, state["depth_exceeded"],
@@ -474,7 +579,17 @@ class ProgramCounterVM:
             elif not isinstance(t, ir.LReturn):  # pragma: no cover
                 raise AssertionError(t)
             state["pc_top"] = pc_top
-            state["lane_steps"] = state["lane_steps"] + imask
+            if pushes:
+                # The groups set each overflowing lane's flag; a lane that
+                # has one and no code yet overflowed in this block (the pc
+                # push's, at the terminator, comes after every other write).
+                set_fault(state["depth_exceeded"], FAULT_STACK_OVERFLOW)
+            lane_steps = state["lane_steps"] + imask
+            state["lane_steps"] = lane_steps
+            if budget is not None:
+                # Watchdog: a lane that used up its budget without halting.
+                set_fault(mask & (lane_steps >= budget) & (pc_top < exit_idx),
+                          FAULT_WATCHDOG)
 
         return run
 
@@ -482,35 +597,69 @@ class ProgramCounterVM:
     # The loop
     # ------------------------------------------------------------------
 
+    def _pc_live(self, state: dict[str, Any]) -> torch.Tensor:
+        """``pc_top`` with every lane that no longer dispatches at
+        ``exit_index``: halted lanes hold it already, and under
+        ``"quarantine"`` faulted lanes are moved there too."""
+        pc = state["pc_top"]
+        if self.config.on_fault == "quarantine":
+            pc = torch.where(state["fault_code"] == FAULT_OK, pc, self.lowered.exit_index)
+        return pc
+
+    def _fail_fast(self) -> bool:
+        """Whether a non-finite or watchdog fault stops the loop: under
+        ``"raise"`` with a detector on, it is fatal to the batch anyway."""
+        cfg = self.config
+        return cfg.on_fault == "raise" and (
+            cfg.detect_nonfinite or cfg.lane_step_budget is not None)
+
+    def _mask(self, state: dict[str, Any], b: int) -> torch.Tensor:
+        """The lanes block ``b`` runs over: those resting there, less the
+        quarantined ones."""
+        mask = state["pc_top"] == b
+        if self.config.on_fault == "quarantine":
+            mask = mask & (state["fault_code"] == FAULT_OK)
+        return mask
+
     def pick(self, state: dict[str, Any]) -> int:
-        """The schedule's block (``exit_index`` once every lane halted);
+        """The schedule's block (``exit_index`` once no lane dispatches);
         the value read back is the one host synchronisation of a dispatch.
 
-        Halted lanes hold ``pc_top == exit_index``, so ``earliest`` is the
-        minimum over all lanes, and the per-block counts of the others see
-        only live lanes.  ``argmax`` takes the first maximum, as
+        Lanes that do not dispatch count as resting at ``exit_index``
+        (:meth:`_pc_live`), so ``earliest`` is the minimum over all lanes
+        and the per-block counts of the others see only live lanes.  When a
+        fault stops the loop (:meth:`_fail_fast`) the same read returns
+        ``exit_index``.  ``argmax`` takes the first maximum, as
         ``jnp.argmax`` does."""
-        schedule, pc = self.config.schedule, state["pc_top"]
+        schedule, pc = self.config.schedule, self._pc_live(state)
+        exit_idx = self.lowered.exit_index
         if schedule == "earliest":
-            return int(pc.min())
-        if schedule not in ("popular", "lookahead"):
+            b = pc.min()
+        elif schedule in ("popular", "lookahead"):
+            counts = (pc.unsqueeze(0) == self._block_ids).sum(dim=1)  # int64 [B]
+            score = counts
+            if schedule == "lookahead":
+                score = 2 * counts + (self._succ * counts).sum(dim=1)
+                score = torch.where(counts > 0, score, -1)
+            b = torch.where(counts.sum() > 0, score.argmax(), exit_idx)
+        else:
             raise ValueError(f"schedule {schedule!r} picks no block")
-        counts = (pc.unsqueeze(0) == self._block_ids).sum(dim=1)  # int64 [B]
-        score = counts
-        if schedule == "lookahead":
-            score = 2 * counts + (self._succ * counts).sum(dim=1)
-            score = torch.where(counts > 0, score, -1)
-        b = score.argmax()
-        return int(torch.where(counts.sum() > 0, b, self.lowered.exit_index))
+        if self._fail_fast():
+            b = torch.where((state["fault_code"] >= FAULT_NONFINITE).any(), exit_idx, b)
+        return int(b)
 
     def live(self, state: dict[str, Any]) -> bool:
-        """Whether any lane still runs (one host read)."""
-        return bool((state["pc_top"] < self.lowered.exit_index).any())
+        """Whether any lane still dispatches (one host read); False once a
+        fault stops the loop."""
+        alive = (self._pc_live(state) < self.lowered.exit_index).any()
+        if self._fail_fast():
+            alive = alive & ~(state["fault_code"] >= FAULT_NONFINITE).any()
+        return bool(alive)
 
     def dispatch(self, state: dict[str, Any], b: int) -> None:
         """One loop iteration of a switch schedule: run block ``b`` over
         the lanes resting there (in place), then compact when due."""
-        mask = state["pc_top"] == b
+        mask = self._mask(state, b)
         if self.config.collect_block_stats:
             state["block_exec"][b] += 1
             state["block_active"][b] += mask.sum(dtype=_I32)
@@ -526,7 +675,7 @@ class ProgramCounterVM:
         collect = self.config.collect_block_stats
         active = []
         for b, fn in enumerate(self._block_fns):
-            mask = state["pc_top"] == b
+            mask = self._mask(state, b)
             if collect:
                 active.append(mask.sum(dtype=_I32))
                 state["tile_acc"] += tile_capacity(mask, self._tile_caps)
@@ -547,10 +696,11 @@ class ProgramCounterVM:
         """Permute the lane axis of the whole state (in the dict) by a
         stable argsort on ``(liveness, pc_top)``; every permuted tensor is
         a fresh contiguous one."""
-        pc = state["pc_top"]
+        pc = self._pc_live(state)
         key = torch.where(pc < self.lowered.exit_index, pc, self.num_blocks + 1)
         perm = torch.argsort(key, stable=True)
-        for k in ("pc_top", "pc_ptr", "depth_exceeded", "lane_steps", "lane_ids"):
+        for k in ("pc_top", "pc_ptr", "depth_exceeded", "fault_code", "lane_steps",
+                  "lane_ids"):
             state[k] = state[k].index_select(0, perm)
         state["pc_stack"] = state["pc_stack"].index_select(1, perm)
         for group, dim in (("tops", 0), ("ptrs", 0), ("stacks", 1)):
@@ -559,17 +709,25 @@ class ProgramCounterVM:
                 d[v] = d[v].index_select(dim, perm)
 
     def unpermute(self, state: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        """A row-order ``[batch, ...]`` tensor in caller lane order."""
+        """A row-order ``[batch, ...]`` tensor in caller lane order (a fresh
+        tensor: inject and park write the state in place)."""
         if self.config.compact_every is None:
-            return x
+            return x.clone()
         return x.index_select(0, torch.argsort(state["lane_ids"]))
 
-    def run(self, inputs: dict[str, torch.Tensor]) -> VMResult:
-        """Execute the batched program to completion (or ``max_steps``)."""
-        state = self.init_state(inputs)
+    def _rows(self, state: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        """A caller-order ``[batch, ...]`` tensor (a mask, fresh inputs) in
+        the state's row order."""
+        if self.config.compact_every is None:
+            return x
+        return x.index_select(0, state["lane_ids"])
+
+    def _loop(self, state: dict[str, Any], limit: int) -> None:
+        """The host loop: iterate until no lane dispatches or ``steps``
+        reaches ``limit``."""
         exit_idx = self.lowered.exit_index
         sweep = self.config.schedule == "sweep"
-        while state["steps"] < self.config.max_steps:
+        while state["steps"] < limit:
             if sweep:
                 if not self.live(state):
                     break
@@ -579,9 +737,96 @@ class ProgramCounterVM:
             if b >= exit_idx:
                 break
             self.dispatch(state, b)
+
+    def run(self, inputs: dict[str, torch.Tensor]) -> VMResult:
+        """Execute the batched program to completion (or ``max_steps``)."""
+        state = self.init_state(inputs)
+        self._loop(state, self.config.max_steps)
         return self.result(state)
 
+    # ------------------------------------------------------------------
+    # Segments
+    # ------------------------------------------------------------------
+
+    def run_segment(self, state: dict[str, Any], num_steps: int) -> dict[str, Any]:
+        """Advance ``state`` (in place) by at most ``num_steps`` loop
+        iterations — dispatches, or sweeps under ``"sweep"`` — and return
+        it.  The loop is :meth:`run`'s, bounded by ``min(steps + num_steps,
+        max_steps)``, so a chain of segments of any sizes is bit-exact with
+        one run."""
+        self._loop(state, min(state["steps"] + int(num_steps), self.config.max_steps))
+        return state
+
+    def lane_done(self, state: dict[str, Any]) -> torch.Tensor:
+        """``[batch]`` bool, caller order: lanes at the exit block."""
+        return self.unpermute(state, state["pc_top"] >= self.lowered.exit_index)
+
+    def lane_fault(self, state: dict[str, Any]) -> torch.Tensor:
+        """``[batch]`` int32 fault codes, caller order (:data:`FAULT_NAMES`)."""
+        return self.unpermute(state, state["fault_code"])
+
+    def lane_faulted(self, state: dict[str, Any]) -> torch.Tensor:
+        """``[batch]`` bool, caller order: lanes that faulted."""
+        return self.unpermute(state, state["fault_code"] != FAULT_OK)
+
+    def lane_depth_exceeded(self, state: dict[str, Any]) -> torch.Tensor:
+        """``[batch]`` bool, caller order: lanes whose stacks overflowed."""
+        return self.unpermute(state, state["depth_exceeded"])
+
+    def lane_status(self, state: dict[str, Any]) -> torch.Tensor:
+        """``[2, batch]`` int32, caller order: the halt flags and the fault
+        codes in one tensor, so a host loop reads both in one transfer."""
+        done = (state["pc_top"] >= self.lowered.exit_index).to(_I32)
+        return self.unpermute(state, torch.stack([done, state["fault_code"]], dim=1)).T
+
+    def park(self, state: dict[str, Any], mask) -> dict[str, Any]:
+        """Send the masked lanes (``[batch]`` bool, caller order) to the
+        exit block, in place: they idle until :meth:`inject` refills them."""
+        mask = self._rows(state, torch.as_tensor(mask, dtype=torch.bool).to(self.device))
+        state["pc_top"].masked_fill_(mask, self.lowered.exit_index)
+        return state
+
+    def inject(self, state: dict[str, Any], mask,
+               inputs: dict[str, torch.Tensor]) -> dict[str, Any]:
+        """Re-initialize the masked lanes (``[batch]`` bool, caller order)
+        with fresh inputs (full ``[batch, ...]`` tensors; unmasked rows are
+        ignored), in place: each masked lane gets exactly what
+        :meth:`init_state` gives it — pc, pc stack and pointer, variable
+        stacks, pointers and tops, overflow flag, fault code and step count.
+        Unmasked lanes and the global counters are untouched."""
+        lp, z = self.lowered, self.config.batch_size
+        fresh = {}
+        for p in lp.main_params:
+            spec = lp.var_specs[p]
+            x = torch.as_tensor(inputs[p])
+            if tuple(x.shape) != (z,) + spec.shape:
+                raise ValueError(
+                    f"inject input {p!r}: expected batched shape "
+                    f"{(z,) + spec.shape}, got {tuple(x.shape)}"
+                )
+            fresh[p] = self._rows(state, x.to(device=self.device, dtype=spec.dtype))
+        mask = self._rows(state, torch.as_tensor(mask, dtype=torch.bool).to(self.device))
+        state["pc_top"].masked_fill_(mask, lp.entry)
+        state["pc_ptr"].masked_fill_(mask, 1)
+        state["pc_stack"].masked_fill_(mask.unsqueeze(0), lp.exit_index)
+        for k in ("depth_exceeded", "fault_code", "lane_steps"):
+            state[k].masked_fill_(mask, 0)
+        tops = state["tops"]
+        for v, top in tops.items():
+            if v in fresh:
+                top.copy_(_masked(mask, fresh[v], top))
+            else:
+                top.masked_fill_(_bcast(mask, top), 0)
+        for v, stack in state["stacks"].items():
+            stack.masked_fill_(_bcast(mask, stack[0]).unsqueeze(0), 0)
+        for ptr in state["ptrs"].values():
+            ptr.masked_fill_(mask, 0)
+        return state
+
     def result(self, state: dict[str, Any]) -> VMResult:
+        """A :class:`VMResult` of any state (per-lane tensors in caller
+        order); ``converged`` says whether every lane halted (or, under
+        ``"quarantine"``, halted or faulted)."""
         lp, cfg = self.lowered, self.config
         be = ba = None
         tag_stats: dict[str, tuple[int, int]] = {}
@@ -612,14 +857,18 @@ class ProgramCounterVM:
             fused_from=lp.fused_from, mean_lane_occupancy=lane_occ,
             compact_every=cfg.compact_every, masked_updates=masked_updates,
         )
+        done = state["pc_top"] >= lp.exit_index
+        if cfg.on_fault == "quarantine":
+            done = done | (state["fault_code"] != FAULT_OK)
         return VMResult(
             outputs={o: self.unpermute(state, state["tops"][o]) for o in lp.main_outputs},
             steps=state["steps"],
-            converged=bool((state["pc_top"] >= lp.exit_index).all()),
+            converged=bool(done.all()),
             block_exec=be,
             block_active=ba,
             tag_stats=tag_stats,
-            depth_exceeded=self.unpermute(state, state["depth_exceeded"]),
+            depth_exceeded=self.lane_depth_exceeded(state),
             lane_steps=self.unpermute(state, state["lane_steps"]),
             sched=sched,
+            fault_code=self.lane_fault(state),
         )

@@ -133,6 +133,23 @@ def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     return _SQRT2 * erfinv(u)
 
 
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """float32 standard Gumbel draws, ``-log(-log(uniform(key, shape,
+    tiny, 1)))`` (``jax.random.gumbel`` with its default ``mode="low"``):
+    the uniform draws are bit-exact, each ``log`` within an ulp of XLA's."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """An index drawn from the softmax of float32 ``logits`` along the last
+    axis (``jax.random.categorical``): the first argmax of logits plus
+    Gumbel noise over the same shape; int64 of the batch shape."""
+    return torch.argmax(logits + gumbel(key, tuple(logits.shape)), dim=-1)
+
+
 def prng_key(seed: int) -> torch.Tensor:
     """The key ``jax.random.PRNGKey(seed)`` makes for ``0 <= seed < 2**31``."""
     if not 0 <= seed < 2**31:

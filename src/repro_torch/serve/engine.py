@@ -1,9 +1,12 @@
 """Autobatched generation engine: the serving loop IS a program in the
-paper's IR, run by the program-counter VM (a port of the closed-loop part
-of the JAX package's ``serve/engine.py``).
+paper's IR, run by the program-counter VM (a port of the JAX package's
+``serve/engine.py``).
 
-Each batch lane owns a pre-assigned queue of requests.  The per-lane
-program is plain control flow::
+Two serving modes share the model-as-batched-primitive machinery.
+
+**Closed-loop** (:meth:`GenerationEngine.generate`): each batch lane owns
+a pre-assigned queue of requests.  The per-lane program is plain control
+flow::
 
     for each request in my queue:          # outer while
         reset cache;                        # masked zeroing
@@ -12,35 +15,48 @@ program is plain control flow::
             emit token; decode(...)
 
 Lanes diverge (prompt lengths, stop times, request counts) and the VM runs
-whichever block the earliest lanes wait on, masking the rest.  A request
-with ``prompt_len == 0`` produces an empty completion, and a lane with
-``n_req == 0`` all-zero outputs; the sequential oracle
+whichever block the earliest lanes wait on, masking the rest.  It runs on
+any of the backends ``pc``, ``local`` and ``local_eager``.
+
+**Open-loop** (:meth:`GenerationEngine.serve`, pc backend): each lane runs
+one request at a time through a single-request program, and the VM runs
+in segments (:class:`batching.Stepper`).  Between segments the host
+retires finished and faulted lanes, enforces deadlines, admits arrived
+requests from a bounded queue and re-initializes free lanes in place with
+a masked ``inject`` (retire-and-refill).  Faulted lanes are quarantined
+(``EngineConfig.on_fault``) and their requests retried with backoff.
+
+A request with ``prompt_len == 0`` produces an empty completion, and a
+lane with ``n_req == 0`` all-zero outputs; the sequential oracle
 (:meth:`GenerationEngine.reference_generate`) agrees.
 
-The model's ``decode_step`` enters the program as one *batched*
-primitive, whose KV cache leaves are ordinary VM variables (the program is
-loop-only, so the VM allocates no variable stacks for them).  Every decode
-runs K4 once per layer.  Keys are threefry keys from ``mcmc/prng.py``,
-bit-equal to JAX's; sampling is greedy only.
+The model's ``decode_step`` enters the programs as one *batched*
+primitive, whose KV cache leaves are ordinary VM variables (the programs
+are loop-only, so the VM allocates no variable stacks for them).  Every
+decode runs K4 once per layer.  Keys are threefry keys from
+``mcmc/prng.py``, bit-equal to JAX's; sampling is greedy at temperature 0,
+else ``prng.categorical``.
 
-Not ported yet: open-loop ``serve()`` (it needs the VM's ``Stepper``),
-fault containment, lane sharding, tracing, checkpoints and metrics
-(ROADMAP queue 1, items 7, 9, 12 and 14).
+Not ported yet: crash-resume (``checkpoint_dir``, ``serve(resume=True)``;
+ROADMAP item 13), dispatch tracing (``trace``, item 9) and lane sharding
+(``mesh``, item 14); each raises when asked for.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from ..core import batching, frontend, ir
+from ..core import batching, frontend, ir, pc_vm
 from ..core.frontend import spec
 from ..mcmc import prng
 from ..models.transformer import Model
-from .steps import check_greedy
+from ..obs.metrics import MetricsRegistry
+from ..train.fault_tolerance import StragglerPolicy
 
 KEY = spec((2,), torch.int32)  # threefry key words (uint32 bits in JAX)
 I32 = spec((), torch.int32)
@@ -54,8 +70,38 @@ class EngineConfig:
     max_new_tokens: int
     requests_per_lane: int
     eos_id: int = 0
-    temperature: float = 0.0  # greedy only
-    backend: str = "pc"  # the program-counter VM is the only backend ported
+    temperature: float = 0.0  # 0: greedy
+    backend: str = "pc"  # pc | local | local_eager (serve(): pc only)
+    # Not ported (ROADMAP item 14); must stay None.
+    mesh: Any = None
+    # serve(): VM loop iterations per segment between host checks.
+    segment_steps: int = 64
+    # Lane compaction cadence of the pc VM (pc_vm.VMConfig.compact_every);
+    # requests keep their lane on every engine surface.
+    compact_every: Optional[int] = None
+    # Not ported (ROADMAP item 9); must stay None.
+    trace: Any = None
+    # ---- fault containment and resilience (pc backend) ----
+    # The VM's fault policy (pc_vm.VMConfig.on_fault): one faulted request
+    # must not stop the other lanes.
+    on_fault: str = "quarantine"
+    # Fault a lane that writes NaN/Inf into VM state (opt-in).
+    detect_nonfinite: bool = False
+    # Fault a lane active in more than this many dispatches without
+    # finishing its request (None: off).
+    lane_step_budget: Optional[int] = None
+    # Per-request deadline, arrival (or re-enqueue) to finish, checked
+    # between segments; None: off.
+    deadline_s: Optional[float] = None
+    # Most requests arrived but not admitted; an arrival past it is
+    # resolved "rejected".  None: unbounded.
+    queue_capacity: Optional[int] = None
+    # Faulted or timed-out requests are re-enqueued after
+    # retry_backoff_s * 2**(attempt-1) until max_attempts.
+    max_attempts: int = 1
+    retry_backoff_s: float = 0.05
+    # Crash-resume snapshots: not ported (ROADMAP item 13); must stay None.
+    checkpoint_dir: Optional[str] = None
 
 
 def _cache_layout(model: Model, window: int):
@@ -81,6 +127,14 @@ def _cache_layout(model: Model, window: int):
     return pytree.tree_structure(c1), axes, member_specs
 
 
+def _get(arr: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
+    """``arr[idx]`` with each index clamped into its axis, as JAX's gathers
+    clamp: a lane outside the block that reads (a finished prefill's
+    ``t``, a drained queue's ``req``) still computes a value under
+    ``torch.func.vmap``, which the masked write then drops."""
+    return arr[tuple(i.clamp(0, n - 1) for i, n in zip(idx, arr.shape))]
+
+
 def _set_at(vec: torch.Tensor, i: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """``vec`` with entry ``i`` replaced by ``val``, written functionally so
     that ``torch.func.vmap`` batches it (``vec.at[i].set(val)`` in JAX)."""
@@ -95,35 +149,121 @@ def _set_at2(mat: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
     return torch.where(rows[:, None] & cols[None, :], val, mat)
 
 
-class GenerationEngine:
-    """Closed-loop generation over ``cfg.lanes`` request queues at once, on
-    the model's device (the card unless the model was made on the CPU)."""
+@dataclass(frozen=True)
+class Request:
+    """One generation request for the open-loop serving path."""
 
-    def __init__(self, model: Model, params: dict, cfg: EngineConfig):
-        if cfg.backend != "pc":
+    rid: int
+    prompt: np.ndarray  # [<= max_prompt_len] int32 token ids
+    arrival: float = 0.0  # seconds since serve() start
+
+
+#: Terminal request outcomes (Completion.status).
+COMPLETION_STATUSES = ("ok", "faulted", "timeout", "rejected")
+
+
+@dataclass(frozen=True)
+class Completion:
+    """A request resolved by :meth:`GenerationEngine.serve`, exactly once:
+
+    * ``"ok"`` — finished; ``tokens`` holds the generation;
+    * ``"faulted"`` — its lane faulted (``fault`` names the kind, one of
+      ``pc_vm.FAULT_NAMES``) and no attempt was left; no tokens;
+    * ``"timeout"`` — the deadline passed (queued or in flight) and no
+      attempt was left; no tokens;
+    * ``"rejected"`` — shed at admission: the bounded queue was full.
+    """
+
+    rid: int
+    tokens: np.ndarray  # [length] int32 (empty unless status == "ok")
+    lane: int  # -1 if never admitted to a lane
+    arrival: float  # request arrival time
+    admitted: float  # when the request was injected into a lane
+    finished: float  # when the outcome was observed
+    status: str = "ok"
+    attempts: int = 1  # admission attempts consumed (>= 1)
+    fault: Optional[str] = None  # fault kind for status == "faulted"
+
+    @property
+    def latency(self) -> float:
+        """Arrival-to-finish latency (queueing and service), seconds."""
+        return self.finished - self.arrival
+
+
+@dataclass
+class ServeStats:
+    """Aggregates of one :meth:`GenerationEngine.serve` run."""
+
+    segments: int = 0
+    vm_steps: int = 0
+    completions: int = 0  # every status
+    generated_tokens: int = 0
+    wall_time: float = 0.0
+    # Mean fraction of lanes busy per segment.
+    occupancy: float = 0.0
+    # Outcomes by status, and the resilience counters.
+    ok: int = 0
+    faulted: int = 0
+    timeout: int = 0
+    rejected: int = 0
+    retries: int = 0  # re-enqueues (not in the counts by status)
+    straggler_events: int = 0  # segments flagged by the StragglerPolicy
+    # Arrival-to-finish latency percentiles of the "ok" completions,
+    # seconds (nan when there is none).
+    p50_latency: float = float("nan")
+    p99_latency: float = float("nan")
+    _occ_acc: float = field(default=0.0, repr=False)
+
+
+class GenerationEngine:
+    """Closed- and open-loop generation over ``cfg.lanes`` lanes on the
+    model's device (the card unless the model was made on the CPU)."""
+
+    def __init__(self, model: Model, params: dict, cfg: EngineConfig,
+                 metrics: Optional[MetricsRegistry] = None):
+        if cfg.checkpoint_dir is not None:
             raise NotImplementedError(
-                f"backend {cfg.backend!r}: only the program-counter VM ('pc') "
-                "is ported (ROADMAP queue 1, item 8)"
-            )
-        check_greedy(cfg.temperature)
+                "checkpoint_dir (crash-resume of serve()) is not ported yet: it "
+                "needs train/checkpoint.py (ROADMAP item 13)")
         self.model = model
         self.params = params
         self.cfg = cfg
+        #: The serving loop's instruments; pass one registry to several
+        #: engines to aggregate them.
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.treedef, self.axes, self.member_specs = _cache_layout(model, cfg.max_context)
         self.program = self._build_program()
         self.batched = batching.autobatch(
             self.program,
             out_spec={"tokens": "out", "lengths": "olens"},
+            backend=cfg.backend,
             max_depth=4,
             max_steps=2_000_000,
+            trace=cfg.trace,
+            mesh=cfg.mesh,
             device=model.device,
+            **self._pc_options(),
         )
+        self._serve_batched: Optional[batching.AutobatchedFunction] = None
+        #: The VM's result of the most recent serve() (counters over all
+        #: its segments: block_exec, tag_stats["decode"], occupancies).
+        self.last_serve_result: Optional[pc_vm.VMResult] = None
+
+    def _pc_options(self) -> dict:
+        """The pc backend's fault and compaction options (the other
+        backends take none)."""
+        cfg = self.cfg
+        if cfg.backend != "pc":
+            return {}
+        return dict(on_fault=cfg.on_fault, detect_nonfinite=cfg.detect_nonfinite,
+                    lane_step_budget=cfg.lane_step_budget, compact_every=cfg.compact_every)
 
     # ------------------------------------------------------------------
 
     def _decode_fn(self):
         model, params = self.model, self.params
         axes, treedef = self.axes, self.treedef
+        temp = self.cfg.temperature
 
         def decode(token, pos, key, *leaves):
             """Batched primitive: one model step for the whole batch.  The
@@ -133,11 +273,15 @@ class GenerationEngine:
                 [leaf.movedim(0, ax) for leaf, ax in zip(leaves, axes)], treedef
             )
             logits, new_cache = model.decode_step(params, cache, token, pos)
-            new_key = torch.func.vmap(lambda k: prng.split(k)[0])(key)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            keys = torch.func.vmap(prng.split)(key)  # [Z, 2, 2]
+            if temp == 0.0:
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                tok = torch.func.vmap(lambda k, lg: prng.categorical(k, lg / temp))(
+                    keys[:, 1], logits).to(torch.int32)
             new_leaves = [leaf.movedim(ax, 0) for leaf, ax in
                           zip(pytree.tree_leaves(new_cache), axes)]
-            return (tok, new_key, *new_leaves)
+            return (tok, keys[:, 0], *new_leaves)
 
         return decode
 
@@ -166,12 +310,11 @@ class GenerationEngine:
         fb.const(0, torch.int32, out="tok")
         # ---- outer loop over this lane's request queue ----
         with fb.while_(lambda req, n_req: req < n_req, ["req", "n_req"]):
-            fb.assign("plen", lambda plens, req: plens[req], ["plens", "req"], name="plen")
+            fb.assign("plen", _get, ["plens", "req"], name="plen")
             self._emit_request_body(
                 fb, decode, leaf_vars,
                 read_prompt=lambda fb: fb.assign(
-                    "ptok", lambda prompts, req, t: prompts[req, t],
-                    ["prompts", "req", "t"], name="read_prompt",
+                    "ptok", _get, ["prompts", "req", "t"], name="read_prompt",
                 ),
                 emit_token=lambda fb: fb.assign(
                     "out", _set_at2, ["out", "req", "n", "tok"], name="emit",
@@ -222,6 +365,310 @@ class GenerationEngine:
             fb.assign("pos", lambda p: p + 1, ["pos"])
         store_length(fb)  # records "n" as this request's length
 
+    def _build_serve_program(self) -> ir.Program:
+        """The open-loop per-lane program: one request, start to finish
+        (the closed-loop body without the queue loop; the queue lives on
+        the host, and a lane at the exit block waits, parked, until the
+        host injects its next request)."""
+        cfg = self.cfg
+        leaf_vars = [f"cache{i}" for i in range(len(self.member_specs))]
+        pb = frontend.ProgramBuilder(main="serve_one")
+        fb = pb.function(
+            "serve_one",
+            params=["prompt", "plen", "key"],
+            outputs=["out", "olen"],
+            param_specs={"prompt": spec((cfg.max_prompt_len,), torch.int32),
+                         "plen": I32, "key": KEY},
+            output_specs={"out": spec((cfg.max_new_tokens,), torch.int32), "olen": I32},
+        )
+        decode = self._decode_fn()
+
+        fb.const(np.zeros((cfg.max_new_tokens,), np.int32), out="out")
+        fb.const(0, torch.int32, out="olen")
+        fb.const(0, torch.int32, out="tok")
+        self._emit_request_body(
+            fb, decode, leaf_vars,
+            read_prompt=lambda fb: fb.assign("ptok", _get, ["prompt", "t"], name="read_prompt"),
+            emit_token=lambda fb: fb.assign("out", _set_at, ["out", "n", "tok"], name="emit"),
+            store_length=lambda fb: fb.copy("n", out="olen"),
+        )
+        fb.return_()
+        pb.add(fb)
+        return pb.build()
+
+    @property
+    def serve_batched(self) -> batching.AutobatchedFunction:
+        """The single-request program, autobatched on the pc VM (made at
+        first use)."""
+        if self._serve_batched is None:
+            if self.cfg.backend != "pc":
+                raise ValueError(
+                    "open-loop serving needs the resumable pc backend; "
+                    f"got backend={self.cfg.backend!r}"
+                )
+            self._serve_batched = batching.autobatch(
+                self._build_serve_program(),
+                out_spec={"tokens": "out", "lengths": "olen"},
+                max_depth=4,
+                max_steps=2**31 - 2,  # a server's step count is unbounded
+                device=self.model.device,
+                **self._pc_options(),
+            )
+        return self._serve_batched
+
+    def serve(
+        self,
+        requests: list[Request],
+        *,
+        segment_steps: Optional[int] = None,
+        seed: int = 0,
+        now_fn: Optional[Callable[[], float]] = None,
+        on_finish: Optional[Callable[[Completion], None]] = None,
+        resume: bool = False,
+        straggler: Optional[StragglerPolicy] = None,
+    ) -> tuple[list[Completion], ServeStats]:
+        """Serve an open-loop request stream with live refill.
+
+        Runs the single-request program in VM segments of
+        ``segment_steps`` loop iterations.  Between segments the host
+        reads every lane's halt flag and fault code in one transfer, then:
+
+        1. **retires** — a halted lane's tokens become a :class:`Completion`
+           (streamed through ``on_finish`` as soon as it is seen) and the
+           lane returns to the free pool; a faulted lane is parked, and its
+           request re-enqueued with exponential backoff while attempts
+           remain (``cfg.max_attempts``), else resolved ``"faulted"``;
+        2. **enforces deadlines** — a request whose ``cfg.deadline_s``
+           window has passed, queued or in flight, is retried or resolved
+           ``"timeout"`` (its lane is parked and freed);
+        3. **admits** — requests whose arrival has passed go to free lanes
+           through one masked in-place ``inject``; with
+           ``cfg.queue_capacity`` set, an arrival that finds the waiting
+           queue full is resolved ``"rejected"``.
+
+        ``now_fn`` is the clock (seconds since the start; wall time by
+        default, a virtual clock for deterministic tests).  Each request's
+        key is ``prng_key(seed + rid)``.  Completions come back sorted by
+        request id, one per request.  Segment latencies feed ``straggler``
+        (``stats.straggler_events``); ``self.metrics`` gets the run's
+        counters, gauges and histograms.  ``resume=True`` (crash-resume)
+        is not ported yet.
+        """
+        cfg = self.cfg
+        z = cfg.lanes
+        seg = cfg.segment_steps if segment_steps is None else int(segment_steps)
+        if seg < 1:
+            raise ValueError(f"segment_steps must be >= 1, got {seg}")
+        if cfg.max_attempts < 1:
+            raise ValueError(f"max_attempts must be >= 1, got {cfg.max_attempts}")
+        for r in requests:
+            if len(r.prompt) > cfg.max_prompt_len:
+                raise ValueError(
+                    f"request {r.rid}: prompt length {len(r.prompt)} "
+                    f"exceeds max_prompt_len={cfg.max_prompt_len}"
+                )
+        if resume:
+            raise NotImplementedError(
+                "serve(resume=True) (crash-resume) is not ported yet: it needs "
+                "train/checkpoint.py (ROADMAP item 13)")
+
+        dev = self.model.device
+        st = self.serve_batched.stepper(
+            torch.zeros((z, cfg.max_prompt_len), dtype=torch.int32, device=dev),
+            torch.zeros((z,), dtype=torch.int32, device=dev),
+            torch.zeros((z, 2), dtype=torch.int32, device=dev),
+        )
+        state = st.init()
+        state = st.park(state, np.ones((z,), bool))
+
+        t0 = time.perf_counter()
+        now = now_fn if now_fn is not None else (lambda: time.perf_counter() - t0)
+        pol = straggler if straggler is not None else StragglerPolicy()
+        completions: list[Completion] = []
+        stats = ServeStats()
+        m = self.metrics
+        m_admissions = m.counter("serve_admissions_total", "requests injected into a lane")
+        m_completions = m.counter("serve_completions_total", "terminal completions by status")
+        m_retries = m.counter("serve_retries_total", "faulted/timed-out re-enqueues")
+        m_tokens = m.counter("serve_generated_tokens_total", "tokens emitted by ok lanes")
+        m_queue = m.gauge("serve_queue_depth", "arrived-but-not-admitted requests")
+        m_lanes = m.gauge("serve_active_lanes", "lanes with a request in flight")
+        m_seg = m.histogram("serve_segment_seconds", "wall time of one VM segment")
+        m_latency = m.histogram("serve_request_latency_seconds",
+                                "arrival->finish latency by terminal status")
+        # Queue entries: one admission attempt of one request; "anchor" is
+        # the attempt's deadline start (arrival, or re-enqueue time).
+        active: dict[int, dict] = {}
+
+        def _entry(r: Request, attempt: int = 1, not_before: Optional[float] = None) -> dict:
+            anchor = r.arrival if not_before is None else not_before
+            return {
+                "req": r, "attempt": attempt, "not_before": anchor, "anchor": anchor,
+                "deadline_at": anchor + cfg.deadline_s if cfg.deadline_s is not None else None,
+                "admitted": None,
+            }
+
+        pend = sorted((_entry(r) for r in requests),
+                      key=lambda e: (e["not_before"], e["req"].rid))
+        waiting: list[dict] = []
+        free = list(range(z))[::-1]
+
+        prompts_buf = np.zeros((z, cfg.max_prompt_len), np.int32)
+        plens_buf = np.zeros((z,), np.int32)
+        keys_buf = np.zeros((z, 2), np.int32)
+        idle_spins = 0
+        max_steps_budget = st.vm.config.max_steps
+
+        def _terminal(e: dict, status: str, lane: int, t_now: float,
+                      tokens: Optional[np.ndarray] = None,
+                      fault: Optional[str] = None) -> None:
+            r = e["req"]
+            comp = Completion(
+                rid=r.rid,
+                tokens=tokens if tokens is not None else np.zeros((0,), np.int32),
+                lane=lane, arrival=r.arrival,
+                admitted=e["admitted"] if e["admitted"] is not None else t_now,
+                finished=t_now, status=status, attempts=e["attempt"], fault=fault,
+            )
+            completions.append(comp)
+            setattr(stats, status, getattr(stats, status) + 1)
+            m_completions.inc(status=status)
+            m_latency.observe(comp.latency, status=status)
+            if on_finish is not None:
+                on_finish(comp)
+
+        def _retry_or_terminal(e: dict, status: str, lane: int, t_now: float,
+                               fault: Optional[str] = None) -> None:
+            if e["attempt"] < cfg.max_attempts:
+                stats.retries += 1
+                m_retries.inc(reason=status)
+                delay = cfg.retry_backoff_s * (2 ** (e["attempt"] - 1))
+                pend.append(_entry(e["req"], attempt=e["attempt"] + 1,
+                                   not_before=t_now + delay))
+                pend.sort(key=lambda x: (x["not_before"], x["req"].rid))
+            else:
+                _terminal(e, status, lane, t_now, fault=fault)
+
+        def _admit(e: dict, lane: int, mask: np.ndarray, t_now: float) -> None:
+            p = np.asarray(e["req"].prompt, np.int32).reshape(-1)
+            prompts_buf[lane] = 0
+            prompts_buf[lane, : len(p)] = p
+            plens_buf[lane] = len(p)
+            keys_buf[lane] = prng.prng_key(seed + e["req"].rid).numpy()
+            mask[lane] = True
+            e["admitted"] = t_now
+            active[lane] = e
+            m_admissions.inc()
+
+        while pend or waiting or active:
+            t_now = now()
+            # ---- admit: arrivals -> lanes, else the bounded queue ----
+            mask = np.zeros((z,), bool)
+            while pend and pend[0]["not_before"] <= t_now:
+                e = pend.pop(0)
+                if free and not waiting:  # FIFO: queued requests go first
+                    _admit(e, free.pop(), mask, t_now)
+                elif cfg.queue_capacity is None or len(waiting) < cfg.queue_capacity:
+                    waiting.append(e)
+                else:
+                    _terminal(e, "rejected", -1, t_now)
+            # Queued requests whose deadline passed while waiting.
+            if cfg.deadline_s is not None:
+                for e in [w for w in waiting
+                          if w["deadline_at"] is not None and t_now >= w["deadline_at"]]:
+                    waiting.remove(e)
+                    _retry_or_terminal(e, "timeout", -1, t_now)
+            while waiting and free:
+                _admit(waiting.pop(0), free.pop(), mask, t_now)
+            if mask.any():
+                state = st.inject(state, mask, torch.from_numpy(prompts_buf),
+                                  torch.from_numpy(plens_buf), torch.from_numpy(keys_buf))
+            if not active:
+                # Every lane idle and the next arrival in the future.
+                if pend and now_fn is None:
+                    time.sleep(min(max(pend[0]["not_before"] - now(), 0.0), 0.01))
+                elif pend:
+                    idle_spins += 1
+                    if idle_spins > 1_000_000:
+                        raise RuntimeError(
+                            "serve(): all lanes idle but the now_fn clock never "
+                            f"reaches the next arrival ({pend[0]['not_before']}); "
+                            "supply an advancing clock")
+                continue
+            idle_spins = 0
+
+            # ---- one VM segment ----
+            m_queue.set(len(waiting))
+            m_lanes.set(len(active))
+            t_seg = time.perf_counter()
+            state = st.step(state, seg)
+            # One transfer for every lane's halt flag and fault code.
+            done, codes = st.lane_status(state)
+            m_seg.observe(time.perf_counter() - t_seg)
+            stats.segments += 1
+            stats._occ_acc += len(active) / z
+            if st.steps(state) >= max_steps_budget:
+                raise RuntimeError(
+                    f"serve(): VM step budget exhausted ({max_steps_budget} steps) "
+                    f"with {len(active)} request(s) still in flight; raise the "
+                    "engine program's max_steps")
+
+            # ---- retire: finished / faulted / timed-out lanes ----
+            pol.observe(stats.segments, time.perf_counter() - t_seg)
+            t_now = now()
+            # Fault beats done: a lane that faulted produced invalid tokens.
+            faulted = [lane for lane in active if codes[lane] != pc_vm.FAULT_OK]
+            finished = [lane for lane in active if done[lane] and codes[lane] == pc_vm.FAULT_OK]
+            timed_out = [
+                lane for lane, e in active.items()
+                if lane not in faulted and lane not in finished
+                and e["deadline_at"] is not None and t_now >= e["deadline_at"]
+            ]
+            park_mask = np.zeros((z,), bool)
+            for lane in faulted:
+                e = active.pop(lane)
+                free.append(lane)
+                park_mask[lane] = True
+                _retry_or_terminal(e, "faulted", lane, t_now,
+                                   fault=pc_vm.FAULT_NAMES[int(codes[lane])])
+            for lane in timed_out:
+                e = active.pop(lane)
+                free.append(lane)
+                park_mask[lane] = True
+                _retry_or_terminal(e, "timeout", lane, t_now)
+            if finished:
+                outs = st.outputs(state)
+                tokens = outs["tokens"].cpu().numpy()
+                lengths = outs["lengths"].cpu().numpy()
+                for lane in finished:
+                    e = active.pop(lane)
+                    toks = tokens[lane, : int(lengths[lane])].copy()
+                    _terminal(e, "ok", lane, t_now, tokens=toks)
+                    stats.generated_tokens += int(lengths[lane])
+                    m_tokens.inc(int(lengths[lane]))
+                    free.append(lane)
+            if park_mask.any():
+                # Idle the lanes retired with prejudice (a later inject
+                # clears their fault codes).
+                state = st.park(state, park_mask)
+
+        self.last_serve_result = st.vm.result(state)
+        stats.vm_steps = st.steps(state)
+        stats.completions = len(completions)
+        stats.wall_time = time.perf_counter() - t0
+        stats.occupancy = stats._occ_acc / stats.segments if stats.segments else 0.0
+        stats.straggler_events = len(pol.flagged)
+        stats.p50_latency = m_latency.percentile(50, status="ok")
+        stats.p99_latency = m_latency.percentile(99, status="ok")
+        m_queue.set(0)
+        m_lanes.set(0)
+        if stats.wall_time > 0:
+            m.gauge("serve_tokens_per_second",
+                    "generated-token throughput of the finished run",
+                    ).set(stats.generated_tokens / stats.wall_time)
+        completions.sort(key=lambda c: c.rid)
+        return completions, stats
+
     # ------------------------------------------------------------------
 
     def generate(self, prompts: np.ndarray, prompt_lens: np.ndarray,
@@ -250,6 +697,8 @@ class GenerationEngine:
         semantics (empty prompt -> empty completion; ``n_req == 0`` ->
         all-zero outputs)."""
         cfg = self.cfg
+        if cfg.temperature != 0.0:
+            raise ValueError("reference_generate is greedy only (temperature 0)")
         z = cfg.lanes
         dev = self.model.device
         if n_req is None:

@@ -7,9 +7,11 @@
   ``seq_len`` (the ``decode_*`` shapes), including sampling.
 
 Both run where the model's parameters live (the card unless the model was
-made with ``device="cpu"``).  Sampling is greedy only: ``temperature > 0``
-needs ``jax.random.categorical`` ported bit for bit on top of
-``mcmc/prng.py`` first.
+made with ``device="cpu"``).  Sampling is greedy at ``temperature == 0``
+and otherwise ``prng.categorical`` (``jax.random.categorical``) of the
+logits over the temperature: the uniform draws are bit-exact with JAX's,
+the Gumbel transform's ``log`` within an ulp of XLA's, so tokens differ
+only where two noisy logits nearly tie.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..mcmc import prng
 from ..models.transformer import Model
 
 
@@ -30,27 +33,18 @@ def make_prefill_step(model: Model) -> Callable:
     return prefill_step
 
 
-def check_greedy(temperature: float) -> None:
-    """Raise unless ``temperature`` is 0 (the only sampling ported)."""
-    if temperature != 0.0:
-        raise NotImplementedError(
-            f"temperature={temperature}: temperature sampling is not ported "
-            "yet; it needs jax.random.categorical bit for bit on top of "
-            "mcmc/prng.py"
-        )
-
-
 def sample_token(logits: torch.Tensor, key: torch.Tensor,
                  temperature: float = 0.0) -> torch.Tensor:
-    """Greedy (T=0) sampling. logits: [B, V] f32 -> int32 [B]."""
-    check_greedy(temperature)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    """Greedy (T=0) or temperature sampling with one key for the batch.
+    logits: [B, V] f32 -> int32 [B]."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return prng.categorical(key, logits / temperature).to(torch.int32)
 
 
 def make_serve_step(model: Model, temperature: float = 0.0) -> Callable:
     """decode: (params, cache, tokens [B], pos [B], key) ->
     (new_tokens [B], cache)."""
-    check_greedy(temperature)
 
     def serve_step(params, cache, tokens, pos, key):
         logits, cache = model.decode_step(params, cache, tokens, pos)

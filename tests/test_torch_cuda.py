@@ -3,7 +3,9 @@
 plain versions, a failed build raising, and the VM (every schedule, lane
 compaction), local static batching from CUDA graphs, NUTS (pc and
 iterative) and the serving engine on CUDA against the same port on the CPU,
-its eager mode or its own oracle.  They skip where there is no CUDA device; on the
+its eager mode or its own oracle; segmented runs and quarantined faults on
+the card against one run and the CPU, and open-loop serving against its
+oracle.  They skip where there is no CUDA device; on the
 card run them with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
 This file imports no JAX (the card's machine has none): it compares the
@@ -28,7 +30,7 @@ from repro_torch.kernels.stack_ops import kernel as sk_kernel  # noqa: E402
 from repro_torch.kernels.stack_ops import ops, ref  # noqa: E402
 from repro_torch.mcmc import iterative, nuts, targets  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.serve.engine import EngineConfig, GenerationEngine  # noqa: E402
+from repro_torch.serve.engine import EngineConfig, GenerationEngine, Request  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     attention_inputs, build_fib, build_mutual, decode_inputs, engine_inputs,
     stack_group_inputs, to_torch,
@@ -528,3 +530,99 @@ def test_engine_on_cuda_matches_its_oracle(cuda):
     ref_out = eng.reference_generate(prompts, plens)
     np.testing.assert_array_equal(res["tokens"], ref_out["tokens"])
     np.testing.assert_array_equal(res["lengths"], ref_out["lengths"])
+
+
+@pytest.mark.parametrize("compact_every", [None, 1], ids=lambda c: f"ce{c}")
+@pytest.mark.parametrize("schedule", ["earliest", "popular", "lookahead", "sweep"])
+def test_segments_on_cuda_match_one_run(cuda, schedule, compact_every):
+    """A chain of 3-iteration segments on the card equals one run on the
+    card — outputs, counters, per-lane steps and fault codes, and the K1/K2
+    launches — and the segmented run on the CPU."""
+    n = torch.from_numpy(np.random.default_rng(3).integers(0, 11, 13).astype(np.int32))
+    knobs = dict(max_depth=24, schedule=schedule, compact_every=compact_every)
+    fn = batching.autobatch(build_fib(), device=cuda, **knobs)
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    want = fn(n.to(cuda))["out"]
+    one = (ops.masked_push.launches, ops.masked_peek.launches)
+    res = fn.last_result
+    outs = {}
+    for dev in (cuda, "cpu"):
+        f = fn if dev == cuda else batching.autobatch(build_fib(), device="cpu", **knobs)
+        st = f.stepper(n.to(dev))
+        state = st.init()
+        ops.masked_push.launches = ops.masked_peek.launches = 0
+        while not st.done(state):
+            state = st.step(state, 3)
+        if dev == cuda:
+            assert (ops.masked_push.launches, ops.masked_peek.launches) == one
+        outs[str(dev)] = (st.result(state)["out"].cpu(), st.vm.result(state))
+    got, seg = outs[str(cuda)]
+    assert torch.equal(got, want.cpu()) and torch.equal(outs["cpu"][0], got)
+    for r in (seg, outs["cpu"][1]):
+        assert r.steps == res.steps and r.sched == res.sched
+        np.testing.assert_array_equal(r.block_exec, res.block_exec)
+        assert torch.equal(r.lane_steps.cpu(), res.lane_steps.cpu())
+        assert torch.equal(r.fault_code.cpu(), res.fault_code.cpu())
+
+
+@pytest.mark.parametrize("schedule", ["earliest", "lookahead", "sweep"])
+def test_quarantine_on_cuda_matches_cpu(cuda, schedule):
+    """The chaos program (NaN, livelock and overflow lanes beside healthy
+    ones) under quarantine: codes, outputs, dispatches and counters on the
+    card equal the CPU's, and the healthy lanes equal a fault-free run."""
+    from tools import torch_chaos
+
+    modes = torch_chaos.make_modes(16, 0.25, seed=1)
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 10_000, 16).astype(np.int32))
+    runs = {}
+    for dev in (cuda, "cpu"):
+        fn = torch_chaos.chaos_fn(device=dev, schedule=schedule)
+        clean = fn(x.to(dev), torch.zeros(16, dtype=torch.int32, device=dev))["out"].cpu()
+        out = fn(x.to(dev), torch.from_numpy(modes).to(dev))["out"].cpu()
+        runs[str(dev)] = (clean, out, fn.last_result)
+    (clean, out, res), (_, cpu_out, cpu_res) = runs[str(cuda)], runs["cpu"]
+    codes = res.fault_code.cpu().numpy()
+    np.testing.assert_array_equal(codes, [torch_chaos.EXPECT_CODE[int(m)] for m in modes])
+    np.testing.assert_array_equal(codes, cpu_res.fault_code.numpy())
+    healthy = torch.from_numpy(modes == 0)
+    assert torch.equal(out[healthy], clean[healthy])
+    torch.testing.assert_close(out, cpu_out, rtol=0, atol=0, equal_nan=True)
+    assert res.steps == cpu_res.steps and res.converged
+    np.testing.assert_array_equal(res.block_exec, cpu_res.block_exec)
+
+
+def test_serve_on_cuda_matches_its_oracle(cuda):
+    """Float32 smoke SmolLM, 2 lanes, 5 requests arriving on a virtual
+    clock: every completion equals the sequential oracle, and K4 launches
+    once per layer of every decode execution of the run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke_config("smollm-135m")
+    model = get_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    kw = dict(max_context=32, max_prompt_len=5, max_new_tokens=6, requests_per_lane=1,
+              eos_id=0)
+    eng = GenerationEngine(model, params, EngineConfig(lanes=2, segment_steps=4, **kw))
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, 1 + i % 5).astype(np.int32),
+                    arrival=float(i)) for i in range(5)]
+    eng.serve(reqs[:1])  # type inference runs the decode prim once
+    t = {"now": 0.0}
+
+    def clock():
+        t["now"] += 1.0
+        return t["now"]
+
+    fd_ops.decode_attention.launches = 0
+    comps, stats = eng.serve(reqs, now_fn=clock)
+    execs = eng.last_serve_result.tag_stats["decode"][0]
+    assert fd_ops.decode_attention.launches == cfg.num_layers * execs > 0
+    oracle = GenerationEngine(model, params, EngineConfig(lanes=5, **kw))
+    prompts = np.zeros((5, 1, 5), np.int32)
+    plens = np.zeros((5, 1), np.int32)
+    for i, r in enumerate(reqs):
+        prompts[i, 0, : len(r.prompt)] = r.prompt
+        plens[i, 0] = len(r.prompt)
+    ref_out = oracle.reference_generate(prompts, plens)
+    assert stats.ok == 5
+    for c in comps:
+        np.testing.assert_array_equal(c.tokens, ref_out["tokens"][c.rid, 0, : ref_out["lengths"][c.rid, 0]])

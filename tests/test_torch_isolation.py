@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the JAX package, and no source of the port (nor
-``chip_smoke.py``, the card's tests and the port's Fig. 5 / Fig. 6
-benchmarks) imports either."""
+``chip_smoke.py``, the card's tests, the port's Fig. 5 / Fig. 6 and
+serving benchmarks and its chaos harness) imports either."""
 import ast
 import json
 import os
@@ -55,8 +55,9 @@ def _imports(path: Path) -> list[str]:
 # benchmark helpers they import) run where there is no JAX.
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
-    REPO / "tools" / "torch_nuts_ab.py", REPO / "benchmarks" / "torch_fig5.py",
-    REPO / "benchmarks" / "torch_fig6.py", REPO / "benchmarks" / "common.py",
+    REPO / "tools" / "torch_nuts_ab.py", REPO / "tools" / "torch_chaos.py",
+    REPO / "benchmarks" / "torch_fig5.py", REPO / "benchmarks" / "torch_fig6.py",
+    REPO / "benchmarks" / "torch_serve_bench.py", REPO / "benchmarks" / "common.py",
 ]
 
 
@@ -69,7 +70,8 @@ def test_no_jax_or_reference_import_in_source(path):
 
 _BENCH_PROBE = """
 import json, sys
-import benchmarks.torch_fig5, benchmarks.torch_fig6
+import benchmarks.torch_fig5, benchmarks.torch_fig6, benchmarks.torch_serve_bench
+import tools.torch_chaos
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(json.dumps(bad))
@@ -77,6 +79,7 @@ print(json.dumps(bad))
 
 
 def test_importing_the_fig_benchmarks_loads_no_jax():
+    """The Fig. 5 / Fig. 6 and serving benchmarks and the chaos harness."""
     proc = subprocess.run(
         [sys.executable, "-c", _BENCH_PROBE], capture_output=True, text=True,
         timeout=300, cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO / "src")},

@@ -226,8 +226,6 @@ def test_unported_paths_raise():
     cfg = configs.get_smoke_config("smollm-135m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(dataclasses.replace(cfg, family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        steps.make_serve_step(get_model(cfg, device="cpu"), temperature=0.7)
     with pytest.raises(NotImplementedError, match="int8"):
         get_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device="cpu").init_cache(1, 4)
 
