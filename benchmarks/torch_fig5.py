@@ -13,10 +13,14 @@ settings and definitions, run through ``repro_torch``:
 * ``iterative`` — the hand-batched iterative NUTS.
 
 The ``pc`` arm expands into one column per ``--schedule`` x ``--fuse`` x
-``--compact-every`` combination; each pc record carries the VM's steps,
-``mean_occupancy`` (tile-based) and ``mean_lane_occupancy``.  Lane
-sharding (``--mesh``) and profile-guided lowering (``--pgo``) are not
-ported yet and are refused.
+``--compact-every`` x ``--pgo`` combination; each pc record carries the
+VM's steps, ``num_blocks``, ``masked_updates``, ``mean_occupancy``
+(tile-based) and ``mean_lane_occupancy``.  A ``pgo`` variant is profiled
+once at set-up, untimed: a traced run of its own configuration at
+:data:`PGO_PROFILE_BATCH` chains, whose block profile re-lowers it through
+the profile-guided passes (``kernel.optimize``), bit-exact and with fewer
+dispatches.  ``--verify`` runs the lowered-IR verifier between every pass.
+Lane sharding (``--mesh``) is not ported yet and is refused.
 
 Throughput = member gradient evaluations per second (active leaf
 executions x grads per leaf over the wall), best of ``repeats`` warm runs;
@@ -27,6 +31,7 @@ inputs.
 Run from the repository root, e.g.::
 
     python -m benchmarks.torch_fig5 --device cpu --batches 1,2 --repeats 1
+    python -m benchmarks.torch_fig5 --device cpu --batches 4,8 --arms pc --pgo on,off
     python -m benchmarks.torch_fig5 --full --schedule earliest,sweep
 
 Records go to ``--json`` (default ``BENCH_fig5_torch.json``).
@@ -41,22 +46,31 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.mcmc import iterative, nuts, targets
+from repro_torch.obs import block_profile
 
 from .common import Table, write_json
 
-#: (schedule, fuse, compact_every) combinations of the plain "pc" arm.
+#: (schedule, fuse, compact_every, pgo) combinations of the plain "pc" arm
+#: (a 3-tuple means pgo off).
 DEFAULT_PC_VARIANTS = (("earliest", True, None),)
 ARMS = ("pc", "local", "local_eager", "unbatched", "iterative")
 #: Where the knobs this benchmark refuses are tracked (ROADMAP.md, queue 1).
-REFUSED = {"mesh": "item 14 (multi-device lane sharding)", "pgo": "item 10 (PGO)"}
+REFUSED = {"mesh": "item 14 (multi-device lane sharding)"}
+#: Chains and trace-ring capacity of a pgo variant's set-up profiling run,
+#: as the JAX benchmark profiles (the ring holds the whole run).
+PGO_PROFILE_BATCH = 32
+PGO_TRACE_CAPACITY = 262_144
 
 
-def pc_arm_name(schedule: str, fuse: bool, compact_every=None, *, solo: bool) -> str:
+def pc_arm_name(schedule: str, fuse: bool, compact_every=None, pgo: bool = False, *,
+                solo: bool) -> str:
     if solo:
         return "pc"
     parts = [schedule, "fuse" if fuse else "nofuse"]
     if compact_every is not None:
         parts.append(f"ce{compact_every}")
+    if pgo:
+        parts.append("pgo")
     return f"pc[{','.join(parts)}]"
 
 
@@ -95,6 +109,7 @@ def throughput_sweep(
     arms: tuple = ARMS,
     pc_variants: tuple = DEFAULT_PC_VARIANTS,
     unbatched_cap: int = 8,
+    verify: bool = False,
     device=None,
 ) -> tuple[Table, list[dict]]:
     """Run the sweep on ``device`` (default: the card); returns the table
@@ -109,10 +124,11 @@ def throughput_sweep(
     pc_meta: dict[str, tuple] = {}
     for arm in arms:
         if arm == "pc":
-            for sched, fz, ce in pc_variants:
-                name = pc_arm_name(sched, fz, ce, solo=solo)
+            for variant in pc_variants:
+                sched, fz, ce, pg = tuple(variant) + (False,) * (4 - len(variant))
+                name = pc_arm_name(sched, fz, ce, pg, solo=solo)
                 columns.append(name)
-                pc_meta[name] = (sched, fz, ce)
+                pc_meta[name] = (sched, fz, ce, pg)
         else:
             columns.append(arm)
     tab = Table(
@@ -122,11 +138,18 @@ def throughput_sweep(
     )
     # One kernel per arm, shared across batch sizes (the lowering is made
     # once; each batch size gets its own executor).
-    kernels = {
-        name: nuts.make_nuts_kernel(target, settings, max_steps=500_000, schedule=sched,
-                                    fuse=fz, compact_every=ce, device=device)
-        for name, (sched, fz, ce) in pc_meta.items()
-    }
+    kernels = {}
+    for name, (sched, fz, ce, pg) in pc_meta.items():
+        kern = nuts.make_nuts_kernel(target, settings, max_steps=500_000, schedule=sched,
+                                     fuse=fz, compact_every=ce, verify=verify, device=device)
+        if pg:
+            # Set-up time, untimed: profile a traced run of this very
+            # configuration and re-lower through the profile-guided passes.
+            traced = kern.with_options(trace=PGO_TRACE_CAPACITY)
+            traced(*nuts.initial_state(target, PGO_PROFILE_BATCH, eps=eps, seed=0,
+                                       device=device))
+            kern = kern.optimize(block_profile(traced.last_trace))
+        kernels[name] = kern
     for arm in ("local", "local_eager"):
         if arm in arms:
             kernels[arm] = nuts.make_nuts_kernel(target, settings, backend=arm,
@@ -145,8 +168,8 @@ def throughput_sweep(
         rec = {"arm": arm, "batch": z, "grads_per_sec": grads / wall, "grads": grads,
                "wall_s": wall}
         if arm in pc_meta:
-            sched, fz, ce = pc_meta[arm]
-            rec.update(schedule=sched, fuse=fz, compact_every=ce)
+            sched, fz, ce, pg = pc_meta[arm]
+            rec.update(schedule=sched, fuse=fz, compact_every=ce, pgo=pg)
         rec.update(extra)
         records.append(rec)
         return rec["grads_per_sec"]
@@ -189,15 +212,20 @@ def throughput_sweep(
     return tab, records
 
 
+def parse_onoff(text: str, flag: str) -> list[bool]:
+    onoff = {"on": True, "off": False, "true": True, "false": False}
+    out = []
+    for f in (f.strip().lower() for f in text.split(",")):
+        if f and f not in onoff:
+            raise SystemExit(f"{flag} values must be on/off, got {f!r}")
+        if f:
+            out.append(onoff[f])
+    return out
+
+
 def parse_pc_variants(schedules: str, fuses: str, compacts: str = "none") -> tuple:
     scheds = [s.strip() for s in schedules.split(",") if s.strip()]
-    onoff = {"on": True, "off": False, "true": True, "false": False}
-    fzs = []
-    for f in (f.strip().lower() for f in fuses.split(",")):
-        if f and f not in onoff:
-            raise SystemExit(f"--fuse values must be on/off, got {f!r}")
-        if f:
-            fzs.append(onoff[f])
+    fzs = parse_onoff(fuses, "--fuse")
     ces = []
     for c in (c.strip().lower() for c in compacts.split(",")):
         if c in ("none", "0"):
@@ -212,11 +240,9 @@ def parse_pc_variants(schedules: str, fuses: str, compacts: str = "none") -> tup
 
 
 def refuse_unported(args) -> None:
-    """``--mesh`` and ``--pgo`` name knobs the port does not have yet."""
+    """``--mesh`` names a knob the port does not have yet."""
     if any(m.strip().lower() not in ("", "none") for m in args.mesh.split(",")):
         raise SystemExit(f"--mesh is not ported yet: ROADMAP.md queue 1, {REFUSED['mesh']}")
-    if any(p.strip().lower() not in ("", "off", "false") for p in args.pgo.split(",")):
-        raise SystemExit(f"--pgo is not ported yet: ROADMAP.md queue 1, {REFUSED['pgo']}")
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> None:
@@ -227,7 +253,6 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--compact-every", default="none",
                     help="comma list of lane-compaction cadences ('none' = off)")
     ap.add_argument("--mesh", default="none", help="not ported (refused unless 'none')")
-    ap.add_argument("--pgo", default="off", help="not ported (refused unless 'off')")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for a CPU run)")
 
@@ -240,6 +265,10 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--arms", default=",".join(ARMS), help="comma list of arms")
     ap.add_argument("--json", default="BENCH_fig5_torch.json", metavar="PATH")
+    ap.add_argument("--pgo", default="off",
+                    help="comma list of on/off: profile-guided lowering of the pc arm")
+    ap.add_argument("--verify", action="store_true",
+                    help="run the lowered-IR verifier between every pass")
     add_common_args(ap)
     args = ap.parse_args(argv)
     refuse_unported(args)
@@ -255,17 +284,23 @@ def main(argv=None) -> int:
     unknown = set(arms) - set(ARMS)
     if unknown:
         raise SystemExit(f"unknown arms {sorted(unknown)}; have {ARMS}")
-    pc_variants = parse_pc_variants(args.schedule, args.fuse, args.compact_every)
+    pgos = parse_onoff(args.pgo, "--pgo")
+    if not pgos:
+        raise SystemExit("--pgo must name a value (on, off or on,off)")
+    pc_variants = tuple(v + (p,) for p in pgos
+                        for v in parse_pc_variants(args.schedule, args.fuse, args.compact_every))
     device = resolve_device(args.device)
     tab, records = throughput_sweep(batches, repeats=args.repeats, arms=arms,
-                                    pc_variants=pc_variants, device=device, **kw)
+                                    pc_variants=pc_variants, verify=args.verify,
+                                    device=device, **kw)
     print(tab.render())
     write_json(args.json, {
         "benchmark": "fig5_throughput_torch",
         "unit": "member grad evals / sec",
         "device": device_record(device),
         "config": {"full": bool(args.full), "batches": batches, "repeats": args.repeats,
-                   "arms": list(arms), "pc_variants": [list(v) for v in pc_variants], **kw},
+                   "arms": list(arms), "pc_variants": [list(v) for v in pc_variants],
+                   "verify": args.verify, **kw},
         "records": records,
     })
     print(f"[wrote {args.json}: {len(records)} records]")

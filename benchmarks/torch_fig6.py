@@ -9,7 +9,8 @@ evaluations / (gradient launches x batch size), from the kernels'
 trajectory boundaries (its host recursion pins every member to the same
 call stack), the pc VM batches gradients across trajectory and recursion
 depth.  The pc arm expands over ``--schedule`` x ``--fuse`` x
-``--compact-every``; ``--mesh`` and ``--pgo`` are refused (not ported).
+``--compact-every``; ``--mesh`` is refused (not ported).  There is no
+``--pgo``, as the JAX benchmark has none.
 
 Run from the repository root, e.g.::
 

@@ -85,7 +85,21 @@ non-zero (nothing is caught):
     burst's completion rate (tokens/s, completions by status, p50/p99
     latency, segments, dispatches, lane occupancy, K4 launches held to 30
     x decode executions), and a profiled burst of the first 64 requests
-    for the device's busy share.
+    for the device's busy share;
+13. verify, trace, PGO: ``verify=True`` lowering of phase 6's NUTS and of
+    the engine's program on the card (fake typing, K4 through its shape
+    rule: no launch); phase 6's NUTS with ``trace=True``, bit-identical to
+    phase 6's run (outputs, dispatches, ``block_exec``, K1/K2 launches),
+    its Perfetto JSON validated and written to ``chiprun_out/`` and its
+    block profile printed; the profile-guided NUTS (``optimize``): blocks,
+    dispatches, masked updates, kernels a dispatch and K1/K2 launches
+    before and after, outputs bit-identical to phase 6, K1/K2 launches =
+    block_exec x the re-lowered blocks' groups, and every distinct stack
+    group of the re-lowered program exact against the plain versions;
+    grads/s of phase 6's kernel and the PGO'd one in turns (A B B A); one
+    profiled run of each with the busy share and the five blocks with the
+    most device time (``pcvm.block<i>`` scopes); a traced float32 engine
+    check equal to the untraced one.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -554,7 +568,8 @@ def phase_full(torch, chains: int, settings) -> dict:
         print(f"full: {name} device time {sum(e.self_device_time_total for e in k) / 1e3:.3f} "
               f"ms in {sum(e.count for e in k)} launches of the profiled run")
     return {"masked_push": push, "masked_peek": peek}, dict(kern=kern, args=args, out=out,
-                                                            res=res)
+                                                            res=res, wall=wall,
+                                                            kpd=n_kernels / res.steps)
 
 
 def _group_launches(blk, op_type, pc_term) -> int:
@@ -1216,6 +1231,215 @@ def phase_serve(torch) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 13. verify, trace, PGO
+# ---------------------------------------------------------------------------
+
+
+def _groups_exact(torch, vm, depth: int, lanes: int) -> int:
+    """Every distinct stack group of ``vm`` (by kind, stacks and pc)
+    against ``ref.push_group``/``pop_group`` on seeded operands at the
+    VM's lanes, exactly; returns how many were checked."""
+    from repro_torch.kernels.stack_ops import ref
+    from repro_torch.testing import stack_group_inputs, to_torch
+
+    dev = torch.device("cuda")
+    seen = {}
+    for groups in vm.stack_groups:
+        for g in groups:
+            seen.setdefault((g.kind, g.pc, tuple(g.call.specs)), g)
+    for i, g in enumerate(seen.values()):
+        np_entries, np_mask = stack_group_inputs(g.call.specs, lanes, 40 + i)
+        entries = [(to_torch(st, sp.dtype, dev), torch.from_numpy(p).to(dev),
+                    to_torch(t, sp.dtype, dev), to_torch(src, sp.dtype, dev))
+                   for (st, p, t, src), sp in zip(np_entries, g.call.specs)]
+        if g.pc:  # the pc push has no src
+            entries[-1] = entries[-1][:3] + (None,)
+        mask = torch.from_numpy(np_mask).to(dev)
+        if g.kind == "push":
+            clone = [(st.clone(), p, t, src) for st, p, t, src in entries]
+            flags = torch.zeros(lanes, dtype=torch.bool, device=dev)
+            want_flags = flags.clone()
+            got = g.call(entries, mask, flags, depth)
+            want = ref.push_group(clone, mask, want_flags, depth)
+            ok = torch.equal(flags, want_flags) and all(
+                torch.equal(entries[j][0], clone[j][0]) and torch.equal(got[0][j], want[0][j])
+                and (got[1][j] is None) == (want[1][j] is None)
+                and (got[1][j] is None or torch.equal(got[1][j], want[1][j]))
+                for j in range(len(entries)))
+        else:
+            pops = [(st, p, t) for st, p, t, _ in entries]
+            got, want = g.call(pops, mask), ref.pop_group(pops, mask)
+            ok = all(torch.equal(got[0][j], want[0][j]) and torch.equal(got[1][j], want[1][j])
+                     for j in range(len(pops)))
+        check(ok, f"PGO'd stack group {g.kind} of {len(g)} stacks (pc={g.pc}) != plain version")
+    torch.cuda.synchronize()
+    return len(seen)
+
+
+def _block_profile_ms(torch, fn) -> tuple[float, float, dict, list]:
+    """One ``fn()`` profiled on the host and the card: device busy ms, wall
+    s, the device kernels by name (device events only, the scopes' own
+    device spans left out), and (ms, name) of the ``pcvm.block<i>`` scopes
+    by the device time of the kernels they launched, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed_run(torch, fn)
+    busy, kernels, blocks = 0.0, {}, {}
+    for e in prof.events():
+        on_device = "CUDA" in str(getattr(e, "device_type", ""))
+        if e.name.startswith("pcvm.block"):
+            if not on_device:
+                blocks[e.name] = blocks.get(e.name, 0.0) + e.device_time_total / 1e3
+        elif on_device and e.self_device_time_total > 0:
+            busy += e.self_device_time_total / 1e3
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    return busy, wall, kernels, sorted(((ms, n) for n, ms in blocks.items()), reverse=True)
+
+
+def phase_pgo(torch, run6: dict, launches6: dict, settings, smi: str) -> None:
+    """Verify, trace and PGO on phase 6's NUTS, and trace the engine."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.core import ir
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.stack_ops import ops
+    from repro_torch.models import get_model
+    from repro_torch.obs import block_profile, format_profile, validate_perfetto, write_perfetto
+    from repro_torch.serve.engine import EngineConfig, GenerationEngine
+    from repro_torch.testing import engine_inputs
+
+    t_phase = time.perf_counter()
+    kern, args, out6, res6 = run6["kern"], run6["args"], run6["out"], run6["res"]
+    gpl = settings.grads_per_leaf
+
+    # Verify: the NUTS lowering, and the engine's (its decode prim reaches
+    # K4, which answers fake tensors by its shape rule and launches nothing).
+    t0 = time.perf_counter()
+    vlow = kern.with_options(verify=True).lowered
+    check(len(vlow.blocks) == len(kern.lowered.blocks), "verified NUTS lowering differs")
+    t_nuts = time.perf_counter() - t0
+    cfg = configs.get_config(ARCH)
+    params = get_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    ecfg = EngineConfig(lanes=64, max_context=512, max_prompt_len=64, max_new_tokens=64,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(get_model(cfg, device="cuda"), params, ecfg)
+    fd_ops.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    elow = eng.batched.with_options(verify=True).lowered
+    k4 = fd_ops.decode_attention.launches
+    check(k4 == 0, f"typing the engine's program launched K4 {k4} times")
+    print(f"pgo: verify=True lowering on the card: NUTS {len(vlow.blocks)} blocks in "
+          f"{t_nuts:.2f} s; {ARCH} engine (bf16, 64 lanes) {len(elow.blocks)} blocks in "
+          f"{time.perf_counter() - t0:.2f} s, K4 launches while typing: {k4} (shape rule)")
+
+    # Traced run: bit-identical to phase 6, the ring drained once.
+    traced = kern.with_options(trace=True)
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    out, wall = _timed_run(torch, lambda: traced(*args))
+    push, peek = ops.masked_push.launches, ops.masked_peek.launches
+    res = traced.last_result
+    for k, v in out6.items():
+        check(torch.equal(out[k], v), f"traced NUTS {k} differs from phase 6's run")
+    check(res.steps == res6.steps and np.array_equal(res.block_exec, res6.block_exec),
+          "traced NUTS dispatches or block_exec differ from phase 6's")
+    check((push, peek) == (launches6["masked_push"], launches6["masked_peek"]),
+          f"traced NUTS K1/K2 launches {(push, peek)} != phase 6's")
+    tr = traced.last_trace
+    check(len(tr) == res.steps and tr.dropped == 0, f"trace holds {len(tr)} of {res.steps}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "phase13_nuts_trace.json"
+    write_perfetto(str(path), tr)
+    n_ev = validate_perfetto(str(path))
+    prof = block_profile(tr)
+    _, kern_t, _ = _busy(torch, lambda: traced(*args))
+    print(f"pgo: traced NUTS bit-identical to phase 6 (outputs, {res.steps} dispatches, "
+          f"block_exec, K1/K2 {push}/{peek}); wall {wall:.3f} s; {n_ev} Perfetto events "
+          f"valid -> chiprun_out/{path.name}; kernels a dispatch {kern_t / res.steps:.2f} "
+          f"traced against phase 6's {run6['kpd']:.2f} untraced "
+          f"({kern_t / res.steps - run6['kpd']:+.2f}; {time.perf_counter() - t_phase:.1f} s)")
+    print(format_profile(prof))
+
+    # PGO: re-lower through the profile-guided passes.
+    t0 = time.perf_counter()
+    opt = kern.optimize(prof)
+    opt(*args)  # warm-up: the lowering and the VM
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    vm = opt._last_executor.vm
+    n_groups = _groups_exact(torch, vm, vm.config.max_depth, CHAINS)
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    out, wall_o = _timed_run(torch, lambda: opt(*args))
+    push_o, peek_o = ops.masked_push.launches, ops.masked_peek.launches
+    res_o, st6, st_o = opt.last_result, kern.scheduler_stats, opt.scheduler_stats
+    for k, v in out6.items():
+        check(torch.equal(out[k], v), f"PGO'd NUTS {k} differs from phase 6's run")
+    blocks = opt.lowered.blocks
+    want = tuple(sum(int(n) * _group_launches(blk, op, term)
+                     for n, blk in zip(res_o.block_exec, blocks))
+                 for op, term in ((ir.LPush, ir.LPushJump), (ir.LPop, ir.LReturn)))
+    check((push_o, peek_o) == want, f"PGO'd K1/K2 launches {(push_o, peek_o)} != {want} "
+          "from block_exec x groups")
+    check(st_o.steps < st6.steps and st_o.masked_updates < st6.masked_updates,
+          f"PGO did not cut dispatches ({st6.steps} -> {st_o.steps}) and masked updates "
+          f"({st6.masked_updates} -> {st_o.masked_updates})")
+    layout = opt.lowered.state_layout
+    print(f"pgo: optimize (lowering, VM, first run) {t_opt:.2f} s; blocks {st6.num_blocks} -> "
+          f"{st_o.num_blocks} ({len(layout.groups) if layout else 0} layout groups), "
+          f"dispatches {st6.steps} -> {st_o.steps}, masked updates {st6.masked_updates} -> "
+          f"{st_o.masked_updates}, K1/K2 launches {launches6['masked_push']}/"
+          f"{launches6['masked_peek']} -> {push_o}/{peek_o} (= block_exec x groups); "
+          f"outputs bit-identical to phase 6; {n_groups} distinct stack groups exact "
+          f"against the plain versions ({time.perf_counter() - t_phase:.1f} s)")
+
+    # Speed in turns, then one profiled run of each.
+    grads = {}
+    for name, fn in (("phase 6", kern), ("pgo", opt), ("pgo", opt), ("phase 6", kern)):
+        _, w = _timed_run(torch, lambda: fn(*args))
+        grads.setdefault(name, []).append(fn.tag_stats["grad"][1] * gpl / w)
+    print(f"pgo: grads/s in turns (A B B A) on {smi}: phase 6 "
+          f"{', '.join(f'{g:.1f}' for g in grads['phase 6'])}; pgo "
+          f"{', '.join(f'{g:.1f}' for g in grads['pgo'])}")
+    names = {}
+    for name, fn, steps in (("phase 6", kern, st6.steps), ("pgo", opt, st_o.steps)):
+        busy, w, by_name, top = _block_profile_ms(torch, lambda: fn(*args))
+        names[name] = by_name
+        nk = sum(by_name.values())
+        shown = ", ".join(f"{n[len('pcvm.'):]} {ms:.3f}" for ms, n in top[:5]) or "not measured"
+        in_blocks = sum(ms for ms, _ in top)
+        print(f"pgo: profiled {name} (host and card): device busy {busy:.3f} ms of "
+              f"{w * 1e3:.3f} ms wall ({busy / 1e3 / w:.4f}); {nk} kernels ({nk / steps:.2f} a "
+              f"dispatch); {in_blocks:.3f} ms inside pcvm.block scopes; top blocks by device "
+              f"ms: {shown} ({time.perf_counter() - t_phase:.1f} s)")
+    delta = {k: names["pgo"].get(k, 0) - names["phase 6"].get(k, 0)
+             for k in set(names["pgo"]) | set(names["phase 6"])}
+    moved = sorted(delta.items(), key=lambda kv: -abs(kv[1]))[:6]
+    print("pgo: kernel launches pgo - phase 6 by name: "
+          + "; ".join(f"{d:+d} {k[:60]}" for k, d in moved if d))
+
+    # The engine traced: equal to the untraced engine.
+    model32 = get_model(replace(cfg, compute_dtype="float32"), device="cuda")
+    ecfg = EngineConfig(lanes=4, max_context=64, max_prompt_len=16, max_new_tokens=16,
+                        requests_per_lane=2, eos_id=0)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=11)
+    plain = GenerationEngine(model32, params, ecfg).generate(prompts, plens)
+    teng = GenerationEngine(model32, params, replace(ecfg, trace=True))
+    fd_ops.decode_attention.launches = 0
+    got = teng.generate(prompts, plens)
+    etr = teng.batched.last_trace
+    execs = teng.batched.tag_stats["decode"][0]
+    check(np.array_equal(got["tokens"], plain["tokens"]), "traced engine tokens differ")
+    check(etr is not None and len(etr) == teng.batched.last_result.steps, "engine trace")
+    check(fd_ops.decode_attention.launches == cfg.num_layers * execs, "traced engine K4 count")
+    print(f"pgo: traced engine ({ARCH} float32, 4 lanes x 2 requests): tokens equal to the "
+          f"untraced engine, {len(etr)} dispatches traced, K4 launches "
+          f"{fd_ops.decode_attention.launches} = {cfg.num_layers} x {execs}")
+    print(f"pgo: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1238,6 +1462,7 @@ def main() -> int:
     phase_paper(torch, settings)
     phase_segments(torch, run6, launches)
     launches["decode_attention"] = phase_serve(torch)
+    phase_pgo(torch, run6, launches, settings, smi)
 
     kdir = "src/repro_torch/kernels"
     where = {

@@ -13,11 +13,13 @@ stack depth: :class:`LoweredLiveness` (dead-code elimination),
 :func:`stack_depth_bound` (interprocedural worst-case stack depth, the
 static replacement for the magic ``max_depth=32``).
 
-Type inference (:func:`infer_types`) runs every primitive once, under
-``torch.func.vmap`` on a batch of one zero-filled member on the program's
-device, and reads the output shapes and dtypes.  Running the primitive for
-real, rather than on meta tensors, lets it close over data that lives on
-the device (a target's data set) and checks up front that it batches.
+Type inference (:func:`infer_types`) and the verifier type every primitive
+through one helper, :func:`eval_spec`: the primitive runs under
+``torch.func.vmap`` on a batch of one member made of fake tensors
+(:mod:`repro_torch.fake`) on the program's device, so no data is read and
+nothing is computed, as ``jax.eval_shape`` types it in the JAX package.
+Real tensors the primitive closes over (a target's data set) are faked
+where they are used, and the vmap checks up front that it batches.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from .. import fake
 from ..device import resolve_device
 from . import ir
 
@@ -222,6 +225,15 @@ class LoweredLiveness:
     def _solve(self) -> None:
         blocks = self.lowered.blocks
         exit_live = set(self.lowered.main_outputs)
+        if self.lowered.state_layout is not None:
+            # A packed main output leaves the VM through its packed array
+            # (the boundary reads ``tops[packed][:, slot]``), so it is the
+            # *packed* variable that must stay live at exit.
+            for o in tuple(exit_live):
+                packed_slot = self.lowered.state_layout.slot_of(o)
+                if packed_slot is not None:
+                    exit_live.discard(o)
+                    exit_live.add(packed_slot[0])
         use_def = [self._block_use_def(b) for b in blocks]
         changed = True
         while changed:
@@ -475,21 +487,24 @@ def _specs_eq(a: ir.Spec, b: ir.Spec) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype
 
 
-def eval_spec(op: ir.Prim, in_specs: list[ir.Spec], device) -> tuple[ir.Spec, ...]:
-    """Output specs of one primitive, from one real run on zeros.
+def eval_spec(op, in_specs: list[ir.Spec], device) -> tuple[ir.Spec, ...]:
+    """Output specs of one primitive (an ``ir.Prim`` or ``ir.LPrim``),
+    typed on fake tensors without running it.
 
-    Nullary primitives (constants) are called as they are.  Others run
-    under ``torch.func.vmap`` on a batch of one member (``batched=True``
-    primitives directly on that batch) and lose the batch axis again.
+    Nullary primitives (constants) are called as they are.  Others run in
+    :func:`fake.fake_mode` under ``torch.func.vmap`` on a batch of one fake
+    zero member on ``device`` (``batched=True`` primitives directly on
+    that batch) and lose the batch axis again.
     """
     if not op.ins and not op.batched:
         out = op.fn()
         outs = out if isinstance(out, tuple) else (out,)
         return tuple(_spec_of(torch.as_tensor(o)) for o in outs)
-    args = [torch.zeros((1,) + s.shape, dtype=s.dtype, device=device)
-            for s in in_specs]
-    fn = op.fn if op.batched else torch.func.vmap(op.fn)
-    out = fn(*args)
+    with fake.fake_mode():
+        args = [torch.zeros((1,) + s.shape, dtype=s.dtype, device=device)
+                for s in in_specs]
+        fn = op.fn if op.batched else torch.func.vmap(op.fn)
+        out = fn(*args)
     outs = out if isinstance(out, tuple) else (out,)
     for o in outs:
         if o.dim() == 0 or o.shape[0] != 1:
@@ -504,9 +519,9 @@ def infer_types(program: ir.Program, device=None) -> None:
     """Forward abstract interpretation filling ``Function.var_specs``.
 
     Function parameter and output specs are declared; locals are inferred
-    by running each ``Prim.fn`` once (see :func:`eval_spec`) on ``device``
-    (the card unless the caller names another), which must be where the
-    primitives' captured tensors live.  Merge
+    by typing each ``Prim.fn`` on fake tensors (see :func:`eval_spec`) of
+    ``device`` (the card unless the caller names another), which must be
+    where the primitives' captured tensors live.  Merge
     points must agree exactly (we do not insert casts — the frontends emit
     explicit casts where needed).
     """

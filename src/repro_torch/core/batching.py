@@ -27,15 +27,25 @@ Backends, as in the JAX package:
   (``detect_nonfinite``) or a lane over its ``lane_step_budget`` raises
   :class:`pc_vm.LaneFault`; under ``"quarantine"`` nothing raises and the
   faulted lanes are flagged in ``last_result.fault_code``.
-  :meth:`AutobatchedFunction.stepper` runs it in segments (:class:`Stepper`);
+  :meth:`AutobatchedFunction.stepper` runs it in segments (:class:`Stepper`).
+  ``verify=True`` runs the lowered-IR verifier (:mod:`.verifier`) between
+  every pass; ``trace=`` records every dispatch into the VM's ring
+  (``fn.last_trace``, ``Stepper.trace``); ``pgo=`` (a
+  :class:`repro_torch.obs.BlockProfile` or a path to one) re-lowers
+  through ``passes.pgo_passes``, which :meth:`AutobatchedFunction.optimize`
+  does for a profile of a traced run;
 * ``"local"`` / ``"local_eager"``: local static autobatching
   (:mod:`.local_static`, paper Algorithm 1) with each block segment
   replayed from a CUDA graph, or op by op;
 * ``"reference"``: the unbatched interpreter, one member at a time.
 
 Executors are cached under ``(backend, device, batch size, input
-specs, fault options)``.  ``tag_stats`` and ``utilization`` cover the most recent call on
-every backend (``{}`` for ``reference``, which keeps no counters);
+specs, trace capacity, profile digest, fault options)``;
+:meth:`AutobatchedFunction.with_options` makes a clone with other knobs
+that shares the traced program, and the lowering while ``fuse``,
+``verify``, the device and the profile are the same.  ``tag_stats`` and
+``utilization`` cover the most recent call on every backend (``{}`` for
+``reference``, which keeps no counters);
 ``scheduler_stats`` is the pc VM's :class:`pc_vm.SchedulerStats`.
 
 Everything runs on ``device``: the CUDA card unless the caller passes
@@ -44,12 +54,14 @@ no CUDA present, :func:`autobatch` raises.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import blockprof, trace as obs_trace
 from . import analysis, frontend, ir, local_static, lowering, passes, pc_vm, reference
 
 __all__ = ["Batched", "Shared", "AutobatchedFunction", "Stepper", "autobatch"]
@@ -137,6 +149,21 @@ def _raise_if_faulted(codes: np.ndarray, batch_size: int) -> None:
 
 
 _trace_program = trace  # autobatch's ``trace`` argument shadows the name
+
+
+def _as_profile(pgo: Any) -> Optional[blockprof.BlockProfile]:
+    """The ``pgo=`` knob: None, a ``BlockProfile``, or a path to a profile
+    JSON saved by ``BlockProfile.save`` (by either package; loaded here)."""
+    if pgo is None:
+        return None
+    if isinstance(pgo, (str, os.PathLike)):
+        return blockprof.BlockProfile.load(pgo)
+    if hasattr(pgo, "dispatches") and hasattr(pgo, "digest"):
+        return pgo
+    raise TypeError(
+        "pgo= expects a repro_torch.obs.BlockProfile (or a path to one "
+        f"saved as JSON), got {type(pgo).__name__}"
+    )
 
 
 class _PcExecutor:
@@ -290,6 +317,12 @@ class Stepper:
         """VM loop iterations run on this state, over all segments."""
         return int(state["steps"])
 
+    def trace(self, state: dict):
+        """The :class:`repro_torch.obs.trace.DispatchTrace` of every
+        dispatch on this state so far, over all segments (one host read;
+        the ring is not consumed), or None without ``trace=``."""
+        return self.vm.get_trace(state)
+
     def park(self, state: dict, mask) -> dict:
         """Park the masked lanes at the exit block (idle until injected)."""
         return self.vm.park(state, mask)
@@ -308,7 +341,8 @@ class Stepper:
         """The outputs of a state, without the fault checks: final rows for
         halted lanes, whatever in-flight lanes wrote so far."""
         main = self._ex.main
-        return {key: self.vm.unpermute(state, state["tops"][ir.qualify(main, name)])
+        # read_top slices a packed output (pgo=) out of its group.
+        return {key: self.vm.unpermute(state, self.vm.read_top(state, ir.qualify(main, name)))
                 for key, name in self._fn._out_names.items()}
 
     def result(self, state: dict) -> dict[str, torch.Tensor]:
@@ -339,6 +373,9 @@ class AutobatchedFunction:
         on_fault: str,
         detect_nonfinite: bool,
         lane_step_budget: Optional[int],
+        verify: bool = False,
+        trace: Any = None,
+        pgo: Any = None,
         device: torch.device,
     ):
         if backend not in BACKENDS:
@@ -360,6 +397,18 @@ class AutobatchedFunction:
         self.on_fault = on_fault
         self.detect_nonfinite = detect_nonfinite
         self.lane_step_budget = lane_step_budget
+        self.verify = verify
+        self.trace = trace
+        self.pgo = _as_profile(pgo)
+        # Constructor arguments, for with_options() clones.
+        self._init_args = (program, bindings, arg_specs, out_names)
+        self._init_kwargs = dict(
+            backend=backend, max_depth=max_depth, max_steps=max_steps,
+            collect_stats=collect_stats, schedule=schedule, fuse=fuse,
+            compact_every=compact_every, on_fault=on_fault,
+            detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
+            verify=verify, trace=trace, pgo=self.pgo, device=device,
+        )
         self._bindings = bindings
         self._arg_specs = arg_specs
         self._out_names = out_names
@@ -372,13 +421,49 @@ class AutobatchedFunction:
     @property
     def lowered(self) -> ir.LoweredProgram:
         """The stack-explicit program of the pc backend: fused (unless
-        ``fuse=False``) and dead-code-eliminated."""
+        ``fuse=False``) and dead-code-eliminated, then, with ``pgo=``, put
+        through the profile-guided passes (``passes.pgo_passes``), whose
+        profile must come from this ``fuse`` setting.  ``verify=True``
+        runs the verifier on every pass's output."""
         if self._lowered is None:
-            low = lowering.lower(self.program, self.device)
+            low = lowering.lower(self.program, self.device, verify=self.verify)
             post = [*(passes.fusion_passes() if self.fuse else []),
                     passes.DeadCodeElimination()]
-            self._lowered = passes.PassPipeline(post).run(low)
+            if self.pgo is not None:
+                post.extend(passes.pgo_passes(self.pgo))
+            self._lowered = passes.PassPipeline(
+                post, verify=self.verify, debug=self.verify).run(low)
         return self._lowered
+
+    def _pgo_digest(self) -> Optional[str]:
+        return None if self.pgo is None else self.pgo.digest()
+
+    def with_options(self, **overrides: Any) -> "AutobatchedFunction":
+        """A clone with some knobs changed (the :func:`autobatch` keyword
+        names, e.g. ``trace=4096`` or ``schedule="lookahead"``).  It shares
+        the traced program and, while ``fuse``, ``verify``, the device and
+        the profile digest are unchanged, the lowering."""
+        unknown = set(overrides) - set(self._init_kwargs)
+        if unknown:
+            raise TypeError(
+                f"with_options: unknown option(s) {sorted(unknown)}; "
+                f"valid names: {sorted(self._init_kwargs)}"
+            )
+        kw = {**self._init_kwargs, **overrides}
+        clone = AutobatchedFunction(*self._init_args, **kw)
+        if (all(kw[k] == self._init_kwargs[k] for k in ("fuse", "verify", "device"))
+                and clone._pgo_digest() == self._pgo_digest()):
+            clone._lowered = self._lowered
+            clone._depth_report = self._depth_report
+        return clone
+
+    def optimize(self, profile: Any) -> "AutobatchedFunction":
+        """A clone re-lowered through the profile-guided passes:
+        ``with_options(pgo=profile)``, where ``profile`` is a
+        :class:`repro_torch.obs.BlockProfile` of a traced run of this
+        function (``obs.block_profile(fn.last_trace)``) or a path to a
+        saved one.  Bit-exact, with its own executors."""
+        return self.with_options(pgo=profile)
 
     @property
     def depth_report(self) -> analysis.StackDepthReport:
@@ -458,6 +543,8 @@ class AutobatchedFunction:
             self.device,
             z,
             tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
+            obs_trace.resolve_capacity(self.trace),
+            self._pgo_digest(),
             self.on_fault,
             self.detect_nonfinite,
             self.lane_step_budget,
@@ -474,7 +561,7 @@ class AutobatchedFunction:
                     collect_block_stats=self.collect_stats,
                     schedule=self.schedule, compact_every=self.compact_every,
                     on_fault=self.on_fault, detect_nonfinite=self.detect_nonfinite,
-                    lane_step_budget=self.lane_step_budget,
+                    lane_step_budget=self.lane_step_budget, trace=self.trace,
                 ),
                 self.device, self._overflow_hint(),
             )
@@ -504,6 +591,13 @@ class AutobatchedFunction:
     def last_result(self) -> Optional[pc_vm.VMResult]:
         """The :class:`pc_vm.VMResult` of the most recent pc-backend call."""
         return self._last_executor.last_result if self._last_executor else None
+
+    @property
+    def last_trace(self):
+        """The :class:`repro_torch.obs.trace.DispatchTrace` of the most
+        recent pc-backend call; None before one or without ``trace=``."""
+        res = self.last_result
+        return res.trace if res is not None else None
 
     @property
     def scheduler_stats(self) -> Optional[pc_vm.SchedulerStats]:
@@ -555,7 +649,9 @@ def autobatch(
     on_fault: str = "raise",
     detect_nonfinite: bool = False,
     lane_step_budget: Optional[int] = None,
+    verify: bool = False,
     trace: Any = None,
+    pgo: Any = None,
     mesh: Any = None,
     device=None,
 ) -> AutobatchedFunction:
@@ -573,13 +669,16 @@ def autobatch(
     ``collect_stats`` (per-block counters, ``tag_stats`` and
     ``scheduler_stats``).  Fault containment, pc backend only:
     ``on_fault`` (one of ``pc_vm.ON_FAULT``), ``detect_nonfinite`` and
-    ``lane_step_budget`` (see :class:`pc_vm.VMConfig`).  ``device`` is
-    where everything runs (default: the CUDA card).  ``trace`` and ``mesh``
-    are not ported and raise when set.
+    ``lane_step_budget`` (see :class:`pc_vm.VMConfig`).  Pipeline and
+    observation, pc backend only, all bit-exact: ``verify`` (the lowered-IR
+    verifier between every pass), ``trace`` (dispatch tracing into the VM's
+    ring: ``True`` or a capacity; read ``fn.last_trace``) and ``pgo`` (a
+    :class:`repro_torch.obs.BlockProfile` or a path to one: re-lower
+    through the profile-guided passes; see :meth:`AutobatchedFunction.
+    optimize`).  ``device`` is where everything runs (default: the CUDA
+    card).  ``mesh`` is not ported and raises when set.
     """
-    if trace is not None:
-        raise NotImplementedError(
-            "trace= (dispatch tracing) is not ported yet (ROADMAP item 9)")
+    obs_trace.resolve_capacity(trace)  # raises on a bad value
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (lane sharding over devices) is not ported yet (ROADMAP item 14)")
@@ -624,5 +723,5 @@ def autobatch(
         collect_stats=collect_stats, schedule=schedule, fuse=fuse,
         compact_every=compact_every, on_fault=on_fault,
         detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
-        device=device,
+        verify=verify, trace=trace, pgo=pgo, device=device,
     )

@@ -50,16 +50,23 @@ from __future__ import annotations
 from . import analysis, ir, lowering
 
 
-def fuse(low: ir.LoweredProgram) -> ir.LoweredProgram:
+def fuse(
+    low: ir.LoweredProgram, *, verify: bool = False
+) -> ir.LoweredProgram:
     """Return a semantically identical program with fused superblocks.
 
     The input is not mutated.  ``fused_from`` on the result maps each new
     block index to the tuple of input block indices whose ops it
-    concatenates (composed through an already-fused input).
+    concatenates (composed through an already-fused input).  With
+    ``verify=True`` the lowered-IR verifier runs between every pass of the
+    fusion pipeline (see passes.py).
     """
     from . import passes  # deferred: passes imports this module
 
-    return passes.PassPipeline(passes.fusion_passes()).run(low)
+    pipeline = passes.PassPipeline(
+        passes.fusion_passes(), verify=verify, debug=verify
+    )
+    return pipeline.run(low)
 
 
 def fuse_chains(low: ir.LoweredProgram) -> ir.LoweredProgram:
@@ -141,8 +148,17 @@ def fuse_chains(low: ir.LoweredProgram) -> ir.LoweredProgram:
     # re-optimizations — (v) popush pairs newly confined to one superblock,
     # (ii) temp detection on the merged bodies — run as their own passes.
     stack_vars, temp_vars = lowering.recompute_var_classes(
-        new_blocks, low.main_params, low.main_outputs
+        new_blocks, low.main_params, low.main_outputs,
+        state_layout=low.state_layout,
     )
+
+    # Profile weights survive the renumbering: a merged chain is dispatched
+    # exactly as often as its head block was.
+    block_weights = None
+    if low.block_weights is not None:
+        block_weights = tuple(
+            low.block_weights[i] for i in range(n) if i in index
+        )
 
     return ir.LoweredProgram(
         blocks=new_blocks,
@@ -154,4 +170,7 @@ def fuse_chains(low: ir.LoweredProgram) -> ir.LoweredProgram:
         temp_vars=temp_vars,
         func_entries={f: index[e] for f, e in low.func_entries.items()},
         fused_from=fused_from,
+        block_weights=block_weights,
+        state_layout=low.state_layout,
+        device=low.device,
     )

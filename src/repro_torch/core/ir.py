@@ -250,6 +250,32 @@ class LBlock:
     label: str = ""
 
 
+@dataclass(frozen=True)
+class StateLayout:
+    """Packed VM-state layout produced by ``StateLayoutPacking``.
+
+    ``groups`` maps each packed array variable (a synthetic
+    ``%pgo/pack<N>`` name with spec ``(k,) + member_shape``) to its member
+    variables in slot order.  A member's top lives at ``tops[packed][:, slot]``
+    instead of its own ``tops[member]`` buffer; inside a block the members
+    are materialized by an ``unpack`` prim and written back by a single
+    ``pack`` prim, so every boundary surface (inject/park/outputs/stepper,
+    stack kernels) reads and writes through this mapping.
+    """
+
+    groups: dict[str, tuple[str, ...]]
+
+    def members(self) -> frozenset[str]:
+        return frozenset(m for ms in self.groups.values() for m in ms)
+
+    def slot_of(self, var: str) -> Optional[tuple[str, int]]:
+        """``(packed_var, slot)`` for a member, else ``None``."""
+        for packed, ms in self.groups.items():
+            if var in ms:
+                return packed, ms.index(var)
+        return None
+
+
 @dataclass
 class LoweredProgram:
     """The merged, stack-explicit program that the PC VM executes."""
@@ -266,6 +292,20 @@ class LoweredProgram:
     # original (pre-fusion) block indices whose ops it concatenates, in
     # execution order.  ``None`` when the program was never fused.
     fused_from: Optional[dict[int, tuple[int, ...]]] = None
+    # Profile-guided-optimization provenance.  ``block_weights[i]`` is the
+    # profile-estimated dispatch count of block ``i`` (seeded by
+    # ``ProfileGuidedFusion`` from a ``BlockProfile`` and propagated through
+    # every renumbering pass); ``None`` when the program is unprofiled.
+    block_weights: Optional[tuple[int, ...]] = None
+    # ``BlockReordering`` permutation: ``block_order[new] = old`` index in
+    # the program that pass consumed.  ``None`` when never reordered.
+    block_order: Optional[tuple[int, ...]] = None
+    # Packed-state layout recorded by ``StateLayoutPacking`` (see
+    # :class:`StateLayout`); ``None`` when state is unpacked.
+    state_layout: Optional[StateLayout] = None
+    # Where type inference typed the primitives (the tensors they close
+    # over live there); the verifier types them on fake tensors of it.
+    device: Optional[torch.device] = None
 
     @property
     def exit_index(self) -> int:
@@ -284,6 +324,14 @@ class LoweredProgram:
     def pretty(self) -> str:
         lines = []
         rev_entries = {v: k for k, v in self.func_entries.items()}
+        if self.block_order is not None:
+            perm = ",".join(str(o) for o in self.block_order)
+            lines.append(f"reordered: [{perm}]   <new index -> old index>")
+        if self.state_layout is not None:
+            for packed, members in self.state_layout.groups.items():
+                lines.append(
+                    f"layout {packed}: [{', '.join(members)}]"
+                )
         for i, blk in enumerate(self.blocks):
             hdr = f"[{i}] {blk.label}"
             if i in rev_entries:
@@ -291,6 +339,8 @@ class LoweredProgram:
             if self.fused_from is not None and i in self.fused_from:
                 srcs = ",".join(str(s) for s in self.fused_from[i])
                 hdr += f"   <fused from {srcs}>"
+            if self.block_weights is not None:
+                hdr += f"   <weight {self.block_weights[i]}>"
             lines.append(hdr)
             for op in blk.ops:
                 if isinstance(op, LPrim):

@@ -39,13 +39,17 @@ from . import analysis, ir
 _Sym = Any
 
 
-def lower(program: ir.Program, device=None) -> ir.LoweredProgram:
+def lower(
+    program: ir.Program, device=None, *, verify: bool = False
+) -> ir.LoweredProgram:
     """Lower ``program`` to the stack-explicit merged form.
 
     Emission is followed by the block-local optimization passes
     (``passes.lowering_passes()``: pop-push elimination, temp detection).
     ``device`` is where type inference runs the primitives once (see
     ``analysis.infer_types``): the card unless the caller names another.
+    With ``verify=True`` the lowered-IR verifier runs on the raw emission
+    and between every pass.
     """
     device = resolve_device(device)
     program.validate()
@@ -176,12 +180,16 @@ def lower(program: ir.Program, device=None) -> ir.LoweredProgram:
         stack_vars=stack_vars,
         temp_vars=temp_vars,
         func_entries=func_entries,
+        device=device,
     )
     # The block-local optimizations ((v) pop-push elimination, (ii) temp
     # detection) run as pipeline passes over the raw emission.
     from . import passes  # deferred: passes imports this module
 
-    return passes.PassPipeline(passes.lowering_passes()).run(raw)
+    pipeline = passes.PassPipeline(
+        passes.lowering_passes(), verify=verify, debug=verify
+    )
+    return pipeline.run(raw)
 
 
 def _resolve(sym: _Sym, blockmap, func_entries) -> int:
@@ -252,13 +260,14 @@ def popush_eliminate(lowered: list[ir.LBlock]) -> None:
 
 
 def recompute_var_classes(
-    blocks, main_params, main_outputs
+    blocks, main_params, main_outputs, state_layout=None
 ) -> tuple[frozenset[str], frozenset[str]]:
     """Re-derive ``(stack_vars, temp_vars)`` for a transformed block list.
 
     One shared implementation for every pass that rewrites blocks (jump-chain
-    fusion, pop-push elimination, temp detection): the pushed/popped set is
-    re-scanned from the ops and temporaries re-detected.
+    fusion, pop-push elimination, temp detection, the PGO passes): the pushed/
+    popped set is re-scanned from the ops and temporaries re-detected, with
+    packed-layout members (``state_layout``) always block-local.
     """
     stack_vars = frozenset(
         op.var
@@ -266,12 +275,15 @@ def recompute_var_classes(
         for op in blk.ops
         if isinstance(op, (ir.LPush, ir.LPop))
     )
-    temp_vars = find_temporaries(blocks, stack_vars, main_params, main_outputs)
+    temp_vars = find_temporaries(
+        blocks, stack_vars, main_params, main_outputs,
+        state_layout=state_layout,
+    )
     return stack_vars, temp_vars
 
 
 def find_temporaries(
-    lowered, stack_vars, main_params, main_outputs
+    lowered, stack_vars, main_params, main_outputs, *, state_layout=None
 ) -> frozenset[str]:
     """Paper optimization (ii): variables that never cross a VM iteration.
 
@@ -279,8 +291,15 @@ def find_temporaries(
     (including a terminator read) is preceded by a write within that same
     block.  Such variables are ordinary intermediates of the fused block body
     and need no masked top buffer in VM state.
+
+    Members of a packed ``state_layout`` group are exempt from the
+    main-param/output exclusion: their cross-block value lives in the packed
+    array (written back by the group's ``pack`` prim), so the members
+    themselves are block-local by construction.
     """
     not_temp: set[str] = set(stack_vars) | set(main_params) | set(main_outputs)
+    if state_layout is not None:
+        not_temp -= state_layout.members()
     mentioned: set[str] = set()
     for blk in lowered:
         written: set[str] = set()

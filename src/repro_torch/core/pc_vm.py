@@ -82,6 +82,32 @@ one :meth:`ProgramCounterVM.run`.  Between segments
 both take caller-order masks and write into the state's tensors in place
 (their shapes, dtypes and layouts stay as the stack groups expect).
 
+Dispatch tracing (``VMConfig.trace``: ``True`` or a capacity in events),
+as in the JAX VM: the state carries a ring of one event per loop
+iteration at slot ``steps % capacity`` — the block (``SWEEP_BLOCK`` for a
+sweep), the live residents of every block before it, its active lanes,
+the live and quarantined lanes, the occupied-tile capacity, whether
+compaction ran after it and the faulted lanes after it.  The ring is one
+int32 ``[capacity, 7 + num_blocks]`` tensor whose columns are the JAX
+VM's eight buffers (:data:`TRACE_COLUMNS`); each event is written by the
+device, one row a dispatch and the fault count after it, and nothing
+reads it back until :meth:`ProgramCounterVM.get_trace` drains it into a
+:class:`repro_torch.obs.trace.DispatchTrace`.  No traced value feeds
+``pick``, a mask or a block, so a traced run is bit-exact with an
+untraced one; with tracing off no kernel is added.
+
+Every dispatch runs inside ``torch.profiler.record_function(
+"pcvm.block<i>")``, so a device profile attributes time to blocks (the
+JAX VM labels its HLO alike); the scope launches no kernel.
+
+A profile-guided program (``passes.pgo_passes``) may pack state variables
+of one spec into one ``[batch, k, ...]`` array (``LoweredProgram.
+state_layout``); every boundary — :meth:`ProgramCounterVM.init_state`,
+:meth:`~ProgramCounterVM.inject`, :meth:`~ProgramCounterVM.result` and the
+Stepper's outputs — reads and writes a member as ``tops[packed][:, slot]``
+(:meth:`ProgramCounterVM.read_top`).  Packing touches state variables
+only, so no stack group addresses a member.
+
 The VM exposes one loop iteration at a time (:meth:`ProgramCounterVM.pick`
 / :meth:`ProgramCounterVM.dispatch`, :meth:`ProgramCounterVM.sweep`) as
 well as :meth:`ProgramCounterVM.run`, so tests can replay the dispatch
@@ -96,6 +122,7 @@ import numpy as np
 import torch
 
 from ..kernels.stack_ops import ops as stack_ops
+from ..obs import trace as obs_trace
 from . import ir
 
 _I32 = torch.int32
@@ -162,6 +189,13 @@ FAULT_NAMES = ("ok", "stack_overflow", "nonfinite", "watchdog")
 #: holding at least one active lane.
 OCCUPANCY_TILE = 8
 
+#: The dispatch-trace ring's columns (the JAX VM's eight buffers, in the
+#: names :func:`repro_torch.obs.trace.drain` reads): one int32 column each,
+#: then ``resident`` over the last ``num_blocks`` columns.
+TRACE_COLUMNS = ("block", "active", "live", "quarantined", "tile",
+                 "compacted", "faults")
+_FAULTS_COL = TRACE_COLUMNS.index("faults")
+
 
 @dataclass(frozen=True)
 class VMConfig:
@@ -179,6 +213,11 @@ class VMConfig:
     on_fault: str = "raise"
     detect_nonfinite: bool = False
     lane_step_budget: Optional[int] = None
+    # Run the lowered-IR verifier on the program when the VM is made.
+    verify: bool = False
+    # Dispatch tracing: None/False off, True the default ring capacity
+    # (obs.trace.DEFAULT_TRACE_CAPACITY events), an int that capacity.
+    trace: Any = None
 
     def __post_init__(self):
         if self.on_fault not in ON_FAULT:
@@ -199,6 +238,7 @@ class VMConfig:
                 "compact_every must be >= 1 (or None to disable), got "
                 f"{self.compact_every}"
             )
+        obs_trace.resolve_capacity(self.trace)  # raises on a bad value
 
 
 @dataclass(frozen=True)
@@ -237,6 +277,9 @@ class VMResult:
     lane_steps: torch.Tensor  # [batch] int32 active-dispatch counts
     sched: SchedulerStats
     fault_code: Optional[torch.Tensor] = None  # [batch] int32, FAULT_NAMES
+    # The drained dispatch trace (obs.trace.DispatchTrace) when the run
+    # had VMConfig.trace set; None otherwise.
+    trace: Optional[Any] = None
 
     @property
     def fault_mask(self) -> Optional[torch.Tensor]:
@@ -329,7 +372,13 @@ class ProgramCounterVM:
         self.lowered = lowered
         self.config = config
         self.device = torch.device(device)
+        if config.verify:
+            from . import verifier
+
+            verifier.verify(lowered, device=self.device)
         self.num_blocks = len(lowered.blocks)
+        # Dispatch-trace ring capacity (None: tracing off).
+        self.trace_capacity = obs_trace.resolve_capacity(config.trace)
         self._state_vars = [
             v for v in sorted(lowered.var_specs) if v not in lowered.temp_vars
         ]
@@ -382,6 +431,31 @@ class ProgramCounterVM:
                 if 0 <= b < nb:
                     succ[i, b] = 1
         self._succ = torch.from_numpy(succ).to(dev)
+        # The trace ring's constant cells: each block id as a [1] view
+        # (the exit index selects SWEEP_BLOCK) and the compaction flags.
+        self._trace_block = torch.tensor(
+            list(range(nb)) + [obs_trace.SWEEP_BLOCK], dtype=_I32, device=dev
+        ).unsqueeze(1)
+        self._trace_flag = torch.tensor([[0], [1]], dtype=_I32, device=dev)
+
+    # ------------------------------------------------------------------
+    # Packed state layout
+    # ------------------------------------------------------------------
+
+    def _layout_slot(self, v: str) -> Optional[tuple[str, int]]:
+        """``(packed_var, slot)`` when ``v`` lives in a packed layout group
+        (``ir.StateLayout``), else None."""
+        layout = self.lowered.state_layout
+        return None if layout is None else layout.slot_of(v)
+
+    def read_top(self, state: dict[str, Any], v: str) -> torch.Tensor:
+        """The ``[batch, ...]`` top of a cross-block variable in row order,
+        a packed member sliced out of its group (a view)."""
+        slot = self._layout_slot(v)
+        if slot is None:
+            return state["tops"][v]
+        packed, idx = slot
+        return state["tops"][packed][:, idx]
 
     # ------------------------------------------------------------------
     # State
@@ -409,9 +483,15 @@ class ProgramCounterVM:
                     f"input {p!r}: expected batched shape "
                     f"{(z,) + spec.shape}, got {tuple(x.shape)}"
                 )
-            # A copy of its own: inject writes the tops in place.
-            tops[p] = x.to(device=dev, dtype=spec.dtype).clone(
-                memory_format=torch.contiguous_format)
+            x = x.to(device=dev, dtype=spec.dtype)
+            slot = self._layout_slot(p)
+            if slot is None:
+                # A copy of its own: inject writes the tops in place.
+                tops[p] = x.clone(memory_format=torch.contiguous_format)
+            else:
+                # A packed member's home is its slot of the group.
+                packed, idx = slot
+                tops[packed][:, idx] = x
         state = {
             "pc_top": torch.full((z,), lp.entry, dtype=_I32, device=dev),
             # Slot 0 holds the exit sentinel.
@@ -442,6 +522,13 @@ class ProgramCounterVM:
             state["block_active"] = torch.zeros((nb,), dtype=_I32, device=dev)
             # Occupied-tile capacity summed over dispatches.
             state["tile_acc"] = torch.zeros((), dtype=_I32, device=dev)
+        if self.trace_capacity is not None:
+            # The dispatch-trace ring (TRACE_COLUMNS, then resident);
+            # an unwritten slot holds block -1.
+            ring = torch.zeros((self.trace_capacity, len(TRACE_COLUMNS) + self.num_blocks),
+                               dtype=_I32, device=dev)
+            ring[:, 0] = -1
+            state["trace"] = ring
         return state
 
     # ------------------------------------------------------------------
@@ -464,6 +551,10 @@ class ProgramCounterVM:
             specs.append(stack_ops.StackSpec(cfg.max_depth, spec.shape, spec.dtype))
         if pc:
             specs.append(stack_ops.StackSpec(cfg.max_depth, (), _I32))
+        layout = lp.state_layout
+        if layout is not None:
+            packed = layout.members() & {op.var for op in ops}
+            assert not packed, f"a stack group addresses packed members {sorted(packed)}"
         if kind == "push":
             call = stack_ops.PushGroup(specs, [True] * len(ops) + [False] * pc,
                                        cfg.batch_size)
@@ -591,7 +682,14 @@ class ProgramCounterVM:
                 set_fault(mask & (lane_steps >= budget) & (pc_top < exit_idx),
                           FAULT_WATCHDOG)
 
-        return run
+        scope = f"pcvm.block{bidx}"
+
+        def scoped_run(state: dict[str, Any], mask: torch.Tensor) -> None:
+            # Names the block in device profiles; launches nothing.
+            with torch.profiler.record_function(scope):
+                run(state, mask)
+
+        return scoped_run
 
     # ------------------------------------------------------------------
     # The loop
@@ -660,10 +758,15 @@ class ProgramCounterVM:
         """One loop iteration of a switch schedule: run block ``b`` over
         the lanes resting there (in place), then compact when due."""
         mask = self._mask(state, b)
+        active = tile = None
         if self.config.collect_block_stats:
+            active = mask.sum(dtype=_I32)
+            tile = tile_capacity(mask, self._tile_caps)
             state["block_exec"][b] += 1
-            state["block_active"][b] += mask.sum(dtype=_I32)
-            state["tile_acc"] += tile_capacity(mask, self._tile_caps)
+            state["block_active"][b] += active
+            state["tile_acc"] += tile
+        if self.trace_capacity is not None:
+            self._trace_event(state, b, mask, active, tile)
         self._block_fns[b](state, mask)
         self._end_iteration(state)
 
@@ -673,6 +776,11 @@ class ProgramCounterVM:
         turn comes; a block counts in ``block_exec`` only when it had
         residents (all on the device)."""
         collect = self.config.collect_block_stats
+        if self.trace_capacity is not None:
+            # One event a sweep: no single block runs, and every live
+            # lane is dispatchable.
+            live = self._pc_live(state) < self.lowered.exit_index
+            self._trace_event(state, self.lowered.exit_index, live, None, None)
         active = []
         for b, fn in enumerate(self._block_fns):
             mask = self._mask(state, b)
@@ -686,7 +794,33 @@ class ProgramCounterVM:
             state["block_exec"] += (active > 0).to(_I32)
         self._end_iteration(state)
 
+    def _trace_event(self, state: dict[str, Any], b: int, mask: torch.Tensor,
+                     active: Optional[torch.Tensor], tile: Optional[torch.Tensor]) -> None:
+        """Write the event of the loop iteration about to run into its ring
+        row (slot ``steps % capacity``), all on the device: the residents,
+        live and quarantined lanes before it, the ``mask``'s active lanes
+        and tile capacity (``active``/``tile`` when the statistics already
+        hold them), the block ``b`` (``exit_index``: a sweep) and whether
+        compaction follows.  :meth:`_end_iteration` adds the faults."""
+        row = state["trace"][state["steps"] % self.trace_capacity]
+        counts = (self._pc_live(state).unsqueeze(0) == self._block_ids).sum(dim=1, dtype=_I32)
+        if active is None:
+            active = mask.sum(dtype=_I32)
+            tile = tile_capacity(mask, self._tile_caps)
+        k = self.config.compact_every
+        compacted = k is not None and (state["steps"] + 1) % k == 0
+        torch.cat([
+            self._trace_block[b], active.view(1), counts.sum(dtype=_I32).view(1),
+            (state["fault_code"] != FAULT_OK).sum(dtype=_I32).view(1), tile.view(1),
+            self._trace_flag[int(compacted)], self._trace_flag[0], counts,
+        ], out=row)
+
     def _end_iteration(self, state: dict[str, Any]) -> None:
+        if self.trace_capacity is not None:
+            # The event's faults: lanes faulted after the dispatch.
+            row = state["trace"][state["steps"] % self.trace_capacity]
+            torch.sum(state["fault_code"] != FAULT_OK, dim=0, dtype=_I32,
+                      out=row[_FAULTS_COL])
         state["steps"] += 1
         k = self.config.compact_every
         if k is not None and state["steps"] % k == 0:
@@ -812,11 +946,11 @@ class ProgramCounterVM:
         for k in ("depth_exceeded", "fault_code", "lane_steps"):
             state[k].masked_fill_(mask, 0)
         tops = state["tops"]
-        for v, top in tops.items():
-            if v in fresh:
-                top.copy_(_masked(mask, fresh[v], top))
-            else:
-                top.masked_fill_(_bcast(mask, top), 0)
+        for top in tops.values():
+            top.masked_fill_(_bcast(mask, top), 0)
+        for p, x in fresh.items():
+            top = self.read_top(state, p)  # a packed member: its slot
+            top.copy_(_masked(mask, x, top))
         for v, stack in state["stacks"].items():
             stack.masked_fill_(_bcast(mask, stack[0]).unsqueeze(0), 0)
         for ptr in state["ptrs"].values():
@@ -861,7 +995,7 @@ class ProgramCounterVM:
         if cfg.on_fault == "quarantine":
             done = done | (state["fault_code"] != FAULT_OK)
         return VMResult(
-            outputs={o: self.unpermute(state, state["tops"][o]) for o in lp.main_outputs},
+            outputs={o: self.unpermute(state, self.read_top(state, o)) for o in lp.main_outputs},
             steps=state["steps"],
             converged=bool(done.all()),
             block_exec=be,
@@ -871,4 +1005,20 @@ class ProgramCounterVM:
             lane_steps=self.unpermute(state, state["lane_steps"]),
             sched=sched,
             fault_code=self.lane_fault(state),
+            trace=self.get_trace(state),
+        )
+
+    def get_trace(self, state: dict[str, Any]):
+        """Drain the dispatch-trace ring of any state into a
+        :class:`repro_torch.obs.trace.DispatchTrace` (oldest surviving
+        event first; one host read), or None without ``trace``.  The ring
+        is not consumed: a later drain sees these events and newer ones."""
+        if self.trace_capacity is None:
+            return None
+        ring = state["trace"].cpu().numpy()
+        buffers = {name: ring[:, i] for i, name in enumerate(TRACE_COLUMNS)}
+        buffers["resident"] = ring[:, len(TRACE_COLUMNS):]
+        return obs_trace.drain(
+            buffers, total=state["steps"], schedule=self.config.schedule,
+            num_blocks=self.num_blocks, batch_size=self.config.batch_size,
         )

@@ -1,7 +1,10 @@
 """Wrapper for causal GQA flash attention (K3): ``[B, S, H, Dh]`` layout in
 and out, argument checks, device dispatch and a launch count.
 
-A tensor on the CPU runs the plain version in :mod:`.ref`; any other
+A fake tensor (:mod:`repro_torch.fake`, as type inference passes one)
+gets an empty tensor of the output's shape, dtype and device, the shape
+rule of a kernel that launches through ``ctypes``, not a fallback.  A
+tensor on the CPU runs the plain version in :mod:`.ref`; any other
 tensor launches a CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version,
 and none between the two kernels: :func:`.kernel.route` picks one from the
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import fake
 from .. import _layout
 from . import kernel, ref
 
@@ -55,6 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: [B, S, H, Dh]; k, v: [B, T, Hkv, Dh] -> [B, S, H, Dh] in q's dtype."""
     _check(q, k, v, causal)
+    if fake.is_fake(q, k, v):
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal)
     if q.dtype not in kernel.DTYPES:

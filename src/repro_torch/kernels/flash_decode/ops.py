@@ -2,7 +2,11 @@
 against the cache as the model keeps it, ``k, v [B, W, Hkv, Dh]``, with
 argument checks, device dispatch and a launch count.
 
-A tensor on the CPU runs the plain version in :mod:`.ref`; any other
+A fake tensor (:mod:`repro_torch.fake`, as type inference passes one)
+gets an empty tensor of the output's shape, dtype and device: it has no
+data, and the kernel launches through ``ctypes``, so this is the shape
+rule, not a fallback.  A tensor on the CPU runs the plain version in
+:mod:`.ref`; any other
 tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version.
 The cache is read where it lies, through its strides: the serving VM hands
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import fake
 from .. import _layout
 from . import kernel, ref
 
@@ -50,6 +55,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, H, Dh]; k, v: [B, W, Hkv, Dh]; count: int32 [B] valid cache
     rows per sequence -> [B, H, Dh] in q's dtype (zeros where count is 0)."""
     _check(q, k, v, count)
+    if fake.is_fake(q, k, v, count):
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, count)
     if q.dtype not in kernel.DTYPES:

@@ -310,6 +310,8 @@ def make_nuts_kernel(
     schedule: str = "earliest",
     fuse: bool = True,
     compact_every: Optional[int] = None,
+    verify: bool = False,
+    pgo=None,
     device=None,
 ) -> batching.AutobatchedFunction:
     """The public NUTS entry point: ``kernel(theta0, eps, key) -> state``.
@@ -322,7 +324,11 @@ def make_nuts_kernel(
     ``[chains, dim]``: final positions and running moments.  ``backend``
     is one of ``batching.BACKENDS``; ``schedule``, ``fuse`` and
     ``compact_every`` are the pc backend's knobs, all bit-exact, so every
-    combination samples identical chains.  On the card the pc backend's
+    combination samples identical chains.  ``verify=True`` runs the
+    lowered-IR verifier between every pass; ``pgo=`` re-lowers through the
+    profile-guided passes from a :class:`repro_torch.obs.BlockProfile` (or
+    a saved profile's path) of a traced run of the same kernel — still
+    bit-exact, with fewer dispatches.  On the card the pc backend's
     stack traffic always goes through K1/K2.  It runs on ``device``
     (default: the CUDA card; no CUDA and no device raises), which must be
     where the target's data lives.
@@ -340,6 +346,8 @@ def make_nuts_kernel(
         schedule=schedule,
         fuse=fuse,
         compact_every=compact_every,
+        verify=verify,
+        pgo=pgo,
         device=device,
     )
 

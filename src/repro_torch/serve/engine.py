@@ -37,9 +37,13 @@ decode runs K4 once per layer.  Keys are threefry keys from
 ``mcmc/prng.py``, bit-equal to JAX's; sampling is greedy at temperature 0,
 else ``prng.categorical``.
 
+``EngineConfig.trace`` records every dispatch of the pc VM into its ring
+(``pc_vm.VMConfig.trace``), for ``generate`` and ``serve`` alike; recording
+never changes what is served.
+
 Not ported yet: crash-resume (``checkpoint_dir``, ``serve(resume=True)``;
-ROADMAP item 13), dispatch tracing (``trace``, item 9) and lane sharding
-(``mesh``, item 14); each raises when asked for.
+ROADMAP item 13) and lane sharding (``mesh``, item 14); each raises when
+asked for.
 """
 from __future__ import annotations
 
@@ -79,7 +83,9 @@ class EngineConfig:
     # Lane compaction cadence of the pc VM (pc_vm.VMConfig.compact_every);
     # requests keep their lane on every engine surface.
     compact_every: Optional[int] = None
-    # Not ported (ROADMAP item 9); must stay None.
+    # Dispatch tracing of the pc VM (pc_vm.VMConfig.trace): True or a ring
+    # capacity.  Read it from engine.batched.last_trace after generate(),
+    # or from a Stepper's state of serve_batched.
     trace: Any = None
     # ---- fault containment and resilience (pc backend) ----
     # The VM's fault policy (pc_vm.VMConfig.on_fault): one faulted request
@@ -411,6 +417,7 @@ class GenerationEngine:
                 out_spec={"tokens": "out", "lengths": "olen"},
                 max_depth=4,
                 max_steps=2**31 - 2,  # a server's step count is unbounded
+                trace=self.cfg.trace,
                 device=self.model.device,
                 **self._pc_options(),
             )

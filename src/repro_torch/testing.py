@@ -3,7 +3,8 @@
 
 The integer programs are the port's counterparts of ``build_fib``,
 ``build_pow_loop`` and ``build_mutual`` in tests/test_core.py and
-``build_deep_recursion`` in tests/test_fusion.py, written the same way so
+``build_deep_recursion`` in tests/test_fusion.py and ``build_parity`` in
+tests/test_pgo.py, written the same way so
 both packages lower them to the same blocks.  The LM slice's inputs
 (attention operands, a decode cache, prompt batches) are made with numpy
 from a seed.
@@ -82,6 +83,46 @@ def build_deep_recursion():
     fb.return_()
     pb.add(fb)
     return pb.build()
+
+
+def build_parity():
+    """The port's counterpart of ``build_parity`` in tests/test_pgo.py: a
+    loop whose body diverges on parity, both arms calling ``h`` (two call
+    sites: only the profile-guided inliner absorbs it) and then ``g`` (one
+    call site: the frame merge)."""
+    pb = frontend.ProgramBuilder(main="par")
+    hb = pb.function("h", ["x"], ["y"], {"x": I32}, {"y": I32})
+    hb.assign("y", lambda x: x * 3 + 1, ["x"])
+    hb.return_()
+    pb.add(hb)
+    gb = pb.function("g", ["a"], ["b"], {"a": I32}, {"b": I32})
+    gb.assign("b", lambda a: a - 5, ["a"])
+    gb.return_()
+    pb.add(gb)
+    fb = pb.function("par", ["n", "x"], ["out"], {"n": I32, "x": I32}, {"out": I32})
+    fb.copy("x", out="acc")
+    fb.copy("n", out="i")
+    with fb.while_(lambda i: i > 0, ["i"]):
+        c = fb.prim(lambda acc: acc % 2 == 0, ["acc"], name="even")
+        with fb.if_(c):
+            fb.call("h", ["acc"], out="acc")
+        with fb.orelse():
+            fb.call("h", ["acc"], out="t")
+            fb.assign("acc", lambda t: t + 1, ["t"])
+        fb.call("g", ["acc"], out="acc")
+        fb.assign("i", lambda i: i - 1, ["i"])
+    fb.copy("acc", out="out")
+    fb.return_()
+    pb.add(fb)
+    return pb.build()
+
+
+def parity_inputs(lanes: int = 8) -> tuple[np.ndarray, np.ndarray]:
+    """``(n, x)`` of tests/test_pgo.py's ``_parity_inputs``."""
+    rng = np.random.default_rng(5)
+    n = rng.integers(3, 9, size=lanes).astype(np.int32)
+    x = rng.integers(-40, 41, size=lanes).astype(np.int32)
+    return n, x
 
 
 def build_tagged_fib():

@@ -5,7 +5,9 @@ compaction), local static batching from CUDA graphs, NUTS (pc and
 iterative) and the serving engine on CUDA against the same port on the CPU,
 its eager mode or its own oracle; segmented runs and quarantined faults on
 the card against one run and the CPU, and open-loop serving against its
-oracle.  They skip where there is no CUDA device; on the
+oracle; traced and profile-guided NUTS bit-exact with the plain run on the
+card, and the engine's program verified there (fake typing, K3/K4 through
+their shape rule).  They skip where there is no CUDA device; on the
 card run them with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
 This file imports no JAX (the card's machine has none): it compares the
@@ -18,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import batching  # noqa: E402
+from repro_torch.core import batching, ir  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -522,7 +524,7 @@ def test_engine_on_cuda_matches_its_oracle(cuda):
                         requests_per_lane=2, eos_id=0)
     eng = GenerationEngine(model, params, ecfg)
     prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=0)
-    eng.batched.lowered  # type inference runs the decode prim once
+    eng.batched.lowered  # type inference types the decode prim on fake tensors
     fd_ops.decode_attention.launches = 0
     res = eng.generate(prompts, plens)
     execs = eng.batched.tag_stats["decode"][0]
@@ -605,7 +607,7 @@ def test_serve_on_cuda_matches_its_oracle(cuda):
     rng = np.random.default_rng(5)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, 1 + i % 5).astype(np.int32),
                     arrival=float(i)) for i in range(5)]
-    eng.serve(reqs[:1])  # type inference runs the decode prim once
+    eng.serve(reqs[:1])  # a first serve: lowering and the VM
     t = {"now": 0.0}
 
     def clock():
@@ -626,3 +628,79 @@ def test_serve_on_cuda_matches_its_oracle(cuda):
     assert stats.ok == 5
     for c in comps:
         np.testing.assert_array_equal(c.tokens, ref_out["tokens"][c.rid, 0, : ref_out["lengths"][c.rid, 0]])
+
+
+def test_traced_and_pgo_nuts_on_cuda_are_bit_exact(cuda):
+    """NUTS on the card: a traced run equals the plain one (outputs,
+    dispatches, block_exec, K1/K2 launches) and its trace the CPU's; the
+    profile-guided kernel equals it too, with fewer dispatches and K1/K2
+    launches = block_exec x the re-lowered blocks' groups."""
+    from repro_torch.obs import block_profile
+
+    settings = nuts.NutsSettings(max_tree_depth=5, num_steps=3, steps_per_leaf=2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        target = targets.logistic_regression(200, 8, device=dev)
+        kern = nuts.make_nuts_kernel(target, settings, device=dev)
+        args = nuts.initial_state(target, 16, eps=0.05, seed=5, device=dev)
+        traced = kern.with_options(trace=True)
+        runs[str(dev)] = (kern, traced, args, traced(*args))
+    kern, traced, args, t_out = runs[str(cuda)]
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    out = kern(*args)
+    launches = (ops.masked_push.launches, ops.masked_peek.launches)
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    t_out = traced(*args)
+    assert (ops.masked_push.launches, ops.masked_peek.launches) == launches
+    for k in out:
+        assert torch.equal(t_out[k], out[k])
+    res, t_res = kern.last_result, traced.last_result
+    assert t_res.steps == res.steps
+    np.testing.assert_array_equal(t_res.block_exec, res.block_exec)
+    cpu_tr, tr = runs["cpu"][1].last_trace, traced.last_trace
+    for f in ("block", "resident", "active", "live", "tile_capacity", "faults"):
+        np.testing.assert_array_equal(getattr(tr, f), getattr(cpu_tr, f), err_msg=f)
+    opt = kern.optimize(block_profile(tr))
+    opt(*args)
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    o_out = opt(*args)
+    for k in out:
+        assert torch.equal(o_out[k], out[k])
+    o_res = opt.last_result
+    assert o_res.steps < res.steps
+    assert opt.scheduler_stats.masked_updates < kern.scheduler_stats.masked_updates
+    from chip_smoke import _group_launches
+
+    want = tuple(sum(int(n) * _group_launches(blk, op, term)
+                     for n, blk in zip(o_res.block_exec, opt.lowered.blocks))
+                 for op, term in ((ir.LPush, ir.LPushJump), (ir.LPop, ir.LReturn)))
+    assert (ops.masked_push.launches, ops.masked_peek.launches) == want
+
+
+def test_engine_program_verifies_on_cuda(cuda):
+    """``verify=True`` lowering of the engine's program on the card: the
+    decode prim types on fake tensors, K4 answering by its shape rule, so
+    no kernel launches."""
+    from repro_torch import fake
+
+    cfg = configs.get_smoke_config("smollm-135m")
+    model = get_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    eng = GenerationEngine(model, params, EngineConfig(lanes=4, max_context=32,
+                                                       max_prompt_len=6, max_new_tokens=8,
+                                                       requests_per_lane=2))
+    fd_ops.decode_attention.launches = fa_ops.flash_attention.launches = 0
+    low = eng.batched.with_options(verify=True).lowered
+    assert low.device.type == "cuda" and fd_ops.decode_attention.launches == 0
+    with fake.fake_mode():
+        q, k, v, count = (torch.empty(s, dtype=d, device=cuda) for s, d in (
+            ((2, 9, 64), torch.bfloat16), ((2, 16, 3, 64), torch.bfloat16),
+            ((2, 16, 3, 64), torch.bfloat16), ((2,), torch.int32)))
+        out = fd_ops.decode_attention(q, k, v, count)
+        qa = torch.empty((1, 64, 9, 64), dtype=torch.bfloat16, device=cuda)
+        ka = torch.empty((1, 64, 3, 64), dtype=torch.bfloat16, device=cuda)
+        att = fa_ops.flash_attention(qa, ka, ka, causal=True)
+    assert fake.is_fake(out, att)
+    assert (out.shape, out.dtype, out.device.type) == ((2, 9, 64), torch.bfloat16, "cuda")
+    assert (att.shape, att.dtype) == ((1, 64, 9, 64), torch.bfloat16)
+    assert fd_ops.decode_attention.launches == fa_ops.flash_attention.launches == 0

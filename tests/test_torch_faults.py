@@ -141,8 +141,10 @@ class TestValidation:
             t_pc_vm.VMConfig(batch_size=2, lane_step_budget=0)
 
     def test_trace_and_mesh_are_not_ported(self):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_batching.autobatch(_sqrt_program(), trace=True, device="cpu")
+        """Tracing is ported now (a capacity below 1 is refused); lane
+        sharding is not and names its ROADMAP item."""
+        with pytest.raises(ValueError, match="capacity >= 1"):
+            t_batching.autobatch(_sqrt_program(), trace=0, device="cpu")
         with pytest.raises(NotImplementedError, match="item 14"):
             t_batching.autobatch(_sqrt_program(), mesh=2, device="cpu")
 

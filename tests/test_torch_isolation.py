@@ -56,6 +56,8 @@ def _imports(path: Path) -> list[str]:
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
     REPO / "tools" / "torch_nuts_ab.py", REPO / "tools" / "torch_chaos.py",
+    REPO / "tools" / "torch_vmtrace.py", REPO / "tools" / "torch_pgo.py",
+    REPO / "tools" / "torch_irlint.py", REPO / "tools" / "torch_verify_cost.py",
     REPO / "benchmarks" / "torch_fig5.py", REPO / "benchmarks" / "torch_fig6.py",
     REPO / "benchmarks" / "torch_serve_bench.py", REPO / "benchmarks" / "common.py",
 ]

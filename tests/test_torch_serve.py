@@ -134,15 +134,15 @@ def test_cache_layout_rejects_an_ambiguous_leaf():
 
 
 def test_unported_options_raise(lm):
-    """Crash-resume, tracing and lane sharding are not ported; each names
-    its ROADMAP item.  (The local backends and temperature sampling are
-    ported: tests/test_torch_serve_open.py.)"""
+    """Crash-resume and lane sharding are not ported; each names its
+    ROADMAP item.  (Tracing is ported and reaches the VM; the local
+    backends and temperature sampling are ported:
+    tests/test_torch_serve_open.py.)"""
     _, _, model, params = lm
     kw = dict(lanes=2, max_context=16, max_prompt_len=4, max_new_tokens=4,
               requests_per_lane=1)
     with pytest.raises(NotImplementedError, match="item 13"):
         GenerationEngine(model, params, EngineConfig(**kw, checkpoint_dir="ckpt"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        GenerationEngine(model, params, EngineConfig(**kw, trace=64))
+    assert GenerationEngine(model, params, EngineConfig(**kw, trace=64)).batched.trace == 64
     with pytest.raises(NotImplementedError, match="item 14"):
         GenerationEngine(model, params, EngineConfig(**kw, mesh=2))
