@@ -99,7 +99,16 @@ non-zero (nothing is caught):
     grads/s of phase 6's kernel and the PGO'd one in turns (A B B A); one
     profiled run of each with the busy share and the five blocks with the
     most device time (``pcvm.block<i>`` scopes); a traced float32 engine
-    check equal to the untraced one.
+    check equal to the untraced one;
+14. frontend: ``examples/torch_quickstart.py``'s handles on the card —
+    the decorated restricted-Python ``fib`` over 65,536 lanes (``n`` in
+    [0, 13) from a seeded generator, ``max_depth=16``), bit-exact with the
+    builder's ``fib`` through ``autobatch`` (outputs, dispatches,
+    ``block_exec``) with K1/K2 launched on its path; ``collatz`` over
+    65,536 lanes with a ``Shared`` bound against a numpy loop; phase 6's
+    NUTS kernel (built with ``batch_size=1024``) called again at the same
+    avals: bit-identical to phase 6, one cache hit and still one lowering;
+    ``fib(10)`` on the four backends (1024 lanes, 8 for ``reference``).
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -506,7 +515,7 @@ def phase_full(torch, chains: int, settings) -> dict:
     from repro_torch.mcmc import nuts, targets
 
     target = targets.logistic_regression(num_data=10_000, dim=100, device="cuda")
-    kern = nuts.make_nuts_kernel(target, settings, device="cuda")
+    kern = nuts.make_nuts_kernel(target, settings, batch_size=chains, device="cuda")
     args = nuts.initial_state(target, chains, eps=0.01, seed=0, device="cuda")
     t0 = time.perf_counter()
     kern(*args)
@@ -1440,6 +1449,101 @@ def phase_pgo(torch, run6: dict, launches6: dict, settings, smi: str) -> None:
     print(f"pgo: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 14. the restricted-Python frontend and the pytree API
+# ---------------------------------------------------------------------------
+
+FRONTEND_LANES = 65_536
+
+
+def _collatz_numpy(n: np.ndarray, bound: int) -> tuple[np.ndarray, np.ndarray]:
+    """``collatz``'s steps and peaks with a vectorized numpy loop."""
+    n = n.astype(np.int64)
+    steps, peak = np.zeros_like(n), n.copy()
+    live = (n > 1) & (steps < bound)
+    while live.any():
+        n = np.where(live, np.where(n % 2 == 0, n // 2, 3 * n + 1), n)
+        peak = np.where(live, np.maximum(peak, n), peak)
+        steps = steps + live
+        live = (n > 1) & (steps < bound)
+    return steps, peak
+
+
+def phase_frontend(torch, run6: dict, smi: str) -> None:
+    """The quickstart's decorated and builder handles on the card, the
+    NUTS kernel's executor cache, and the four backends on one program."""
+    import importlib.util
+
+    from repro_torch.core import batching
+    from repro_torch.kernels.stack_ops import ops
+    from repro_torch.testing import build_fib
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    gen = torch.Generator().manual_seed(14)
+
+    # Decorated fib against the builder's, over 65,536 lanes.
+    n = torch.randint(0, 13, (FRONTEND_LANES,), generator=gen, dtype=torch.int32).cuda()
+    dec = qs.fib.with_options(max_depth=16, device="cuda")
+    built = batching.autobatch(build_fib(), max_depth=16, device="cuda")
+    dec(n)  # warm-up: the frontend's trace, the lowering and the VM
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    out, wall = _timed_run(torch, lambda: dec(n))
+    push, peek = ops.masked_push.launches, ops.masked_peek.launches
+    want = built(n)["out"]
+    res, res_b = dec.last_result, built.last_result
+    check(torch.equal(out, want), "decorated fib differs from the builder's fib")
+    check(res.steps == res_b.steps and np.array_equal(res.block_exec, res_b.block_exec),
+          f"decorated fib dispatches {res.steps} != builder's {res_b.steps} (or block_exec)")
+    check(push > 0 and peek > 0, f"decorated fib launched K1/K2 {push}/{peek} times")
+    check(dec.cache_info().traces == 1, f"decorated fib traced {dec.cache_info().traces} times")
+    print(f"frontend: decorated fib, {FRONTEND_LANES} lanes, n in [0, 13), max_depth 16: "
+          f"bit-exact with the builder's fib ({res.steps} dispatches, block_exec equal); "
+          f"wall {wall * 1e3:.1f} ms, {wall / res.steps * 1e3:.3f} ms/dispatch, K1/K2 "
+          f"launches {push}/{peek} on {smi}")
+
+    # Collatz (builder, Shared bound) against numpy.
+    x = torch.randint(1, 100_000, (FRONTEND_LANES,), generator=gen, dtype=torch.int32)
+    col = qs.collatz.with_options(device="cuda")
+    col(x, np.int32(1000))
+    got, wall_c = _timed_run(torch, lambda: col(x, np.int32(1000)))
+    steps, peak = _collatz_numpy(x.numpy(), 1000)
+    check(np.array_equal(got["steps"].cpu().numpy(), steps), "collatz steps differ from numpy")
+    check(np.array_equal(got["peak"].cpu().numpy(), peak), "collatz peaks differ from numpy")
+    print(f"frontend: collatz, {FRONTEND_LANES} lanes, n in [1, 100000), Shared bound 1000: "
+          f"steps and peaks equal to numpy (max {steps.max()} steps); "
+          f"{col.last_result.steps} dispatches, wall {wall_c * 1e3:.1f} ms on {smi}")
+
+    # Phase 6's NUTS (batch_size=1024) again at the same avals: a cache hit.
+    kern, args = run6["kern"], run6["args"]
+    before = kern.cache_info()
+    again, wall_n = _timed_run(torch, lambda: kern(*args))
+    after = kern.cache_info()
+    for k, v in run6["out"].items():
+        check(torch.equal(again[k], v), f"NUTS {k} differs from phase 6's run")
+    check(after.hits == before.hits + 1 and after.misses == before.misses
+          and after.lowerings == 1 and after.entries == 1,
+          f"NUTS cache {before} -> {after}: want one more hit, one lowering, one entry")
+    print(f"frontend: phase 6's NUTS (batch_size={kern.batch_size}) again: bit-identical, "
+          f"cache {after}; wall {wall_n:.3f} s on {smi}")
+
+    # fib(10) on the four backends.
+    results = {}
+    for backend in ("pc", "local", "local_eager", "reference"):
+        lanes = 8 if backend == "reference" else CHAINS
+        fn = batching.autobatch(dec.program, backend=backend, max_depth=16, device="cuda")
+        got, w = _timed_run(torch, lambda: fn(torch.full((lanes,), 10, dtype=torch.int32)))
+        vals = got["out"].cpu()
+        check(bool((vals == 55).all()), f"fib(10) on {backend} gave {vals.unique().tolist()}")
+        results[backend] = f"{lanes} lanes {w * 1e3:.1f} ms"
+    print("frontend: fib(10) = 55 on every backend (first call, incl. set-up): "
+          + "; ".join(f"{b} {r}" for b, r in results.items()) + f" on {smi}")
+    print(f"frontend: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1463,6 +1567,7 @@ def main() -> int:
     phase_segments(torch, run6, launches)
     launches["decode_attention"] = phase_serve(torch)
     phase_pgo(torch, run6, launches, settings, smi)
+    phase_frontend(torch, run6, smi)
 
     kdir = "src/repro_torch/kernels"
     where = {

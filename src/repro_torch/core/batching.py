@@ -1,17 +1,37 @@
 """The public autobatching entry point (the ``vmap``-like surface).
 
-:func:`autobatch` takes an :class:`ir.Program` or a
-:class:`frontend.ProgramBuilder` and returns a callable over positional
-arguments, one per program parameter::
+:func:`autobatch` is a decorator over restricted Python (or a call over a
+builder-built program) returning a callable over **positional pytree
+arguments**::
 
-    fib = autobatch(build_fib(), device="cpu")
-    fib(torch.arange(8, dtype=torch.int32))     # -> {"out": [8] int32}
+    from repro_torch.core.batching import autobatch, Batched, Shared
+    from repro_torch.core.frontend import I32
 
-``Batched(spec)`` arguments carry a leading batch axis, whose length is
-the batch size; ``Shared(spec)`` arguments have none and are broadcast to
-every member.  The result is a
-dict of the program's outputs, or of the names an ``out_spec`` dict maps
-them to.
+    @autobatch(in_specs=(Batched(I32),), out_spec=I32, max_depth=24)
+    def fib(n):
+        if n < 2:
+            return n
+        return fib(n - 1) + fib(n - 2)
+
+    fib(torch.arange(8, dtype=torch.int32))     # -> [8] int32 tensor
+
+It also takes a :class:`frontend.ProgramBuilder`, a
+:class:`frontend.FunctionBuilder`, an :class:`ir.Function` or an
+:class:`ir.Program`, and with no target it returns a decorator with the
+options fixed.  The restricted-Python source goes through
+:mod:`.ast_frontend`; every function registered in one
+:class:`ast_frontend.Namespace` may call the others, whichever frontend
+defined them.
+
+``Batched(spec)`` arguments carry a leading batch axis on every leaf, whose
+length is the batch size (or ``batch_size=``, fixed and validated);
+``Shared(spec)`` arguments have none and are broadcast to every member.
+Specs are pytrees of :class:`ir.Spec` (tensors, arrays and dtypes are
+accepted); an argument's leaves bind to consecutive IR parameters in JAX's
+flatten order (:mod:`.tree`), recorded on the main function as an
+:class:`ir.Interface`.  The result is the ``out_spec`` pytree: a single
+spec gives a bare tensor, name-string leaves pick outputs, and the default
+is a dict keyed by output name.
 
 Backends, as in the JAX package:
 
@@ -39,22 +59,31 @@ Backends, as in the JAX package:
   replayed from a CUDA graph, or op by op;
 * ``"reference"``: the unbatched interpreter, one member at a time.
 
-Executors are cached under ``(backend, device, batch size, input
-specs, trace capacity, profile digest, fault options)``;
+The frontend traces once per function and the pc lowering happens once,
+shared by every batch size; executors are cached under ``(backend, device,
+batch size, input avals, schedule, fuse, verify, compact_every, trace
+capacity, profile digest, fault options)``, and :meth:`AutobatchedFunction.
+cache_info` counts hits, misses, entries, lowerings and traces.
 :meth:`AutobatchedFunction.with_options` makes a clone with other knobs
 that shares the traced program, and the lowering while ``fuse``,
 ``verify``, the device and the profile are the same.  ``tag_stats`` and
 ``utilization`` cover the most recent call on every backend (``{}`` for
-``reference``, which keeps no counters);
-``scheduler_stats`` is the pc VM's :class:`pc_vm.SchedulerStats`.
+``reference``, which keeps no counters); ``scheduler_stats`` is the pc
+VM's :class:`pc_vm.SchedulerStats`.
 
 Everything runs on ``device``: the CUDA card unless the caller passes
-another device (``device="cpu"`` for the tests); with no device given and
-no CUDA present, :func:`autobatch` raises.
+another device (``device="cpu"`` for the tests).  With no device given the
+card is resolved at the first call or lowering, so a module-level
+``@autobatch`` imports on a machine with no card, where the first call
+raises.  The JAX package's ``lower()`` (an
+XLA ahead-of-time handle) is not ported.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 import os
+from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -62,9 +91,11 @@ import torch
 
 from ..device import resolve_device
 from ..obs import blockprof, trace as obs_trace
-from . import analysis, frontend, ir, local_static, lowering, passes, pc_vm, reference
+from . import (analysis, ast_frontend, frontend, ir, local_static, lowering, passes, pc_vm,
+               reference, tree)
 
-__all__ = ["Batched", "Shared", "AutobatchedFunction", "Stepper", "autobatch"]
+__all__ = ["Batched", "Shared", "AutobatchedFunction", "CacheInfo", "Stepper", "autobatch",
+           "DEFAULT_NAMESPACE"]
 
 BACKENDS = ("pc", "local", "local_eager", "reference")
 
@@ -72,14 +103,22 @@ BACKENDS = ("pc", "local", "local_eager", "reference")
 #: input-dependent call depth has no static bound.
 DEFAULT_MAX_DEPTH = 32
 
+#: The default frontend namespace: ``@autobatch`` registrations land here
+#: unless ``registry=`` names another, so decorated functions in one module
+#: can call decorated (or builder-registered) functions in another.
+DEFAULT_NAMESPACE = ast_frontend.Namespace()
+
 
 class Batched:
-    """Per-member argument: the call-time tensor carries a leading batch axis."""
+    """Per-member argument: every call-time leaf carries a leading batch axis."""
 
     shared = False
 
-    def __init__(self, spec: ir.Spec):
+    def __init__(self, spec: Any):
         self.spec = spec
+
+    def __repr__(self) -> str:
+        return f"Batched({self.spec!r})"
 
 
 class Shared:
@@ -87,28 +126,36 @@ class Shared:
 
     shared = True
 
-    def __init__(self, spec: ir.Spec):
+    def __init__(self, spec: Any):
         self.spec = spec
 
+    def __repr__(self) -> str:
+        return f"Shared({self.spec!r})"
 
-def trace(functions: dict[str, ir.Function], main: str) -> ir.Program:
-    """The program rooted at ``main``: the functions reachable through
-    ``Call`` ops, in the JAX package's discovery order (depth first, last
-    callee first), so both packages number the lowered blocks alike."""
-    found: dict[str, ir.Function] = {}
-    worklist = [main]
-    while worklist:
-        name = worklist.pop()
-        if name in found:
-            continue
-        found[name] = functions[name]
-        for blk in found[name].blocks:
-            for op in blk.ops:
-                if isinstance(op, ir.Call) and op.callee not in found:
-                    worklist.append(op.callee)
-    prog = ir.Program(functions=found, main=main)
-    prog.validate()
-    return prog
+
+def _as_dtype(d: Any) -> torch.dtype:
+    if isinstance(d, torch.dtype):
+        return d
+    return torch.from_numpy(np.empty(0, np.dtype(d))).dtype
+
+
+def _as_spec(x: Any) -> ir.Spec:
+    """A spec leaf as an :class:`ir.Spec`: a spec, anything with a shape and
+    a dtype (a tensor, an array), or a dtype (a scalar)."""
+    if isinstance(x, ir.Spec):
+        return x
+    if hasattr(x, "shape") and hasattr(x, "dtype"):
+        return ir.Spec(tuple(x.shape), _as_dtype(x.dtype))
+    return ir.Spec((), _as_dtype(x))
+
+
+def _flatten_spec(entry: Any) -> tuple[list[ir.Spec], tree.TreeDef, bool]:
+    """One ``in_specs`` entry -> (leaf specs, treedef, shared)."""
+    wrap = entry if isinstance(entry, (Batched, Shared)) else Batched(entry)
+    leaves, treedef = tree.tree_flatten(wrap.spec)
+    if not leaves:
+        raise TypeError(f"argument spec {entry!r} has no leaves")
+    return [_as_spec(leaf) for leaf in leaves], treedef, wrap.shared
 
 
 def _raise_if_overflowed(flags: np.ndarray, batch_size: int, max_depth: int,
@@ -146,9 +193,6 @@ def _raise_if_faulted(codes: np.ndarray, batch_size: int) -> None:
             "contain faults per lane instead of aborting the batch.",
             fault_codes=codes,
         )
-
-
-_trace_program = trace  # autobatch's ``trace`` argument shadows the name
 
 
 def _as_profile(pgo: Any) -> Optional[blockprof.BlockProfile]:
@@ -256,7 +300,7 @@ class Stepper:
 
     def __init__(self, fn: "AutobatchedFunction", inputs: dict, z: int):
         self._fn = fn
-        self._ex = fn._executor(inputs, z)
+        self._ex = fn._executor(fn._key(inputs, z), z)
         self._inputs = inputs
         self.batch_size = z
 
@@ -273,7 +317,7 @@ class Stepper:
 
     def init(self, *args) -> dict:
         """A fresh initial state: of the values ``stepper(...)`` was made
-        with, or of new ones (same shapes)."""
+        with, or of new ones (same pytrees and shapes)."""
         inputs = self._bind(args, "init") if args else self._ex.qualify(self._inputs)
         return self.vm.init_state(inputs)
 
@@ -329,23 +373,24 @@ class Stepper:
 
     def inject(self, state: dict, mask, *args) -> dict:
         """Re-initialize the masked lanes with fresh arguments, given with
-        the function's calling convention at full batch width (only the
-        masked rows are read).  Other lanes are untouched."""
+        the function's calling convention (positional pytrees) at full batch
+        width (only the masked rows are read).  Other lanes are untouched."""
         return self.vm.inject(state, mask, self._bind(args, "inject"))
 
     def depth_exceeded(self, state: dict) -> torch.Tensor:
         """``[batch]`` bool: lanes whose stacks overflowed ``max_depth``."""
         return self.vm.lane_depth_exceeded(state)
 
-    def outputs(self, state: dict) -> dict[str, torch.Tensor]:
-        """The outputs of a state, without the fault checks: final rows for
-        halted lanes, whatever in-flight lanes wrote so far."""
-        main = self._ex.main
+    def outputs(self, state: dict) -> Any:
+        """The output pytree of a state, without the fault checks: final
+        rows for halted lanes, whatever in-flight lanes wrote so far."""
+        iface, main = self._fn._iface, self._ex.main
         # read_top slices a packed output (pgo=) out of its group.
-        return {key: self.vm.unpermute(state, self.vm.read_top(state, ir.qualify(main, name)))
-                for key, name in self._fn._out_names.items()}
+        return tree.tree_unflatten(iface.out_treedef, [
+            self.vm.unpermute(state, self.vm.read_top(state, ir.qualify(main, name)))
+            for name in iface.out_leaves])
 
-    def result(self, state: dict) -> dict[str, torch.Tensor]:
+    def result(self, state: dict) -> Any:
         """The outputs with a plain call's fault checks: under
         ``on_fault="raise"`` raise :class:`pc_vm.StackOverflow` or
         :class:`pc_vm.LaneFault`; under ``"quarantine"`` never raise."""
@@ -353,17 +398,40 @@ class Stepper:
         return self.outputs(state)
 
 
+@dataclass(frozen=True)
+class CacheInfo:
+    """:meth:`AutobatchedFunction.cache_info`: calls that found (``hits``)
+    or made (``misses``) an executor, executors made (``entries``), pc
+    lowerings and frontend traces."""
+
+    hits: int
+    misses: int
+    entries: int
+    lowerings: int
+    traces: int
+
+
 class AutobatchedFunction:
-    """A batched callable over positional arguments; made by :func:`autobatch`."""
+    """A batched callable over positional pytree arguments; made by
+    :func:`autobatch`.
+
+    A call flattens each argument against its ``Batched``/``Shared`` spec,
+    broadcasts shared leaves across the batch, runs the backend and
+    unflattens the IR outputs into the declared result pytree.
+    """
 
     def __init__(
         self,
-        program: ir.Program,
-        bindings: tuple[ir.ArgBinding, ...],
-        arg_specs: dict[str, ir.Spec],
-        out_names: dict[str, str],
         *,
+        registry: ast_frontend.Namespace,
+        main: str,
+        program: Optional[ir.Program],
+        iface_args: tuple[ir.ArgBinding, ...],
+        arg_specs: dict[str, ir.Spec],
+        out_treedef: tree.TreeDef,
+        out_leaves: tuple[str, ...],
         backend: str,
+        batch_size: Optional[int],
         max_depth: Optional[int],
         max_steps: int,
         collect_stats: bool,
@@ -376,7 +444,7 @@ class AutobatchedFunction:
         verify: bool = False,
         trace: Any = None,
         pgo: Any = None,
-        device: torch.device,
+        device: Any = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -384,10 +452,10 @@ class AutobatchedFunction:
             raise ValueError(
                 f"schedule must be one of {pc_vm.SCHEDULES}, got {schedule!r}"
             )
-        self.program = program
-        self.main = program.main
+        self.registry = registry
+        self.main = main
         self.backend = backend
-        self.device = device
+        self.batch_size = batch_size
         self.max_depth = max_depth  # None: use the static bound
         self.max_steps = max_steps
         self.collect_stats = collect_stats
@@ -400,31 +468,80 @@ class AutobatchedFunction:
         self.verify = verify
         self.trace = trace
         self.pgo = _as_profile(pgo)
+        self._device_arg = device  # resolved at the first call or lowering
+        self._device: Optional[torch.device] = None
+        self._program = program
+        self._iface = ir.Interface(args=iface_args, out_treedef=out_treedef,
+                                   out_leaves=out_leaves)
+        self._arg_specs = arg_specs
         # Constructor arguments, for with_options() clones.
-        self._init_args = (program, bindings, arg_specs, out_names)
         self._init_kwargs = dict(
-            backend=backend, max_depth=max_depth, max_steps=max_steps,
-            collect_stats=collect_stats, schedule=schedule, fuse=fuse,
-            compact_every=compact_every, on_fault=on_fault,
+            registry=registry, main=main, program=program, iface_args=iface_args,
+            arg_specs=arg_specs, out_treedef=out_treedef, out_leaves=out_leaves,
+            backend=backend, batch_size=batch_size, max_depth=max_depth,
+            max_steps=max_steps, collect_stats=collect_stats, schedule=schedule,
+            fuse=fuse, compact_every=compact_every, on_fault=on_fault,
             detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
             verify=verify, trace=trace, pgo=self.pgo, device=device,
         )
-        self._bindings = bindings
-        self._arg_specs = arg_specs
-        self._out_names = out_names
         self._lowered: Optional[ir.LoweredProgram] = None
         self._depth_report: Optional[analysis.StackDepthReport] = None
+        # Executors by cache key; the keys calls have seen (cache_info).
         self._executors: dict[tuple, Any] = {}
+        self._called: set[tuple] = set()
+        self._hits = self._misses = self._lower_count = self._trace_count = 0
         self._last_executor: Any = None
-        self.__name__ = self.main
+        # What this wrapper re-asserts into the namespace before its (lazy)
+        # first trace, so that it traces its own definition even if another
+        # registration shadowed the name since: the decorator pins
+        # (fn, param_specs, output_specs), the builder paths the
+        # ir.Function objects they registered.
+        self._pinned: Optional[tuple] = None
+        self._pinned_funcs: dict[str, ir.Function] = {}
+        self.__name__ = main
+
+    @property
+    def device(self) -> torch.device:
+        """Where everything runs: resolved at first use (the CUDA card
+        unless ``device=`` named another; no CUDA and no device raises)."""
+        if self._device is None:
+            self._device = resolve_device(self._device_arg)
+        return self._device
+
+    @property
+    def program(self) -> ir.Program:
+        """The Fig-2 IR program (traced once, then cached), its main
+        function carrying this wrapper's :class:`ir.Interface`."""
+        if self._program is None:
+            if self._pinned is not None:
+                fn, param_specs, output_specs = self._pinned
+                if self.registry._pyfns.get(self.main) is not fn:
+                    self.registry.define(param_specs, output_specs)(fn)
+            for fname, func in self._pinned_funcs.items():
+                if self.registry._built.get(fname) is not func:
+                    self.registry.add(func)
+            self._program = self.registry.trace(self.main)
+            self._trace_count += 1
+        main_fn = self._program.functions[self._program.main]
+        if main_fn.iface is not self._iface:
+            # Record this wrapper's calling convention without mutating a
+            # Function that other wrappers (or the caller) may share.
+            self._program = ir.Program(
+                functions={**self._program.functions,
+                           self._program.main: ir.dataclass_replace(main_fn,
+                                                                    iface=self._iface)},
+                main=self._program.main,
+            )
+        return self._program
 
     @property
     def lowered(self) -> ir.LoweredProgram:
-        """The stack-explicit program of the pc backend: fused (unless
-        ``fuse=False``) and dead-code-eliminated, then, with ``pgo=``, put
-        through the profile-guided passes (``passes.pgo_passes``), whose
-        profile must come from this ``fuse`` setting.  ``verify=True``
-        runs the verifier on every pass's output."""
+        """The stack-explicit program of the pc backend (lowered once, for
+        every batch size): fused (unless ``fuse=False``) and
+        dead-code-eliminated, then, with ``pgo=``, put through the
+        profile-guided passes (``passes.pgo_passes``), whose profile must
+        come from this ``fuse`` setting.  ``verify=True`` runs the verifier
+        on every pass's output."""
         if self._lowered is None:
             low = lowering.lower(self.program, self.device, verify=self.verify)
             post = [*(passes.fusion_passes() if self.fuse else []),
@@ -433,6 +550,7 @@ class AutobatchedFunction:
                 post.extend(passes.pgo_passes(self.pgo))
             self._lowered = passes.PassPipeline(
                 post, verify=self.verify, debug=self.verify).run(low)
+            self._lower_count += 1
         return self._lowered
 
     def _pgo_digest(self) -> Optional[str]:
@@ -440,9 +558,10 @@ class AutobatchedFunction:
 
     def with_options(self, **overrides: Any) -> "AutobatchedFunction":
         """A clone with some knobs changed (the :func:`autobatch` keyword
-        names, e.g. ``trace=4096`` or ``schedule="lookahead"``).  It shares
-        the traced program and, while ``fuse``, ``verify``, the device and
-        the profile digest are unchanged, the lowering."""
+        names, e.g. ``trace=4096``, ``schedule="lookahead"`` or
+        ``device="cpu"``).  It shares the traced program and, while
+        ``fuse``, ``verify``, the device and the profile digest are
+        unchanged, the lowering."""
         unknown = set(overrides) - set(self._init_kwargs)
         if unknown:
             raise TypeError(
@@ -450,7 +569,10 @@ class AutobatchedFunction:
                 f"valid names: {sorted(self._init_kwargs)}"
             )
         kw = {**self._init_kwargs, **overrides}
-        clone = AutobatchedFunction(*self._init_args, **kw)
+        clone = AutobatchedFunction(**kw)
+        clone._pinned = self._pinned
+        clone._pinned_funcs = dict(self._pinned_funcs)
+        clone._program = self._program
         if (all(kw[k] == self._init_kwargs[k] for k in ("fuse", "verify", "device"))
                 and clone._pgo_digest() == self._pgo_digest()):
             clone._lowered = self._lowered
@@ -464,6 +586,28 @@ class AutobatchedFunction:
         function (``obs.block_profile(fn.last_trace)``) or a path to a
         saved one.  Bit-exact, with its own executors."""
         return self.with_options(pgo=profile)
+
+    def cache_info(self) -> CacheInfo:
+        """The executor cache's counters: ``hits``/``misses`` count calls
+        against the cache key, ``entries`` the keys calls have made,
+        ``lowerings`` the pc lowerings (at most one, whatever the batch
+        sizes) and ``traces`` the frontend traces."""
+        return CacheInfo(hits=self._hits, misses=self._misses, entries=len(self._called),
+                         lowerings=self._lower_count, traces=self._trace_count)
+
+    def diagnostics(self) -> passes.Diagnostics:
+        """The verifier and static-analysis report over the lowered program
+        (:func:`passes.diagnose`; pc backend only, the others never lower).
+        ``tools/torch_irlint.py`` prints the same report."""
+        if self.backend != "pc":
+            raise ValueError("diagnostics() requires the 'pc' backend")
+        return passes.diagnose(self.lowered)
+
+    def lower(self, *args):
+        """Not ported: the JAX package's ahead-of-time XLA handle."""
+        raise NotImplementedError(
+            "lower() (an ahead-of-time compiled handle) is not ported yet "
+            "(ROADMAP item 4)")
 
     @property
     def depth_report(self) -> analysis.StackDepthReport:
@@ -496,59 +640,87 @@ class AutobatchedFunction:
         )
 
     def _bind(self, args: tuple) -> tuple[dict[str, torch.Tensor], int]:
-        if len(args) != len(self._bindings):
+        iface = self._iface
+        if len(args) != len(iface.args):
             raise TypeError(
-                f"{self.main}() takes {len(self._bindings)} positional "
+                f"{self.main}() takes {len(iface.args)} positional "
                 f"argument(s), got {len(args)}"
             )
-        tensors = []
-        z = None
-        for binding, arg in zip(self._bindings, args):
-            (name,) = binding.params
-            spec = self._arg_specs[name]
-            x = torch.as_tensor(arg).to(device=self.device, dtype=spec.dtype)
+        flat: list[tuple[ir.ArgBinding, list]] = []
+        for i, (binding, arg) in enumerate(zip(iface.args, args)):
+            leaves, treedef = tree.tree_flatten(arg)
+            if treedef != binding.treedef:
+                raise TypeError(
+                    f"{self.main}() argument {i}: pytree structure "
+                    f"{treedef} does not match declared {binding.treedef}"
+                )
+            flat.append((binding, leaves))
+        # The batch size: fixed, or the first batched leaf's leading axis.
+        z = self.batch_size
+        for binding, leaves in flat:
             if binding.shared:
-                if tuple(x.shape) != spec.shape:
+                continue
+            for name, leaf in zip(binding.params, leaves):
+                spec = self._arg_specs[name]
+                shape = tuple(np.shape(leaf))
+                if len(shape) != len(spec.shape) + 1:
                     raise TypeError(
-                        f"{self.main}() shared argument {name!r}: expected "
-                        f"shape {spec.shape}, got {tuple(x.shape)}"
-                    )
-            else:
-                if x.dim() != len(spec.shape) + 1 or tuple(x.shape[1:]) != spec.shape:
-                    raise TypeError(
-                        f"{self.main}() batched argument {name!r}: expected "
-                        f"a leading batch axis over {spec.shape}, got shape "
-                        f"{tuple(x.shape)}"
+                        f"{self.main}() batched leaf {name!r}: expected a "
+                        f"leading batch axis over {spec.shape}, got shape {shape}"
                     )
                 if z is None:
-                    z = int(x.shape[0])
-                elif x.shape[0] != z:
+                    z = int(shape[0])
+                elif shape[0] != z:
                     raise TypeError(
-                        f"{self.main}() batched argument {name!r}: batch "
-                        f"axis {x.shape[0]} != {z}"
+                        f"{self.main}() batched leaf {name!r}: batch axis "
+                        f"{shape[0]} != {z}"
                     )
-            tensors.append((binding, name, x))
         if z is None:
-            raise TypeError(f"{self.main}() has no Batched argument to size the batch")
-        inputs = {}
-        for binding, name, x in tensors:
-            if binding.shared:
-                x = x.expand((z,) + tuple(x.shape))
-            inputs[name] = x
+            raise TypeError(
+                f"{self.main}() has no Batched arguments; pass batch_size= to autobatch()"
+            )
+        inputs: dict[str, torch.Tensor] = {}
+        for binding, leaves in flat:
+            for name, leaf in zip(binding.params, leaves):
+                spec = self._arg_specs[name]
+                x = torch.as_tensor(leaf).to(device=self.device, dtype=spec.dtype)
+                if binding.shared:
+                    if tuple(x.shape) != spec.shape:
+                        raise TypeError(
+                            f"{self.main}() shared argument leaf {name!r}: expected "
+                            f"shape {spec.shape}, got {tuple(x.shape)}"
+                        )
+                    x = x.expand((z,) + spec.shape)
+                elif tuple(x.shape) != (z,) + spec.shape:
+                    raise TypeError(
+                        f"{self.main}() batched leaf {name!r}: expected "
+                        f"shape {(z,) + spec.shape}, got {tuple(x.shape)}"
+                    )
+                inputs[name] = x
         return inputs, z
 
-    def _executor(self, inputs: dict[str, torch.Tensor], z: int):
-        key = (
+    def _key(self, inputs: dict[str, torch.Tensor], z: int) -> tuple:
+        """The executor cache key.  ``_bind`` fixes every leaf's shape and
+        dtype by the batch size, so the avals follow ``z``; they stay in
+        the key, and so do the knobs fixed per wrapper, so that two
+        wrappers with other knobs never share an executor."""
+        return (
             self.backend,
             self.device,
             z,
             tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
+            self.schedule,
+            self.fuse,
+            self.verify,
+            self.compact_every,
             obs_trace.resolve_capacity(self.trace),
             self._pgo_digest(),
             self.on_fault,
             self.detect_nonfinite,
             self.lane_step_budget,
         )
+
+    def _executor(self, key: tuple, z: int):
         ex = self._executors.get(key)
         if ex is not None:
             return ex
@@ -572,12 +744,19 @@ class AutobatchedFunction:
         self._executors[key] = ex
         return ex
 
-    def __call__(self, *args) -> dict[str, torch.Tensor]:
+    def __call__(self, *args) -> Any:
         inputs, z = self._bind(args)
-        ex = self._executor(inputs, z)
+        key = self._key(inputs, z)
+        if key in self._called:
+            self._hits += 1
+        else:
+            self._misses += 1
+            self._called.add(key)
+        ex = self._executor(key, z)
         self._last_executor = ex
         out = ex.run(inputs)
-        return {key: out[name] for key, name in self._out_names.items()}
+        return tree.tree_unflatten(self._iface.out_treedef,
+                                   [out[name] for name in self._iface.out_leaves])
 
     def stepper(self, *args) -> Stepper:
         """A :class:`Stepper` over these arguments (pc backend only); it
@@ -634,12 +813,112 @@ class AutobatchedFunction:
         }
 
 
+# --------------------------------------------------------------------------
+# Interface construction
+# --------------------------------------------------------------------------
+
+
+def _bind_in_specs(
+    name: str,
+    params: tuple[str, ...],
+    in_specs: Sequence,
+    declared: Optional[dict[str, ir.Spec]] = None,
+) -> tuple[tuple[ir.ArgBinding, ...], dict[str, ir.Spec]]:
+    """Map ``in_specs`` entries onto IR parameters in flatten order."""
+    bindings: list[ir.ArgBinding] = []
+    arg_specs: dict[str, ir.Spec] = {}
+    idx = 0
+    for entry in in_specs:
+        leaf_specs, treedef, shared = _flatten_spec(entry)
+        names = params[idx: idx + len(leaf_specs)]
+        if len(names) != len(leaf_specs):
+            raise TypeError(
+                f"{name}: in_specs bind {idx + len(leaf_specs)} leaves but "
+                f"the function has only {len(params)} parameters"
+            )
+        for p, spec in zip(names, leaf_specs):
+            if declared is not None and spec != declared[p]:
+                raise TypeError(
+                    f"{name}: in_specs leaf for parameter {p!r} is {spec} "
+                    f"but the program declares {declared[p]}"
+                )
+            arg_specs[p] = spec
+        bindings.append(ir.ArgBinding(tuple(names), treedef, shared))
+        idx += len(leaf_specs)
+    if idx != len(params):
+        raise TypeError(
+            f"{name}: in_specs cover {idx} of {len(params)} parameters "
+            f"({params[idx:]} unbound)"
+        )
+    return tuple(bindings), arg_specs
+
+
+def _contains_dict(x: Any) -> bool:
+    if isinstance(x, dict):
+        return True
+    if isinstance(x, (list, tuple)):
+        return any(_contains_dict(c) for c in x)
+    return False
+
+
+def _bind_out_spec(
+    name: str,
+    outputs: tuple[str, ...],
+    out_spec: Any,
+    declared: Optional[dict[str, ir.Spec]] = None,
+) -> tuple[tree.TreeDef, tuple[str, ...]]:
+    """The result pytree -> (treedef, IR output name of each leaf)."""
+    if out_spec is None:
+        # Default: a dict keyed by the IR output names.
+        leaves, treedef = tree.tree_flatten({o: o for o in outputs})
+        return treedef, tuple(leaves)
+    leaves, treedef = tree.tree_flatten(out_spec)
+    if all(isinstance(leaf, str) for leaf in leaves):
+        # Name-based restructuring: leaves name IR outputs.
+        for leaf in leaves:
+            if leaf not in outputs:
+                raise TypeError(
+                    f"{name}: out_spec names unknown output {leaf!r} "
+                    f"(have {outputs})"
+                )
+        return treedef, tuple(leaves)
+    # Spec leaves bind positionally to the declared outputs in flatten
+    # order; a dict flattens in sorted-key order, which would silently
+    # permute equal-spec outputs, so it must use name-string leaves.
+    if _contains_dict(out_spec):
+        raise TypeError(
+            f"{name}: out_spec dicts with spec leaves are ambiguous "
+            "(dict flatten order is sorted-key, not declaration order); "
+            "use output-name strings as leaves, e.g. "
+            "out_spec={'mean': 'sum_theta'}"
+        )
+    if len(leaves) != len(outputs):
+        raise TypeError(
+            f"{name}: out_spec has {len(leaves)} leaves for {len(outputs)} outputs"
+        )
+    if declared is not None:
+        for o, leaf in zip(outputs, leaves):
+            spec = _as_spec(leaf)
+            if spec != declared[o]:
+                raise TypeError(
+                    f"{name}: out_spec leaf for output {o!r} is {spec} "
+                    f"but the program declares {declared[o]}"
+                )
+    return treedef, tuple(outputs)
+
+
+# --------------------------------------------------------------------------
+# The decorator / entry point
+# --------------------------------------------------------------------------
+
+
 def autobatch(
-    target: Any,
+    target: Any = None,
     *,
     in_specs: Optional[Sequence] = None,
-    out_spec: Optional[dict[str, str]] = None,
+    out_spec: Any = None,
     backend: str = "pc",
+    batch_size: Optional[int] = None,
     max_depth: Optional[int] = None,
     max_steps: int = 1_000_000,
     collect_stats: bool = True,
@@ -653,22 +932,44 @@ def autobatch(
     trace: Any = None,
     pgo: Any = None,
     mesh: Any = None,
+    registry: Optional[ast_frontend.Namespace] = None,
     device=None,
-) -> AutobatchedFunction:
-    """Autobatch an :class:`ir.Program` or a :class:`frontend.ProgramBuilder`.
+):
+    """Autobatch a restricted-Python function or an IR program.
+
+    Three ways to call it:
+
+    1. as a decorator over restricted Python (``in_specs`` and ``out_spec``
+       required; each parameter a single-leaf spec)::
+
+           @autobatch(in_specs=(Batched(I32),), out_spec=I32)
+           def fib(n): ...
+
+    2. over a :class:`frontend.ProgramBuilder`, a
+       :class:`frontend.FunctionBuilder` / :class:`ir.Function`, or an
+       :class:`ir.Program`: ``in_specs`` defaults to ``Batched`` of each
+       declared parameter spec and ``out_spec`` to a dict keyed by output
+       name (a pytree of output-name strings restructures it; one of specs
+       binds positionally);
+
+    3. with no target, for a decorator with these options.
 
     ``in_specs`` has one ``Batched(spec)`` / ``Shared(spec)`` (or a bare
-    spec, meaning ``Batched``) per parameter of the main function, default
-    ``Batched`` of each declared spec.  ``out_spec`` maps result keys to
-    output names (default: every output under its own name).  The batch
-    size is the leading axis of the batched arguments.  ``backend`` is one
-    of :data:`BACKENDS`.  The pc backend's knobs (the others ignore them;
-    all are bit-exact): ``schedule`` (one of ``pc_vm.SCHEDULES``), ``fuse``
-    (superblock fusion; dead-code elimination runs either way),
-    ``compact_every`` (lane compaction every k loop iterations) and
-    ``collect_stats`` (per-block counters, ``tag_stats`` and
-    ``scheduler_stats``).  Fault containment, pc backend only:
-    ``on_fault`` (one of ``pc_vm.ON_FAULT``), ``detect_nonfinite`` and
+    spec pytree, meaning ``Batched``) per positional argument; its leaves
+    bind to consecutive parameters.  ``batch_size=None`` takes the batch
+    size from the leading axis of the first batched leaf at every call; a
+    fixed ``batch_size`` is validated, and sizes a call with no batched
+    argument.  Functions in one ``registry`` may call each other, whichever
+    frontend defined them; decorated functions default to
+    :data:`DEFAULT_NAMESPACE`, builder programs to a private namespace.
+
+    ``backend`` is one of :data:`BACKENDS`.  The pc backend's knobs (the
+    others ignore them; all are bit-exact): ``schedule`` (one of
+    ``pc_vm.SCHEDULES``), ``fuse`` (superblock fusion; dead-code
+    elimination runs either way), ``compact_every`` (lane compaction every
+    k loop iterations) and ``collect_stats`` (per-block counters,
+    ``tag_stats`` and ``scheduler_stats``).  Fault containment, pc backend
+    only: ``on_fault`` (one of ``pc_vm.ON_FAULT``), ``detect_nonfinite`` and
     ``lane_step_budget`` (see :class:`pc_vm.VMConfig`).  Pipeline and
     observation, pc backend only, all bit-exact: ``verify`` (the lowered-IR
     verifier between every pass), ``trace`` (dispatch tracing into the VM's
@@ -676,52 +977,113 @@ def autobatch(
     :class:`repro_torch.obs.BlockProfile` or a path to one: re-lower
     through the profile-guided passes; see :meth:`AutobatchedFunction.
     optimize`).  ``device`` is where everything runs (default: the CUDA
-    card).  ``mesh`` is not ported and raises when set.
+    card, resolved at the first call or lowering).  ``mesh`` is not ported
+    and raises when set.
     """
+    if target is None:
+        return functools.partial(
+            autobatch, in_specs=in_specs, out_spec=out_spec, backend=backend,
+            batch_size=batch_size, max_depth=max_depth, max_steps=max_steps,
+            collect_stats=collect_stats, schedule=schedule, fuse=fuse,
+            compact_every=compact_every, on_fault=on_fault,
+            detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
+            verify=verify, trace=trace, pgo=pgo, mesh=mesh, registry=registry,
+            device=device,
+        )
     obs_trace.resolve_capacity(trace)  # raises on a bad value
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (lane sharding over devices) is not ported yet (ROADMAP item 14)")
     if on_fault not in pc_vm.ON_FAULT:
         raise ValueError(f"on_fault must be one of {pc_vm.ON_FAULT}, got {on_fault!r}")
-    device = resolve_device(device)
-    if isinstance(target, frontend.ProgramBuilder):
-        program = _trace_program(target.functions, target.main)
-    elif isinstance(target, ir.Program):
-        program = target
+    if registry is not None:
+        ns = registry
+    elif isinstance(target, (frontend.ProgramBuilder, frontend.FunctionBuilder, ir.Function)):
+        # A builder program gets a private namespace: its function names in
+        # the shared one could shadow the callees of decorated functions not
+        # yet traced.  Pass registry= to share one on purpose.
+        ns = ast_frontend.Namespace()
     else:
-        raise TypeError(f"cannot autobatch {target!r}")
-    main_fn = program.functions[program.main]
-    params, outputs = main_fn.params, main_fn.outputs
-    if in_specs is None:
-        in_specs = tuple(Batched(main_fn.param_specs[p]) for p in params)
-    if len(in_specs) != len(params):
-        raise TypeError(
-            f"{program.main}: {len(in_specs)} in_specs for {len(params)} "
-            "parameters"
-        )
-    bindings, arg_specs = [], {}
-    for p, entry in zip(params, in_specs):
-        wrap = entry if isinstance(entry, (Batched, Shared)) else Batched(entry)
-        if wrap.spec != main_fn.param_specs[p]:
-            raise TypeError(
-                f"{program.main}: in_specs entry for parameter {p!r} is "
-                f"{wrap.spec} but the program declares {main_fn.param_specs[p]}"
-            )
-        bindings.append(ir.ArgBinding((p,), wrap.shared))
-        arg_specs[p] = wrap.spec
-    out_names = {o: o for o in outputs} if out_spec is None else dict(out_spec)
-    for name in out_names.values():
-        if name not in outputs:
-            raise TypeError(
-                f"{program.main}: out_spec names unknown output {name!r} "
-                f"(have {outputs})"
-            )
-    return AutobatchedFunction(
-        program, tuple(bindings), arg_specs, out_names,
-        backend=backend, max_depth=max_depth, max_steps=max_steps,
-        collect_stats=collect_stats, schedule=schedule, fuse=fuse,
-        compact_every=compact_every, on_fault=on_fault,
+        ns = DEFAULT_NAMESPACE
+    opts = dict(
+        backend=backend, batch_size=batch_size, max_depth=max_depth,
+        max_steps=max_steps, collect_stats=collect_stats, schedule=schedule,
+        fuse=fuse, compact_every=compact_every, on_fault=on_fault,
         detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
         verify=verify, trace=trace, pgo=pgo, device=device,
     )
+
+    program: Optional[ir.Program] = None
+    pinned_funcs: dict[str, ir.Function] = {}
+    if isinstance(target, frontend.ProgramBuilder):
+        # The builder's functions join the namespace, so they can call (and
+        # be called by) restricted-Python functions.
+        for func in target.functions.values():
+            pinned_funcs[func.name] = ns.add(func)
+        main = target.main
+        main_fn = ns._built[main]
+    elif isinstance(target, (frontend.FunctionBuilder, ir.Function)):
+        main_fn = ns.add(target)
+        main = main_fn.name
+        pinned_funcs[main] = main_fn
+    elif isinstance(target, ir.Program):
+        program = target
+        main = target.main
+        main_fn = target.functions[main]
+    elif callable(target):
+        return _autobatch_python(target, ns, in_specs, out_spec, opts)
+    else:
+        raise TypeError(f"cannot autobatch {target!r}")
+
+    params, outputs = main_fn.params, main_fn.outputs
+    if in_specs is None:
+        in_specs = tuple(Batched(main_fn.param_specs[p]) for p in params)
+    iface_args, arg_specs = _bind_in_specs(main, params, in_specs,
+                                           declared=main_fn.param_specs)
+    out_treedef, out_leaves = _bind_out_spec(main, outputs, out_spec,
+                                             declared=main_fn.output_specs)
+    wrapped = AutobatchedFunction(
+        registry=ns, main=main, program=program, iface_args=iface_args,
+        arg_specs=arg_specs, out_treedef=out_treedef, out_leaves=out_leaves, **opts,
+    )
+    wrapped._pinned_funcs = pinned_funcs
+    return wrapped
+
+
+def _autobatch_python(fn, ns, in_specs, out_spec, opts) -> AutobatchedFunction:
+    name = fn.__name__
+    params = tuple(inspect.signature(fn).parameters)
+    if in_specs is None or out_spec is None:
+        raise TypeError(
+            f"@autobatch over Python function {name!r} requires in_specs= "
+            "and out_spec= (output types of recursive functions cannot be "
+            "inferred)"
+        )
+    iface_args, arg_specs = _bind_in_specs(name, params, in_specs)
+    for binding in iface_args:
+        if len(binding.params) != 1:
+            raise TypeError(
+                f"{name}: restricted-Python parameters must be single-leaf "
+                f"specs (argument binding {binding.params} has "
+                f"{len(binding.params)} leaves); use a FunctionBuilder "
+                "program for multi-leaf pytree arguments"
+            )
+    if _contains_dict(out_spec):
+        raise TypeError(
+            f"{name}: out_spec dicts with spec leaves are ambiguous "
+            "(dict flatten order is sorted-key, not declaration order, so "
+            "returned values would bind to sorted keys); use a tuple "
+            "out_spec and restructure at the call site"
+        )
+    out_leaves, out_treedef = tree.tree_flatten(out_spec)
+    out_leaf_specs = [_as_spec(leaf) for leaf in out_leaves]
+    outputs = ast_frontend._ret_names(len(out_leaf_specs))
+    param_specs = {p: arg_specs[p] for p in params}
+    ns.define(param_specs=param_specs, output_specs=out_leaf_specs)(fn)
+    wrapped = AutobatchedFunction(
+        registry=ns, main=name, program=None, iface_args=iface_args,
+        arg_specs=arg_specs, out_treedef=out_treedef, out_leaves=outputs, **opts,
+    )
+    wrapped._pinned = (fn, param_specs, out_leaf_specs)
+    functools.update_wrapper(wrapped, fn, updated=())
+    return wrapped

@@ -98,15 +98,31 @@ class Block:
 
 @dataclass(frozen=True)
 class ArgBinding:
-    """How one positional argument binds to IR parameters.
+    """How one positional pytree argument binds to IR parameters.
 
-    ``params`` are the IR parameter names the argument's leaves bind to;
-    ``shared`` arguments carry no batch axis at call time and are broadcast
-    across the batch.
+    ``params`` are the IR parameter names consumed by the argument's leaves,
+    in pytree flatten order (:mod:`.tree`, JAX's order); ``treedef`` is the
+    argument's structure.  ``shared`` arguments carry no batch axis at call
+    time; the caller broadcasts them across the batch.
     """
 
     params: tuple[str, ...]
+    treedef: Any
     shared: bool = False
+
+
+@dataclass(frozen=True)
+class Interface:
+    """Pytree calling convention of a function (recorded by the public API).
+
+    ``args`` maps positional pytree arguments onto flat IR parameters;
+    ``out_treedef``/``out_leaves`` describe how the flat IR outputs are
+    reassembled into the result pytree.
+    """
+
+    args: tuple[ArgBinding, ...]
+    out_treedef: Any
+    out_leaves: tuple[str, ...]
 
 
 @dataclass
@@ -117,6 +133,10 @@ class Function:
     (no batch dimension).  Output specs must be declared because recursive
     functions cannot have their output types inferred by a simple forward
     pass; everything else is inferred (see analysis.infer_types).
+
+    ``iface``, when present, records the pytree calling convention the
+    public :mod:`.batching` API uses to flatten positional pytree arguments
+    into ``params`` and unflatten ``outputs`` into a result tree.
     """
 
     name: str
@@ -127,6 +147,8 @@ class Function:
     output_specs: dict[str, Spec] = field(default_factory=dict)
     # Filled by type inference: spec for every local variable.
     var_specs: dict[str, Spec] = field(default_factory=dict)
+    # Optional pytree calling convention (see Interface).
+    iface: Optional[Interface] = None
 
     def validate(self) -> None:
         for i, blk in enumerate(self.blocks):

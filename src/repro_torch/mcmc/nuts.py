@@ -306,6 +306,7 @@ def make_nuts_kernel(
     settings: NutsSettings = NutsSettings(),
     *,
     backend: str = "pc",
+    batch_size: Optional[int] = None,
     max_steps: int = 1_000_000,
     schedule: str = "earliest",
     fuse: bool = True,
@@ -321,8 +322,10 @@ def make_nuts_kernel(
     * ``key`` is per-chain (``Batched``): ``[chains, 2]`` int32 key words,
 
     and ``state`` is ``{"theta", "sum_theta", "sum_sq"}``, each
-    ``[chains, dim]``: final positions and running moments.  ``backend``
-    is one of ``batching.BACKENDS``; ``schedule``, ``fuse`` and
+    ``[chains, dim]``: final positions and running moments.
+    ``batch_size=None`` takes the chain count from ``theta0`` at every
+    call; a fixed one is validated (another count raises ``TypeError``).
+    ``backend`` is one of ``batching.BACKENDS``; ``schedule``, ``fuse`` and
     ``compact_every`` are the pc backend's knobs, all bit-exact, so every
     combination samples identical chains.  ``verify=True`` runs the
     lowered-IR verifier between every pass; ``pgo=`` re-lowers through the
@@ -341,6 +344,7 @@ def make_nuts_kernel(
         in_specs=(Batched(vec), Shared(F32), Batched(KEY)),
         out_spec={"theta": "theta", "sum_theta": "sum_theta", "sum_sq": "sum_sq"},
         backend=backend,
+        batch_size=batch_size,
         max_depth=recommended_max_depth(settings),
         max_steps=max_steps,
         schedule=schedule,

@@ -243,6 +243,7 @@ class GenerationEngine:
             self.program,
             out_spec={"tokens": "out", "lengths": "olens"},
             backend=cfg.backend,
+            batch_size=cfg.lanes,
             max_depth=4,
             max_steps=2_000_000,
             trace=cfg.trace,
@@ -415,6 +416,7 @@ class GenerationEngine:
             self._serve_batched = batching.autobatch(
                 self._build_serve_program(),
                 out_spec={"tokens": "out", "lengths": "olen"},
+                batch_size=self.cfg.lanes,
                 max_depth=4,
                 max_steps=2**31 - 2,  # a server's step count is unbounded
                 trace=self.cfg.trace,

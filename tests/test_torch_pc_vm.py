@@ -147,8 +147,14 @@ def test_shared_argument_and_batch_checks():
 
 
 def test_autobatch_without_device_raises_without_cuda(monkeypatch):
+    """The device is resolved at the first call (so a module-level
+    ``autobatch`` imports without a card); with no CUDA that call raises
+    instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, t_build = PROGRAMS["fib"]
+    fn = t_batching.autobatch(t_build())
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        t_batching.autobatch(t_build())
+        fn(torch.arange(4, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn.lowered
 

@@ -42,6 +42,7 @@ def pgo_one(name: str, fn, args, *, capacity, profile_path, save_profile) -> boo
     """Trace, optimize and compare one program."""
     import torch
 
+    from repro_torch.core import tree
     from repro_torch.obs import block_profile, format_profile
     from repro_torch.obs.blockprof import BlockProfile
 
@@ -78,10 +79,11 @@ def pgo_one(name: str, fn, args, *, capacity, profile_path, save_profile) -> boo
           f"   (layout groups: {groups})")
     print(f"dispatches:     {base.steps:6d} -> {sched.steps:6d}")
     print(f"masked updates: {base.masked_updates:6d} -> {sched.masked_updates:6d}")
-    for key in base_out:
-        if not torch.equal(base_out[key], opt_out[key]):
-            print(f"FAILED: optimized output {key!r} differs from the first run")
-            return False
+    base_leaves, base_def = tree.tree_flatten(base_out)
+    opt_leaves, opt_def = tree.tree_flatten(opt_out)
+    if opt_def != base_def or not all(map(torch.equal, base_leaves, opt_leaves)):
+        print("FAILED: optimized outputs differ from the first run")
+        return False
     print("outputs: bit-exact with the first run")
     if sched.steps >= base.steps:
         print(f"FAILED: dispatch count did not drop ({base.steps} -> {sched.steps})")
@@ -107,7 +109,8 @@ def main(argv=None) -> int:
     ap.add_argument("--save-profile", default=None, metavar="PATH",
                     help="save the block profile JSON here")
     ap.add_argument("--device", default=None,
-                    help="torch device of --nuts (default: the CUDA card; 'cpu' for a CPU run)")
+                    help="torch device of every run (default: the CUDA card; 'cpu' for a "
+                         "CPU run)")
     args = ap.parse_args(argv)
     if not args.specs and not args.nuts:
         ap.error("nothing to optimize: pass SPECs and/or --nuts")
@@ -118,7 +121,7 @@ def main(argv=None) -> int:
         fn, fn_args = _nuts_run(args.batch, resolve_device(args.device))
         runs.append((f"nuts (built-in, batch={args.batch})", fn, fn_args))
     for spec in args.specs:
-        fn, fn_args = _as_run(_load_attr(spec, "torch_pgo"), "torch_pgo")
+        fn, fn_args = _as_run(_load_attr(spec, "torch_pgo"), "torch_pgo", args.device)
         runs.append((spec, fn, fn_args))
 
     ok = True

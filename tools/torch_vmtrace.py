@@ -9,8 +9,8 @@ The counterpart of ``tools/vmtrace.py`` for ``repro_torch``, on the CUDA
 card unless ``--device`` names another.  Each SPEC is ``module:attr`` or
 ``path/to/file.py:attr``, where ``attr`` resolves to a zero-argument
 callable returning ``(fn, args)`` — a ``repro_torch`` ``AutobatchedFunction``
-and the positional arguments to call it with (built for the device you
-name).  ``--nuts`` runs the built-in NUTS kernel (isotropic Gaussian in
+and the positional arguments to call it with; ``--device`` moves the
+function there (``fn.with_options(device=...)``).  ``--nuts`` runs the built-in NUTS kernel (isotropic Gaussian in
 2-D, ``max_tree_depth=3``) at ``--batch`` chains.
 
 For every program it
@@ -62,15 +62,17 @@ def _load_attr(spec: str, prog: str = "torch_vmtrace"):
         raise SystemExit(f"{prog}: {mod_name} has no attribute {attr!r}")
 
 
-def _as_run(obj, prog: str = "torch_vmtrace"):
-    """A spec'd object as ``(AutobatchedFunction, args)``."""
+def _as_run(obj, prog: str = "torch_vmtrace", device=None):
+    """A spec'd object as ``(AutobatchedFunction, args)``; with ``device``
+    the function is moved there (``with_options(device=...)``)."""
     from repro_torch.core import batching
 
     if callable(obj) and not isinstance(obj, batching.AutobatchedFunction):
         obj = obj()
     if (isinstance(obj, tuple) and len(obj) == 2
             and isinstance(obj[0], batching.AutobatchedFunction)):
-        return obj
+        fn, fn_args = obj
+        return (fn if device is None else fn.with_options(device=device)), fn_args
     raise SystemExit(
         f"{prog}: cannot run {type(obj).__name__} (want a zero-arg callable "
         "returning (AutobatchedFunction, args))"
@@ -132,7 +134,8 @@ def main(argv=None) -> int:
     ap.add_argument("--blockprof", default=None, metavar="PATH",
                     help="write the block profile JSON here")
     ap.add_argument("--device", default=None,
-                    help="torch device of --nuts (default: the CUDA card; 'cpu' for a CPU run)")
+                    help="torch device of every run (default: the CUDA card; 'cpu' for a "
+                         "CPU run)")
     args = ap.parse_args(argv)
     if not args.specs and not args.nuts:
         ap.error("nothing to trace: pass SPECs and/or --nuts")
@@ -143,7 +146,7 @@ def main(argv=None) -> int:
         fn, fn_args = _nuts_run(args.batch, resolve_device(args.device))
         runs.append((f"nuts (built-in, batch={args.batch})", fn, fn_args))
     for spec in args.specs:
-        fn, fn_args = _as_run(_load_attr(spec))
+        fn, fn_args = _as_run(_load_attr(spec), device=args.device)
         runs.append((spec, fn, fn_args))
 
     ok = True
