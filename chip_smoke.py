@@ -108,7 +108,22 @@ non-zero (nothing is caught):
     65,536 lanes with a ``Shared`` bound against a numpy loop; phase 6's
     NUTS kernel (built with ``batch_size=1024``) called again at the same
     avals: bit-identical to phase 6, one cache hit and still one lowering;
-    ``fib(10)`` on the four backends (1024 lanes, 8 for ``reference``).
+    ``fib(10)`` on the four backends (1024 lanes, 8 for ``reference``);
+15. training: SmolLM-135M at full width (bf16 compute, f32 masters, AdamW)
+    through ``launch.train.build_trainer`` at 2,048 x 8 tokens (cut from
+    ``train_4k``'s 4,096 x 256), 2 microbatches, ``remat="dots"``: 40
+    steps of ``ResilientLoop`` on the deterministic stream (checkpoints
+    every 10 steps) with a failure injected at step 25, which restores step
+    20 and replays, the replayed steps' losses bit-exact with their first
+    pass (deterministic algorithms on); finite loss that falls by at least
+    0.5, masters still float32, no K1-K4 launch; ms a step, tokens/s, the
+    device busy share, peak memory and the step's FLOPs against the bf16
+    peak; ms a step and peak memory of ``remat`` none, full and dots at one
+    microbatch (4 x 2,048); the newest checkpoint restored onto the CPU,
+    byte for byte; and a crash-resume of open-loop serving (bf16, 4 lanes,
+    6 requests, a crash at the fifth completion after a snapshot that
+    holds done requests) whose resume serves only the rest, with tokens
+    equal to an uninterrupted run's.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -117,6 +132,8 @@ the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1544,7 +1561,260 @@ def phase_frontend(torch, run6: dict, smi: str) -> None:
     print(f"frontend: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 15. training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 2048, 8, 2  # cut from train_4k's 4,096 x 256
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 40, 10, 25
+TRAIN_TIMED = 5  # steps in the timed window
+
+
+def _train_flops(cfg, seq: int, batch: int) -> float:
+    """The FLOPs one training step must do: forward and backward (3 x the
+    forward) of every weight product and of causal attention (half the
+    score matrix), at 2 FLOPs a multiply-add; no recompute counted."""
+    dh = cfg.resolved_head_dim
+    d, h, hk = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    per_layer = d * h * dh + 2 * d * hk * dh + h * dh * d + 3 * d * cfg.d_ff
+    weights = cfg.num_layers * per_layer + d * cfg.vocab_size  # tied unembedding
+    attn = cfg.num_layers * 2 * seq * seq * h * dh  # QK^T and PV, causal half
+    return 3 * (2 * weights * seq * batch + attn * batch)
+
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.stack_ops import ops as sk_ops
+
+    return {"masked_push": sk_ops.masked_push.launches, "masked_peek": sk_ops.masked_peek.launches,
+            "flash_attention": fa_ops.flash_attention.launches,
+            "decode_attention": fd_ops.decode_attention.launches}
+
+
+def _reset_kernel_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.stack_ops import ops as sk_ops
+
+    sk_ops.masked_push.launches = sk_ops.masked_peek.launches = 0
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.sm90_launches = 0
+    fd_ops.decode_attention.launches = 0
+
+
+def _train_serve_resume(torch, params, ckpt_root: Path, smi: str) -> None:
+    """Crash-resume of open-loop serving at full width (bf16, pc backend):
+    one engine serves the requests uninterrupted, then again with a crash
+    of the host loop at the next-to-last completion, then resumes.  Six
+    requests on four lanes: the fifth is admitted only after a completion,
+    so the newest snapshot before the crash holds done requests, which the
+    resume must not serve again."""
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine as E
+
+    cfg = configs.get_config(ARCH)
+    d = ckpt_root / "serve"
+    eng = E.GenerationEngine(get_model(cfg, device="cuda"), params, E.EngineConfig(
+        lanes=4, max_context=32, max_prompt_len=8, max_new_tokens=8, requests_per_lane=1,
+        eos_id=0, segment_steps=8, checkpoint_dir=str(d), checkpoint_every_segments=1))
+    reqs = _requests(E, 6, 2, 8, cfg.vocab_size, seed=15)
+    t0 = time.perf_counter()
+    clean, _ = eng.serve(reqs)
+    ref = {c.rid: c.tokens for c in clean}
+    shutil.rmtree(d)
+
+    class Crash(Exception):
+        pass
+
+    seen = []
+
+    def boom(c):
+        seen.append(c)
+        if len(seen) == len(reqs) - 1:
+            raise Crash
+
+    try:
+        eng.serve(reqs, on_finish=boom)
+        check(False, "serve crash-resume: the injected crash did not happen")
+    except Crash:
+        pass
+    snap = E.Checkpointer(str(d))
+    extra = snap.manifest(snap.latest_step())["extra"]
+    done = set(extra["done_rids"])
+    comps, stats = eng.serve(reqs, resume=True)
+    again, stats2 = eng.serve(reqs, resume=True)
+    check({c.rid for c in seen} | {c.rid for c in comps} == {r.rid for r in reqs},
+          "serve crash-resume: a request was lost")
+    check(done and len(comps) < len(reqs) and not done & {c.rid for c in comps},
+          f"serve crash-resume: the snapshot held done {sorted(done)}, the resume served "
+          f"{sorted(c.rid for c in comps)}")
+    check(all(c.status == "ok" and np.array_equal(c.tokens, ref[c.rid]) for c in comps + seen),
+          "serve crash-resume: tokens differ from the uninterrupted run")
+    check(again == [] and stats2.completions == 0, "serve: a resume after completion served")
+    print(f"train: serve crash-resume, {ARCH} full width bf16, 4 lanes, 6 requests, a crash "
+          f"at completion {len(seen)}: the newest snapshot held {len(done)} done and "
+          f"{len(extra['active'])} in flight; {len(comps)} served after the resume, none of "
+          f"them done before "
+          f"(snapshots every segment, {stats.checkpoints} in the resumed run), every token equal to the "
+          f"uninterrupted run; a resume after completion served none "
+          f"({time.perf_counter() - t0:.1f} s) on {smi}")
+
+
+def phase_train(torch, smi: str) -> None:
+    """Full-width SmolLM-135M training through the launcher and the
+    restart loop, with an injected failure; remat policies; a card ->
+    CPU checkpoint; crash-resume of serving."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    ckpt_root = ROOT / "build" / "phase15_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    model, params, opt_state, step, stream = build_trainer(
+        ARCH, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS, lr=1e-3,
+        microbatches=TRAIN_MICRO, remat="dots", smoke=False, device="cuda")
+    cfg = model.cfg
+    n_params = sum(x.numel() for x in tree_flatten(params)[0])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    print(f"train: {ARCH} full width ({n_params / 1e6:.2f}M params, {cfg.num_layers} layers, "
+          f"d={cfg.d_model}, {cfg.compute_dtype} compute, f32 masters), {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens a step (cut from train_4k's 256 x 4096), {TRAIN_MICRO} "
+          f"microbatches, remat dots, AdamW lr 1e-3")
+
+    def step_fn(state, i):
+        p, o = state
+        p, o, metrics = step(p, o, stream.batch(i))
+        return (p, o), metrics
+
+    # The main path: one run of the restart loop with a failure injected
+    # after a checkpoint.  Deterministic algorithms are on, so the replayed
+    # steps must equal their first pass bit for bit (CUDA's embedding and
+    # gather backward otherwise accumulate with atomics).
+    fails = {TRAIN_FAIL_AT}
+
+    def failure_hook(i):
+        if i in fails:
+            fails.remove(i)
+            raise RuntimeError("simulated node failure")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        _reset_kernel_launches()
+        t0 = time.perf_counter()
+        state, rep = ft.ResilientLoop(
+            step_fn, ckpt_lib.Checkpointer(str(ckpt_root), keep=2),
+            save_every=TRAIN_SAVE_EVERY).run((params, opt_state), TRAIN_STEPS,
+                                             failure_hook=failure_hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = _kernel_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    restart_at = TRAIN_FAIL_AT // TRAIN_SAVE_EVERY * TRAIN_SAVE_EVERY
+    replayed = TRAIN_FAIL_AT - restart_at
+    first_pass, after = rep.losses[:TRAIN_FAIL_AT], rep.losses[TRAIN_FAIL_AT:]
+    losses = first_pass[:restart_at] + after  # one loss a step, 0 .. TRAIN_STEPS - 1
+    check(rep.restarts == 1 and rep.final_step == TRAIN_STEPS
+          and len(losses) == TRAIN_STEPS, f"train: restarts {rep.restarts}, final step "
+          f"{rep.final_step}, {len(rep.losses)} losses")
+    check(all(np.isfinite(rep.losses)), f"train: losses not all finite: {rep.losses}")
+    check(after[:replayed] == first_pass[restart_at:],
+          f"train: the replayed steps' losses {after[:replayed]} differ from their first "
+          f"pass {first_pass[restart_at:]}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first - 0.5, f"train: loss did not fall by 0.5: first five {first:.4f}, "
+          f"last five {last:.4f}")
+    check(all(x.dtype == torch.float32 for x in tree_flatten(state[0])[0]),
+          "train: the masters are no longer float32")
+    check(all(v == 0 for v in launched.values()), f"train: kernels launched {launched}")
+    print(f"train: {TRAIN_STEPS} steps through ResilientLoop with a failure injected at step "
+          f"{TRAIN_FAIL_AT}: restored step {restart_at}, replayed {replayed} steps with losses "
+          f"bit-exact with their first pass (deterministic algorithms on), final step "
+          f"{rep.final_step}, {rep.restarts} restart; {len(rep.losses)} steps in {wall:.2f} s "
+          f"(data and checkpoints every {TRAIN_SAVE_EVERY} steps included); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {first:.4f}, last five "
+          f"{last:.4f}), all finite, masters float32, K1-K4 launches {launched}")
+    print("train: losses " + json.dumps([round(x, 4) for x in losses]))
+
+    # The card -> CPU checkpoint: the newest snapshot onto the CPU, bytes equal.
+    ck = ckpt_lib.Checkpointer(str(ckpt_root))
+    latest = ck.latest_step()
+    check(latest == TRAIN_STEPS, f"train: newest checkpoint {latest}, want {TRAIN_STEPS}")
+    t0 = time.perf_counter()
+    on_cpu = ck.restore(latest, like=ft.reshard(state, "cpu"))
+    t_restore = time.perf_counter() - t0
+    check(all(b.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+              for a, b in zip(tree_flatten(state)[0], tree_flatten(on_cpu)[0])),
+          "train: the checkpoint restored on the CPU differs from the card's state")
+    nbytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[0])
+    print(f"train: checkpoint of step {latest} ({nbytes / 1e9:.3f} GB, params and AdamW "
+          f"state) written from the card, restored onto the CPU in {t_restore:.2f} s: "
+          f"identical bytes")
+    del on_cpu
+
+    # ms a step, tokens/s, busy share and peak memory (deterministic off;
+    # the loop above warmed the step up).
+    p, o = state
+    batches = [stream.batch(i) for i in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches:
+        p, o, m = step(p, o, b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms, kernels, wall = _busy(torch, lambda: step(p, o, batches[0]))
+    flops = _train_flops(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    check(bool(torch.isfinite(m["loss"])), "train: a timed step's loss is not finite")
+    print(f"train: {ms:.3f} ms a step ({len(batches)} steps, batches made before), "
+          f"{tokens / ms * 1e3:.1f} tokens/s; profiled step: device busy {dev_ms:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall ({dev_ms / 1e3 / wall:.4f} busy share), {kernels} kernels; "
+          f"peak memory {peak / 1e9:.3f} GB ({(peak - base_mem) / 1e9:.3f} GB above the "
+          f"phase's start); {flops / 1e12:.3f} TFLOP a step (forward and backward, causal "
+          f"attention) -> bound {bound_ms:.3f} ms at the bf16 peak, {bound_ms / ms:.4f} of "
+          f"it reached, on {smi}")
+
+    # remat policies at one microbatch (4 x 2048).
+    half = {k: v[: TRAIN_BATCH // TRAIN_MICRO] for k, v in batches[0].items()}
+    rows = []
+    for mode in ("none", "full", "dots"):
+        fn = ts.make_train_step(model, ts.TrainConfig(microbatches=1, remat=mode,
+                                                      opt=ts.opt.OptimizerConfig()))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(p, o, half)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            _, _, mm = fn(p, o, half)
+        torch.cuda.synchronize()
+        rows.append(f"{mode} {(time.perf_counter() - t0) / 2 * 1e3:.3f} ms, peak "
+                    f"{(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB above "
+                    f"{before / 1e9:.3f} GB")
+        check(bool(torch.isfinite(mm["loss"])), f"train: remat {mode} loss not finite")
+    print(f"train: remat at one microbatch ({TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}), "
+          f"ms a step and peak memory: " + "; ".join(rows) + f" on {smi}")
+    del p, o, state, batches, half
+
+    _train_serve_resume(torch, params, ckpt_root, smi)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    print(f"train: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
+    # cuBLAS picks its workspace when it makes a handle, so the setting
+    # that phase 15's deterministic mode asks for comes before any CUDA work.
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
 
     if not torch.cuda.is_available():
@@ -1568,6 +1838,7 @@ def main() -> int:
     launches["decode_attention"] = phase_serve(torch)
     phase_pgo(torch, run6, launches, settings, smi)
     phase_frontend(torch, run6, smi)
+    phase_train(torch, smi)
 
     kdir = "src/repro_torch/kernels"
     where = {

@@ -18,7 +18,8 @@ from __future__ import annotations
 import collections
 from typing import Any, Iterable
 
-__all__ = ["TreeDef", "tree_flatten", "tree_unflatten"]
+__all__ = ["TreeDef", "tree_flatten", "tree_flatten_with_path", "tree_map",
+           "tree_unflatten"]
 
 _LEAF = "*"
 
@@ -73,20 +74,30 @@ def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
-def _flatten(x: Any, leaves: list) -> TreeDef:
+def _flatten(x: Any, leaves: list, path: tuple | None = None,
+             paths: list | None = None) -> TreeDef:
+    # With ``paths`` given, each leaf's path (its keys from the root, as
+    # JAX prints them) is appended to it beside the leaf.
     if x is None:
         return TreeDef(None)
     t = type(x)
     if t is tuple or t is list or _is_namedtuple(x):
-        return TreeDef(t, (), tuple(_flatten(c, leaves) for c in x))
-    if t is dict:
-        keys = tuple(sorted(x))
-        return TreeDef(dict, keys, tuple(_flatten(x[k], leaves) for k in keys))
-    if t is collections.OrderedDict:
-        keys = tuple(x)
-        return TreeDef(t, keys, tuple(_flatten(x[k], leaves) for k in keys))
+        names = ([f".{n}" for n in t._fields] if _is_namedtuple(x)
+                 else [f"[{i}]" for i in range(len(x))])
+        return TreeDef(t, (), tuple(_flatten(c, leaves, _sub(path, n), paths)
+                                    for c, n in zip(x, names)))
+    if t is dict or t is collections.OrderedDict:
+        keys = tuple(sorted(x)) if t is dict else tuple(x)
+        return TreeDef(t, keys, tuple(_flatten(x[k], leaves, _sub(path, str(k)), paths)
+                                      for k in keys))
     leaves.append(x)
+    if paths is not None:
+        paths.append(path)
     return TreeDef(_LEAF)
+
+
+def _sub(path: tuple | None, key: str) -> tuple | None:
+    return None if path is None else path + (key,)
 
 
 def tree_flatten(x: Any) -> tuple[list, TreeDef]:
@@ -118,3 +129,26 @@ def tree_unflatten(treedef: TreeDef, leaves: Iterable) -> Any:
             f"got {len(leaves)}"
         )
     return _build(treedef, iter(leaves))
+
+
+def tree_flatten_with_path(x: Any) -> tuple[list[tuple[tuple, Any]], TreeDef]:
+    """``([(path, leaf), ...], treedef)`` in flatten order; a path is a
+    tuple of strings as JAX prints its keys: a dict key, ``[i]`` for a
+    list or tuple index, ``.name`` for a namedtuple field."""
+    leaves: list = []
+    paths: list = []
+    treedef = _flatten(x, leaves, (), paths)
+    return list(zip(paths, leaves)), treedef
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``, which must have its structure), rebuilt in its structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = []
+    for r in rest:
+        r_leaves, r_def = tree_flatten(r)
+        if r_def != treedef:
+            raise ValueError(f"tree_map: structures differ: {treedef} and {r_def}")
+        others.append(r_leaves)
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])

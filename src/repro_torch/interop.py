@@ -5,7 +5,9 @@ bit-identically from the same numpy seed by ``mcmc.targets``) and the
 chains' initial state.  These helpers turn the JAX package's NUTS
 arguments, taken as numpy, into the port's, and keys back again.  Keys are
 ``uint32`` word pairs in JAX and the same bits viewed as ``int32`` here.
-The LM's weights cross with :func:`lm_params_from_numpy`.
+The LM's weights cross with :func:`lm_params_from_numpy`, AdamW's state
+with :func:`opt_state_from_numpy`, and either comes back with
+:func:`to_numpy`.
 """
 from __future__ import annotations
 
@@ -39,28 +41,58 @@ def nuts_inputs_from_numpy(theta0, eps, keys, device):
     )
 
 
-def lm_params_from_numpy(params_np, cfg, device) -> dict:
-    """The JAX package's LM parameter pytree as numpy
-    (``jax.tree.map(np.asarray, Model(cfg).init(key))``, layers stacked on
-    a leading ``[L]`` axis) -> the port's params dict for ``cfg`` on
-    ``device``.  The tree structure, shapes and dtypes must be the ones the
-    port's ``Model.init`` makes; anything else raises."""
+def _params_like(cfg) -> dict:
+    """The port's parameter tree for ``cfg`` on the ``meta`` device."""
     from .models.transformer import Model
 
-    want = Model(cfg, device="meta").init(torch.Generator())
-    got = pytree.tree_map(lambda a: torch.from_numpy(np.array(a)), params_np)
+    return Model(cfg, device="meta").init(torch.Generator())
+
+
+def _tree_from_numpy(tree_np, want, device):
+    """``tree_np`` (numpy leaves) as tensors on ``device``, after checking
+    that its paths, shapes and dtypes are those of ``want``."""
+    got = pytree.tree_map(lambda a: torch.from_numpy(np.array(a)), tree_np)
     want_paths = {pytree.keystr(p): t for p, t in pytree.tree_flatten_with_path(want)[0]}
     got_paths = {pytree.keystr(p): t for p, t in pytree.tree_flatten_with_path(got)[0]}
     if want_paths.keys() != got_paths.keys():
         raise ValueError(
-            f"parameter trees differ: missing {sorted(want_paths.keys() - got_paths.keys())}, "
+            f"trees differ: missing {sorted(want_paths.keys() - got_paths.keys())}, "
             f"unexpected {sorted(got_paths.keys() - want_paths.keys())}"
         )
     for name, w in want_paths.items():
         g = got_paths[name]
         if g.shape != w.shape or g.dtype != w.dtype:
             raise ValueError(
-                f"parameter {name}: got {g.dtype} {tuple(g.shape)}, the port "
+                f"leaf {name}: got {g.dtype} {tuple(g.shape)}, the port "
                 f"expects {w.dtype} {tuple(w.shape)}"
             )
     return pytree.tree_map(lambda t: t.to(device), got)
+
+
+def lm_params_from_numpy(params_np, cfg, device) -> dict:
+    """The JAX package's LM parameter pytree as numpy
+    (``jax.tree.map(np.asarray, Model(cfg).init(key))``, layers stacked on
+    a leading ``[L]`` axis) -> the port's params dict for ``cfg`` on
+    ``device``.  The tree structure, shapes and dtypes must be the ones the
+    port's ``Model.init`` makes; anything else raises."""
+    return _tree_from_numpy(params_np, _params_like(cfg), device)
+
+
+def opt_state_from_numpy(state_np, cfg, device) -> dict:
+    """The JAX package's AdamW state for ``cfg``'s parameters as numpy
+    (``step`` int32, ``mu`` and ``nu`` float32 trees of the parameters'
+    shapes, ``error`` too with gradient compression) -> the port's, on
+    ``device``; anything else raises."""
+    params = _params_like(cfg)
+    f32 = pytree.tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
+                          params)
+    want = {"step": torch.empty((), dtype=torch.int32, device="meta"), "mu": f32, "nu": f32}
+    if "error" in state_np:
+        want["error"] = f32
+    return _tree_from_numpy(state_np, want, device)
+
+
+def to_numpy(tree):
+    """Every tensor leaf of ``tree`` (params or optimizer state) as a host
+    numpy array, for the JAX package's side of a parity test."""
+    return pytree.tree_map(lambda t: t.detach().cpu().numpy(), tree)

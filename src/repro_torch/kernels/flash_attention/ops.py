@@ -59,6 +59,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: [B, S, H, Dh]; k, v: [B, T, Hkv, Dh] -> [B, S, H, Dh] in q's dtype."""
     _check(q, k, v, causal)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention (K3) has no backward pass, as the reference's Pallas "
+            "kernel has none: differentiate the model with use_flash=False")
     if fake.is_fake(q, k, v):
         return torch.empty_like(q)
     if q.device.type == "cpu":

@@ -9,6 +9,9 @@ rule, not a fallback.  A tensor on the CPU runs the plain version in
 :mod:`.ref`; any other
 tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version.
+The kernel has no backward: on the card a call under autograd raises
+rather than drop the gradient (on the CPU the plain version
+differentiates, as the reference's plain-XLA decode attention does).
 The cache is read where it lies, through its strides: the serving VM hands
 over views whose batch axis is not the outermost, and no copy is made.
 The kernel loads 16 bytes at a time, so a pointer or stride that is not a
@@ -59,6 +62,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, count)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "decode_attention (K4) has no backward pass on the card: run decode "
+            "steps under torch.no_grad() or on the CPU to differentiate them")
     if q.dtype not in kernel.DTYPES:
         raise TypeError(f"the CUDA kernel takes {list(kernel.DTYPES)}, got {q.dtype}")
     if q.shape[-1] not in kernel.HEAD_DIMS:

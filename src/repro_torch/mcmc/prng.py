@@ -8,11 +8,15 @@ default of JAX 0.9) and its float transforms — so equal keys give equal
 draws in both packages:
 
 * ``split(key, n)[i] = threefry(key, (0, i))`` as a word pair;
+* ``fold_in(key, d) = threefry(key, (0, d))`` for 32-bit data ``d``;
 * ``random_bits(key, shape)[i] = w0 ^ w1`` of ``threefry(key, (0, i))``
   over the flat index ``i``;
 * ``uniform``: the top 23 bits as the mantissa of a float in ``[1, 2)``,
   minus one, scaled, then ``max(minval, .)``;
 * ``bernoulli``: ``uniform < p``;
+* ``randint``: higher and lower 32-bit words from the two halves of a
+  split, folded into ``[minval, maxval)`` with JAX's span multiplier in
+  unsigned 32-bit arithmetic;
 * ``normal``: ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``, with
   XLA's float32 ``erfinv`` polynomial (``ErfInv32``) written as tensor ops.
 
@@ -77,6 +81,15 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return _as_i32(torch.stack([b1, b2], dim=-1))
 
 
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """A new key from ``key`` and 32-bit ``data`` (``jax.random.fold_in``);
+    ``data`` is an int or a scalar integer tensor, taken modulo 2**32."""
+    k = _u32(key)
+    d = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
+    b1, b2 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
+    return _as_i32(torch.stack([b1, b2]))
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """32 random bits per element as unsigned values in int64."""
     b1, b2 = _hash_iota(key, shape)
@@ -97,6 +110,29 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
 def bernoulli(key: torch.Tensor, p: float = 0.5) -> torch.Tensor:
     """A bool draw with probability ``p`` (``jax.random.bernoulli``)."""
     return uniform(key) < p
+
+
+def _mul_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b mod 2**32`` for unsigned 32-bit values held in int64, in
+    16-bit halves so that no product leaves int64."""
+    return ((a & 0xFFFF) * b + (((a >> 16) * b) & 0xFFFF) * 65536) & _M32
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int
+            ) -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)`` (``jax.random.randint`` with
+    ``dtype=int32``, its modulo bias included); ``minval >= maxval`` gives
+    ``minval``.  Bounds outside int32 raise, as JAX's do."""
+    lo, hi = int(minval), int(maxval)
+    if not (-2**31 <= lo < 2**31 and -2**31 <= hi < 2**31):
+        raise OverflowError(f"randint bounds [{lo}, {hi}) leave the int32 range")
+    span = hi - lo if hi > lo else 1
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    # JAX's multiplier, squared in uint32: it wraps to 0 once span > 2**16.
+    mult = ((2**16 % span) ** 2 & _M32) % span
+    offset = (_mul_u32(higher % span, torch.full_like(higher, mult)) + lower % span) & _M32
+    return _as_i32((offset % span + lo) & _M32)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

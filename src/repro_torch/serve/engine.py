@@ -39,11 +39,12 @@ else ``prng.categorical``.
 
 ``EngineConfig.trace`` records every dispatch of the pc VM into its ring
 (``pc_vm.VMConfig.trace``), for ``generate`` and ``serve`` alike; recording
-never changes what is served.
+never changes what is served.  With ``EngineConfig.checkpoint_dir`` the
+open-loop loop snapshots its state through ``train.checkpoint`` and
+``serve(resume=True)`` continues after a crash of the host loop.
 
-Not ported yet: crash-resume (``checkpoint_dir``, ``serve(resume=True)``;
-ROADMAP item 13) and lane sharding (``mesh``, item 14); each raises when
-asked for.
+Not ported yet: lane sharding (``mesh``, ROADMAP item 14), which raises
+when asked for.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ from ..core.frontend import spec
 from ..mcmc import prng
 from ..models.transformer import Model
 from ..obs.metrics import MetricsRegistry
+from ..train.checkpoint import Checkpointer
 from ..train.fault_tolerance import StragglerPolicy
 
 KEY = spec((2,), torch.int32)  # threefry key words (uint32 bits in JAX)
@@ -106,8 +108,12 @@ class EngineConfig:
     # retry_backoff_s * 2**(attempt-1) until max_attempts.
     max_attempts: int = 1
     retry_backoff_s: float = 0.05
-    # Crash-resume snapshots: not ported (ROADMAP item 13); must stay None.
+    # Host-loop crash-resume: snapshot the live VM segment state (and the
+    # host's bookkeeping) through train.Checkpointer every
+    # checkpoint_every_segments segments; serve(resume=True) restores the
+    # newest valid snapshot and continues.  None: off.
     checkpoint_dir: Optional[str] = None
+    checkpoint_every_segments: int = 8
 
 
 def _cache_layout(model: Model, window: int):
@@ -214,6 +220,7 @@ class ServeStats:
     rejected: int = 0
     retries: int = 0  # re-enqueues (not in the counts by status)
     straggler_events: int = 0  # segments flagged by the StragglerPolicy
+    checkpoints: int = 0  # crash-resume snapshots written
     # Arrival-to-finish latency percentiles of the "ok" completions,
     # seconds (nan when there is none).
     p50_latency: float = float("nan")
@@ -227,10 +234,6 @@ class GenerationEngine:
 
     def __init__(self, model: Model, params: dict, cfg: EngineConfig,
                  metrics: Optional[MetricsRegistry] = None):
-        if cfg.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir (crash-resume of serve()) is not ported yet: it "
-                "needs train/checkpoint.py (ROADMAP item 13)")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -460,8 +463,18 @@ class GenerationEngine:
         key is ``prng_key(seed + rid)``.  Completions come back sorted by
         request id, one per request.  Segment latencies feed ``straggler``
         (``stats.straggler_events``); ``self.metrics`` gets the run's
-        counters, gauges and histograms.  ``resume=True`` (crash-resume)
-        is not ported yet.
+        counters, gauges and histograms.
+
+        With ``cfg.checkpoint_dir`` set, the live VM state and the host's
+        bookkeeping (the requests done, each active lane's request and
+        attempt) are snapshotted through :class:`train.checkpoint.Checkpointer`
+        every ``cfg.checkpoint_every_segments`` segments and at the end.
+        After a crash of the host loop, ``serve(requests, resume=True)``
+        restores the newest valid snapshot, skips the requests already done
+        and continues the active ones from where they were (their deadline
+        windows restart at the resume).  Delivery is at least once: a
+        request finished after the last snapshot is served again.  A resume
+        after completion serves nothing.
         """
         cfg = self.cfg
         z = cfg.lanes
@@ -476,10 +489,8 @@ class GenerationEngine:
                     f"request {r.rid}: prompt length {len(r.prompt)} "
                     f"exceeds max_prompt_len={cfg.max_prompt_len}"
                 )
-        if resume:
-            raise NotImplementedError(
-                "serve(resume=True) (crash-resume) is not ported yet: it needs "
-                "train/checkpoint.py (ROADMAP item 13)")
+        if resume and cfg.checkpoint_dir is None:
+            raise ValueError("serve(resume=True) needs cfg.checkpoint_dir")
 
         dev = self.model.device
         st = self.serve_batched.stepper(
@@ -505,6 +516,7 @@ class GenerationEngine:
         m_seg = m.histogram("serve_segment_seconds", "wall time of one VM segment")
         m_latency = m.histogram("serve_request_latency_seconds",
                                 "arrival->finish latency by terminal status")
+        done_rids: set[int] = set()
         # Queue entries: one admission attempt of one request; "anchor" is
         # the attempt's deadline start (arrival, or re-enqueue time).
         active: dict[int, dict] = {}
@@ -517,10 +529,34 @@ class GenerationEngine:
                 "admitted": None,
             }
 
-        pend = sorted((_entry(r) for r in requests),
+        # ---- crash-resume: restore the newest snapshot ----
+        ckpt = Checkpointer(cfg.checkpoint_dir, async_save=False) if cfg.checkpoint_dir else None
+        ckpt_step = 0
+        latest = ckpt.latest_step() if resume else None
+        if latest is not None:
+            ckpt_step = latest
+            state = ckpt.restore(latest, like=state)
+            meta = ckpt.manifest(latest).get("extra", {})
+            done_rids = set(meta.get("done_rids", []))
+            by_rid = {r.rid: r for r in requests}
+            for lane_s, info in meta.get("active", {}).items():
+                rid = int(info["rid"])
+                # A rid the caller did not pass again is still served from
+                # the snapshot (its tokens come from the VM).
+                r = by_rid.get(rid, Request(rid=rid, prompt=np.zeros((0,), np.int32)))
+                e = _entry(r, attempt=int(info.get("attempt", 1)))
+                # The clock restarted with the host: the resumed attempt's
+                # deadline window restarts at the resume.
+                e["anchor"] = 0.0
+                e["deadline_at"] = cfg.deadline_s
+                e["admitted"] = 0.0
+                active[int(lane_s)] = e
+        in_flight = {e["req"].rid for e in active.values()}
+        pend = sorted((_entry(r) for r in requests
+                       if r.rid not in done_rids and r.rid not in in_flight),
                       key=lambda e: (e["not_before"], e["req"].rid))
         waiting: list[dict] = []
-        free = list(range(z))[::-1]
+        free = [lane for lane in range(z) if lane not in active][::-1]
 
         prompts_buf = np.zeros((z, cfg.max_prompt_len), np.int32)
         plens_buf = np.zeros((z,), np.int32)
@@ -540,6 +576,7 @@ class GenerationEngine:
                 finished=t_now, status=status, attempts=e["attempt"], fault=fault,
             )
             completions.append(comp)
+            done_rids.add(r.rid)
             setattr(stats, status, getattr(stats, status) + 1)
             m_completions.inc(status=status)
             m_latency.observe(comp.latency, status=status)
@@ -568,6 +605,16 @@ class GenerationEngine:
             e["admitted"] = t_now
             active[lane] = e
             m_admissions.inc()
+
+        def _save_checkpoint() -> None:
+            nonlocal ckpt_step
+            ckpt_step += 1
+            ckpt.save(ckpt_step, state, extra={
+                "done_rids": sorted(done_rids),
+                "active": {str(lane): {"rid": e["req"].rid, "attempt": e["attempt"]}
+                           for lane, e in active.items()},
+            })
+            stats.checkpoints += 1
 
         while pend or waiting or active:
             t_now = now()
@@ -661,6 +708,13 @@ class GenerationEngine:
                 # clears their fault codes).
                 state = st.park(state, park_mask)
 
+            # ---- crash-resume snapshot ----
+            if (ckpt is not None and cfg.checkpoint_every_segments
+                    and stats.segments % cfg.checkpoint_every_segments == 0):
+                _save_checkpoint()
+
+        if ckpt is not None:
+            _save_checkpoint()  # final snapshot: a resume after completion is a no-op
         self.last_serve_result = st.vm.result(state)
         stats.vm_steps = st.steps(state)
         stats.completions = len(completions)

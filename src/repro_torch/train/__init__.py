@@ -1,1 +1,3 @@
-"""Training-side helpers the serving loop shares: the straggler policy."""
+"""Training: AdamW, the train step, the deterministic data stream,
+checkpoints and the restart loop (the straggler policy is shared with
+serving)."""

@@ -1,14 +1,26 @@
-"""Straggler detection (a copy of ``StragglerPolicy`` from the JAX
-package's ``train/fault_tolerance.py``).
+"""Fault tolerance: the checkpoint/restart training loop, straggler
+detection and moving state between devices (a port of the JAX package's
+``train/fault_tolerance.py``).
 
-The open-loop serving loop feeds it each segment's latency
-(``GenerationEngine.serve(straggler=)``); ``ServeStats.straggler_events``
-counts the segments it flags.  Checkpoint-restart and resharding come
-with training and multi-device support.
+:class:`ResilientLoop` restores the newest valid checkpoint on any
+failure of a step and replays from there; the deterministic data stream
+makes the replay exact.  :class:`StragglerPolicy` flags slow steps; the
+open-loop serving loop feeds it each segment's latency too
+(``GenerationEngine.serve(straggler=)``).  :func:`reshard` moves a tree to
+one device; sharding over a device mesh waits for ROADMAP item 14.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..core.tree import tree_map
+from .checkpoint import Checkpointer
+
+PyTree = Any
 
 
 @dataclass
@@ -42,3 +54,95 @@ class StragglerPolicy:
         else:
             self._ema = self.decay * self._ema + (1 - self.decay) * latency_s
         return is_straggler
+
+
+# ---------------------------------------------------------------------------
+# Moving state between devices
+# ---------------------------------------------------------------------------
+
+
+def reshard(tree: PyTree, device) -> PyTree:
+    """Every tensor leaf of ``tree`` on ``device`` (a restart on another
+    device; values unchanged)."""
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)
+
+
+# ---------------------------------------------------------------------------
+# The restartable loop
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RunReport:
+    final_step: int
+    restarts: int
+    losses: list
+    straggler_events: int
+
+
+class ResilientLoop:
+    """Checkpoint/restart training loop.
+
+    ``step_fn(state, step) -> (state, metrics)`` is the pure update;
+    ``state`` is any tree (params and optimizer state).  A failure raised by
+    ``step_fn`` (or injected through ``failure_hook``) restores the newest
+    valid checkpoint, or the initial state when there is none, and replays
+    from its step, up to ``max_restarts`` times.  A checkpoint is saved
+    every ``save_every`` steps and at the end; a run over a directory that
+    holds one starts from it.
+    """
+
+    def __init__(self, step_fn: Callable[[PyTree, int], tuple[PyTree, dict]],
+                 checkpointer: Checkpointer, save_every: int = 50, max_restarts: int = 10,
+                 straggler: Optional[StragglerPolicy] = None):
+        self.step_fn = step_fn
+        self.ckpt = checkpointer
+        self.save_every = save_every
+        self.max_restarts = max_restarts
+        self.straggler = straggler or StragglerPolicy()
+
+    def run(self, state: PyTree, num_steps: int,
+            failure_hook: Optional[Callable[[int], None]] = None,
+            log_every: int = 0) -> tuple[PyTree, RunReport]:
+        restarts = 0
+        losses: list = []
+        init_state = state
+        start = 0
+        # Resume if a valid checkpoint exists (crash recovery).
+        latest = self.ckpt.latest_step()
+        if latest is not None:
+            state = self.ckpt.restore(latest, like=state)
+            start = latest
+
+        step = start
+        while step < num_steps:
+            try:
+                if failure_hook is not None:
+                    failure_hook(step)  # may raise (a simulated node loss)
+                t0 = time.monotonic()
+                state, metrics = self.step_fn(state, step)
+                if "loss" in metrics:
+                    losses.append(float(metrics["loss"]))
+                self.straggler.observe(step, time.monotonic() - t0)
+                step += 1
+                if step % self.save_every == 0 or step == num_steps:
+                    self.ckpt.save(step, state)
+                if log_every and step % log_every == 0:
+                    loss = metrics.get("loss", float("nan"))
+                    print(f"  step {step:6d}  loss {float(loss):.4f}")
+            except KeyboardInterrupt:
+                raise
+            except Exception:  # any failure of a step: restore and replay
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    state, step = init_state, 0
+                else:
+                    state = self.ckpt.restore(latest, like=state)
+                    step = latest
+        self.ckpt.wait()
+        return state, RunReport(final_step=step, restarts=restarts, losses=losses,
+                                straggler_events=len(self.straggler.flagged))

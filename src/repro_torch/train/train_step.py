@@ -1,0 +1,99 @@
+"""The train step: loss -> grad -> clip -> AdamW, with optional microbatch
+gradient accumulation and remat policies (a port of the JAX package's
+``train/train_step.py``).
+
+The step differentiates the compute copy of the weights
+(``Model.cast_for_compute``: bf16 matmul weights when the model computes in
+bf16) with autograd and lets AdamW update the float32 masters; the
+gradient of a cast is a cast, so the two agree.  Microbatches run one
+after another with one live activation set, and their gradients sum in
+float32.  Metrics come back as tensors on the device: the caller decides
+when to read them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+from ..core.tree import tree_flatten, tree_unflatten
+from ..models.transformer import Model
+from . import optimizer as opt
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    remat: str = "dots"  # none | full | dots
+    opt: opt.OptimizerConfig = field(default_factory=opt.OptimizerConfig)
+
+
+def _split_microbatches(batch: dict, n: int) -> list[dict]:
+    """``[B, ...]`` -> ``n`` batches of ``[B/n, ...]`` along the batch axis."""
+    for name, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch {name!r} of {x.shape[0]} rows does not split into "
+                             f"{n} microbatches")
+    chunks = {name: x.chunk(n) for name, x in batch.items()}
+    return [{name: c[i] for name, c in chunks.items()} for i in range(n)]
+
+
+def make_loss_fn(model: Model, cfg: TrainConfig) -> Callable:
+    def loss_fn(params: PyTree, batch: dict):
+        return model.loss(params, batch, remat=cfg.remat)
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn: Callable, params: PyTree, batch: dict):
+    """``((loss, aux), grads)`` of ``loss_fn`` at ``params`` by autograd on
+    detached leaves (the caller's tensors are not marked); loss and aux
+    are detached."""
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    aux = {k: v.detach() for k, v in aux.items()}
+    return (loss.detach(), aux), tree_unflatten(treedef, list(grads))
+
+
+def make_train_step(model: Model, cfg: TrainConfig) -> Callable:
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; the inputs are not written."""
+    loss_fn = make_loss_fn(model, cfg)
+
+    def step(params_master: PyTree, opt_state: PyTree, batch: dict):
+        params = model.cast_for_compute(params_master)
+        if cfg.microbatches > 1:
+            gsum = None
+            lsum = 0.0
+            for mb in _split_microbatches(batch, cfg.microbatches):
+                (loss, aux), g = _value_and_grad(loss_fn, params, mb)
+                g32 = [x.to(torch.float32) for x in tree_flatten(g)[0]]
+                gsum = g32 if gsum is None else [a + b for a, b in zip(gsum, g32)]
+                lsum = lsum + loss
+            treedef = tree_flatten(params)[1]
+            grads = tree_unflatten(treedef, [g / cfg.microbatches for g in gsum])
+            loss = lsum / cfg.microbatches
+        else:
+            (loss, aux), grads = _value_and_grad(loss_fn, params, batch)
+        new_params, opt_state, metrics = opt.apply_updates(params_master, grads, opt_state,
+                                                           cfg.opt)
+        return new_params, opt_state, dict(metrics, loss=loss, **aux)
+
+    return step
+
+
+def make_eval_step(model: Model, cfg: TrainConfig) -> Callable:
+    loss_fn = make_loss_fn(model, cfg)
+
+    def step(params: PyTree, batch: dict):
+        with torch.no_grad():
+            loss, aux = loss_fn(params, batch)
+        return dict(aux, loss=loss)
+
+    return step

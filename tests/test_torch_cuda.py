@@ -7,7 +7,9 @@ its eager mode or its own oracle; segmented runs and quarantined faults on
 the card against one run and the CPU, and open-loop serving against its
 oracle; traced and profile-guided NUTS bit-exact with the plain run on the
 card, and the engine's program verified there (fake typing, K3/K4 through
-their shape rule).  They skip where there is no CUDA device; on the
+their shape rule); a train step on the card against the same step on the
+CPU, a checkpoint written on the card and read on the CPU, and K3/K4
+refusing autograd on the card.  They skip where there is no CUDA device; on the
 card run them with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
 This file imports no JAX (the card's machine has none): it compares the
@@ -704,3 +706,90 @@ def test_engine_program_verifies_on_cuda(cuda):
     assert (out.shape, out.dtype, out.device.type) == ((2, 9, 64), torch.bfloat16, "cuda")
     assert (att.shape, att.dtype) == ((1, 64, 9, 64), torch.bfloat16)
     assert fd_ops.decode_attention.launches == fa_ops.flash_attention.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Training (the train step, checkpoints) and the kernels under autograd
+# ---------------------------------------------------------------------------
+
+
+def _train_parts(device):
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import data, optimizer, train_step
+
+    cfg = configs.get_smoke_config("smollm-135m")  # float32 compute
+    model = get_model(cfg, device=device)
+    params = model.init(torch.Generator().manual_seed(0))
+    ocfg = optimizer.OptimizerConfig(peak_lr=1e-3, warmup_steps=0, total_steps=100)
+    tcfg = train_step.TrainConfig(microbatches=2, remat="dots", opt=ocfg)
+    batch = data.SyntheticStream(model, ShapeSpec("t", 32, 4, "train")).batch(3)
+    return model, params, optimizer.init_opt_state(params, ocfg), tcfg, batch
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One train step (float32, 2 microbatches, remat "dots") on the card
+    and on the CPU from the same weights and batch: loss within 1e-5
+    relative, gradients within 1e-4 of each leaf's largest magnitude, the
+    updated masters within 1e-5 + 2 x lr (Adam's sign flips near zero).
+    TF32 is switched off so both sides multiply in float32."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.train import train_step
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            model, params, state, tcfg, batch = _train_parts(dev)
+            loss_fn = train_step.make_loss_fn(model, tcfg)
+            (loss, _), grads = train_step._value_and_grad(loss_fn, params, batch)
+            new_p, new_s, m = train_step.make_train_step(model, tcfg)(params, state, batch)
+            out[str(dev)] = (loss, grads, new_p, new_s, m)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    c, g = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(g[0]), float(c[0]), rtol=1e-5)
+    np.testing.assert_allclose(float(g[4]["loss"]), float(c[4]["loss"]), rtol=1e-5)
+    for a, b in zip(tree_flatten(g[1])[0], tree_flatten(c[1])[0]):
+        b = b.numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=0,
+                                   atol=1e-4 * max(np.abs(b).max(), 1e-30))
+    for a, b in zip(tree_flatten(g[2])[0], tree_flatten(c[2])[0]):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-5 + 2e-3)
+    assert int(g[3]["step"]) == 1 and g[3]["step"].device.type == "cuda"
+
+
+def test_checkpoint_written_on_cuda_reads_on_the_cpu(cuda, tmp_path):
+    """(params, AdamW state) and a bf16 leaf saved from the card restore
+    onto the CPU with identical bytes, and back onto the card."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.train import checkpoint, fault_tolerance
+
+    _, params, state, _, _ = _train_parts(cuda)
+    tree = (params, state, {"w16": torch.randn(3, 8, device=cuda).to(torch.bfloat16)})
+    ck = checkpoint.Checkpointer(str(tmp_path))
+    ck.save(1, tree)
+    ck.wait()
+    on_cpu = ck.restore(ck.latest_step(), like=fault_tolerance.reshard(tree, "cpu"))
+    back = ck.restore(1, like=tree)
+    for a, b, c in zip(tree_flatten(tree)[0], tree_flatten(on_cpu)[0], tree_flatten(back)[0]):
+        assert b.device.type == "cpu" and c.device.type == "cuda"
+        assert a.dtype == b.dtype == c.dtype
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+def test_kernels_refuse_autograd_on_cuda(cuda):
+    """K3 and K4 have no backward: on the card a call under autograd
+    raises instead of returning an output whose gradient stops there; with
+    grad mode off they run."""
+    q, k, v = (x.to(cuda).requires_grad_(True) for x in attention_inputs(1, 64, 64, 2, 1, 64))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fa_ops.flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        fa_ops.flash_attention(q, k, v, causal=True)
+    qd, kc, vc, count = (x.to(cuda) for x in decode_inputs(2, 16, 2, 1, 64, seed=1))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fd_ops.decode_attention(qd.requires_grad_(True), kc, vc, count)
+    with torch.no_grad():
+        fd_ops.decode_attention(qd, kc, vc, count)

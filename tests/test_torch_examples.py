@@ -59,3 +59,14 @@ def test_irlint_lints_the_quickstart_handle():
     proc = _run("tools/torch_irlint.py", "examples/torch_quickstart.py:fib", "--device", "cpu")
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "torch_irlint: 1 program(s) verified clean" in proc.stdout
+
+
+def test_train_lm_quick_runs_on_the_cpu():
+    """The reduced config trains, recovers from the injected failure and
+    its loss falls."""
+    proc = _run("examples/torch_train_lm.py", "--quick", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "on cpu" in proc.stdout
+    assert "injecting simulated node failure at step 30" in proc.stdout
+    assert "final step 60, restarts 1" in proc.stdout
+    assert "(improved)" in proc.stdout

@@ -133,16 +133,17 @@ def test_cache_layout_rejects_an_ambiguous_leaf():
         _cache_layout(BadModel(), 8)
 
 
-def test_unported_options_raise(lm):
-    """Crash-resume and lane sharding are not ported; each names its
-    ROADMAP item.  (Tracing is ported and reaches the VM; the local
-    backends and temperature sampling are ported:
-    tests/test_torch_serve_open.py.)"""
+def test_unported_options_raise(lm, tmp_path):
+    """Lane sharding is not ported and names its ROADMAP item.  (Crash-resume
+    is ported: an engine takes a checkpoint directory, and
+    tests/test_torch_serve_open.py resumes through it.  Tracing is ported
+    and reaches the VM; the local backends and temperature sampling are
+    ported: tests/test_torch_serve_open.py.)"""
     _, _, model, params = lm
     kw = dict(lanes=2, max_context=16, max_prompt_len=4, max_new_tokens=4,
               requests_per_lane=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        GenerationEngine(model, params, EngineConfig(**kw, checkpoint_dir="ckpt"))
+    eng = GenerationEngine(model, params, EngineConfig(**kw, checkpoint_dir=str(tmp_path)))
+    assert eng.cfg.checkpoint_dir == str(tmp_path) and eng.cfg.checkpoint_every_segments == 8
     assert GenerationEngine(model, params, EngineConfig(**kw, trace=64)).batched.trace == 64
     with pytest.raises(NotImplementedError, match="item 14"):
         GenerationEngine(model, params, EngineConfig(**kw, mesh=2))

@@ -6,14 +6,16 @@ Every ``serve`` case runs the same requests through both packages on the
 same virtual clock: the completions are equal in ``rid``, ``tokens``,
 ``lane``, ``status``, ``attempts``, ``fault`` and their arrival, admission
 and finish times, and the stats' counters agree.  The cases are
-tests/test_serve.py's open-loop and resilience cases (crash-resume, tracing
-and lane sharding are not ported, and raise).  ``generate`` runs on
+tests/test_serve.py's open-loop and resilience cases, crash-resume
+included (lane sharding is not ported, and raises).  ``generate`` runs on
 ``local`` and ``local_eager`` with the JAX engine's tokens.  Temperature
 sampling draws the JAX package's tokens on fixed seeds; its Gumbel noise
 goes through PyTorch's ``log``, within an ulp of XLA's, so a token may
 differ where two noisy logits nearly tie — the cases count such
 mismatches and hold them to a bound.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -217,14 +219,21 @@ class TestContinuousServe:
         with pytest.raises(ValueError, match="pc backend"):
             eng.serve([t_engine.Request(rid=0, prompt=np.ones((2,), np.int32))])
 
-    def test_unported_serve_options_raise(self, lm, engines):
+    def test_unported_serve_options_raise(self, lm, engines, tmp_path):
+        """Crash-resume is ported: ``resume=True`` needs a checkpoint
+        directory, as in the reference, and over an empty one serves the
+        requests from the start."""
         _, eng = engines(lanes=1)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            eng.serve([t_engine.Request(rid=0, prompt=np.ones((2,), np.int32))], resume=True)
+        req = [t_engine.Request(rid=0, prompt=np.ones((2,), np.int32))]
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            eng.serve(req, resume=True)
         _, _, tm, tparams = lm
-        with pytest.raises(NotImplementedError, match="item 13"):
-            t_engine.GenerationEngine(tm, tparams, t_engine.EngineConfig(
-                lanes=1, checkpoint_dir="ckpt", **BASE))
+        ck = t_engine.GenerationEngine(tm, tparams, t_engine.EngineConfig(
+            lanes=1, checkpoint_dir=str(tmp_path), **BASE))
+        comps, stats = ck.serve(req, resume=True)
+        want, _ = eng.serve(req)
+        np.testing.assert_array_equal(comps[0].tokens, want[0].tokens)
+        assert stats.checkpoints >= 1 and comps[0].status == "ok"
 
 
 class TestServeResilience:
@@ -283,6 +292,76 @@ class TestServeResilience:
             serve_kw={"straggler": lambda: make(StragglerPolicy if pols else JStragglerPolicy)})
         assert stats.straggler_events == len(pols[1].flagged)
         assert pols[1]._n == pols[0]._n == stats.segments > 0
+
+
+class TestCrashResume:
+    @staticmethod
+    def _engine(model, params, d, **kw):
+        cfg = dict(BASE, lanes=2, segment_steps=4, checkpoint_dir=str(d),
+                   checkpoint_every_segments=1, **kw)
+        return t_engine.GenerationEngine(model, params, t_engine.EngineConfig(**cfg))
+
+    @staticmethod
+    def _crash_then_resume(mk, reqs, tmp_path):
+        class Crash(Exception):
+            pass
+
+        seen = []
+
+        def boom(c):
+            seen.append(c)
+            if len(seen) == len(reqs) - 1:
+                raise Crash
+
+        with pytest.raises(Crash):
+            mk(tmp_path / "a").serve(reqs, on_finish=boom)
+        snap = t_engine.Checkpointer(str(tmp_path / "a"))
+        done = set(snap.manifest(snap.latest_step())["extra"]["done_rids"])
+        comps, stats = mk(tmp_path / "a").serve(reqs, resume=True)
+        assert {c.rid for c in seen} | {c.rid for c in comps} == {r.rid for r in reqs}
+        # More requests than lanes: the snapshot before the crash holds
+        # done requests, and the resume does not serve them again.
+        assert done and not done & {c.rid for c in comps} and len(comps) < len(reqs)
+        assert all(c.status == "ok" for c in comps) and stats.checkpoints >= 1
+        clean, _ = mk(tmp_path / "b").serve(reqs)
+        # resume after completion is a no-op: every rid is recorded done
+        again, stats2 = mk(tmp_path / "a").serve(reqs, resume=True)
+        assert again == [] and stats2.completions == 0
+        return comps, {c.rid: c.tokens for c in clean}
+
+    def test_crash_resume_completes_all_requests(self, lm, engines, tmp_path):
+        """Kill the host loop at the next-to-last completion, after a
+        snapshot that holds done requests; a fresh engine with
+        resume=True finishes every remaining request with tokens bit-exact
+        with an uninterrupted run of the port and of the JAX engine
+        (at-least-once delivery)."""
+        _, _, tm, tparams = lm
+        reqs = [t_engine.Request(rid=r, prompt=p, arrival=a) for r, p, a in _reqs(5, seed=7)]
+        comps, ref = self._crash_then_resume(
+            lambda d: self._engine(tm, tparams, d), reqs, tmp_path)
+        j_eng, _ = engines(lanes=2)
+        j_clean, _ = j_eng.serve([j_engine.Request(rid=r.rid, prompt=r.prompt) for r in reqs],
+                                 segment_steps=4)
+        for c in j_clean:
+            np.testing.assert_array_equal(ref[c.rid], c.tokens)
+        for c in comps:
+            np.testing.assert_array_equal(c.tokens, ref[c.rid])
+
+    def test_bf16_cache_and_trace_ring_resume_bit_exact(self, lm, tmp_path):
+        """A bfloat16 KV cache and the dispatch-trace ring go through the
+        snapshot and back bit for bit: the resumed requests' tokens equal
+        an uninterrupted bf16 run's."""
+        _, _, tm, tparams = lm
+        m16 = get_model(dataclasses.replace(tm.cfg, compute_dtype="bfloat16"), device="cpu")
+        reqs = [t_engine.Request(rid=r, prompt=p) for r, p, _ in _reqs(5, seed=9)]
+        comps, ref = self._crash_then_resume(
+            lambda d: self._engine(m16, tparams, d, trace=64), reqs, tmp_path)
+        for c in comps:
+            np.testing.assert_array_equal(c.tokens, ref[c.rid])
+        ck = t_engine.Checkpointer(str(tmp_path / "a"))
+        keys = ck.manifest(ck.latest_step())["keys"]
+        assert {v["dtype"] for k, v in keys.items() if k.startswith("tops/") and "/cache" in k} == {"bfloat16"}
+        assert keys["trace"]["shape"][0] == 64
 
 
 class TestLocalBackends:
