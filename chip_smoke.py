@@ -123,7 +123,25 @@ non-zero (nothing is caught):
     byte for byte; and a crash-resume of open-loop serving (bf16, 4 lanes,
     6 requests, a crash at the fifth completion after a snapshot that
     holds done requests) whose resume serves only the rest, with tokens
-    equal to an uninterrupted run's.
+    equal to an uninterrupted run's;
+16. families: DeepSeek-MoE-16B (MoE), Zamba2-7B (Mamba2 with a shared
+    attention block) and xLSTM-350M (mLSTM and sLSTM), each at full width:
+    the float32 engine at 4 lanes x 2 requests equal token for token to
+    the sequential oracle at reduced depth (DeepSeek 3 layers, Zamba2 7,
+    xLSTM all 24); bf16 serving at full depth, 16 lanes x 2 requests a
+    lane (32 requests: 32 a lane would add about 10 minutes to the three
+    models' serving, past the smoke's time limit), prompts of 2 to 32
+    tokens, 32 new tokens, a 128-token cache (DeepSeek's weights in bf16,
+    the others cast once from float32): warm-up, measured (generated
+    tokens/s, dispatches, ms a dispatch, K4 launches held to attention
+    sites x decode executions, peak memory) and profiled (busy share);
+    DeepSeek's mean ``moe_dropped_frac`` at the 16-lane decode batch,
+    read outside those runs; the bf16 prefill forward at 2 x 2,048 tokens
+    (K3 launches held to the attention sites, logits against the plain
+    attention printed; xLSTM without a kernel); then K3 and K4 at each
+    family's own attention shapes (DeepSeek's Dh 128, Zamba2's Dh 112),
+    K4 in bf16 and float32, against their plain versions, timed as in
+    phase 7.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -579,20 +597,20 @@ def phase_full(torch, chains: int, settings) -> dict:
         kern(*args)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    avgs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    dev_us = sum(e.self_device_time_total for e in avgs)
-    n_kernels = sum(e.count for e in avgs)
+    kernels = _device_kernels(torch, prof)
+    dev_us = sum(ns for _, ns in kernels.values()) / 1e3
+    n_kernels = sum(n for n, _ in kernels.values())
     print(f"full: profiled run: device busy {dev_us / 1e3:.3f} ms of its own "
           f"{prof_wall * 1e3:.3f} ms wall ({dev_us / 1e6 / prof_wall:.4f} busy share); "
           f"against the unprofiled run's {wall * 1e3:.3f} ms wall "
           f"{dev_us / 1e6 / wall:.4f} (two runs); {n_kernels} device kernels "
           f"({n_kernels / res.steps:.1f} per dispatch)")
-    for e in sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    for key, (n, ns) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {ns / 1e6:9.3f} ms {n:6d}x  {key[:90]}")
     for name in ("push_kernel", "pop_kernel"):
-        k = [e for e in avgs if name in e.key]
-        print(f"full: {name} device time {sum(e.self_device_time_total for e in k) / 1e3:.3f} "
-              f"ms in {sum(e.count for e in k)} launches of the profiled run")
+        k = [v for key, v in kernels.items() if name in key]
+        print(f"full: {name} device time {sum(ns for _, ns in k) / 1e6:.3f} "
+              f"ms in {sum(n for n, _ in k)} launches of the profiled run")
     return {"masked_push": push, "masked_peek": peek}, dict(kern=kern, args=args, out=out,
                                                             res=res, wall=wall,
                                                             kpd=n_kernels / res.steps)
@@ -627,106 +645,126 @@ def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_attention_kernels(torch) -> dict:
-    """K3 at the prefill shapes and K4 at the serving shape, against their
-    plain versions; returns per-kernel numbers at the main path's shape
-    (bf16, SmolLM-135M's heads)."""
+# Float32: the kernel and the plain version sum 2048-long rows in another
+# order.  bf16: both compute float32 and round once, so they differ by
+# about one bf16 ulp (2**-8 relative) of an O(1) output.
+ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=1e-2, atol=2e-2)}
+
+
+def _k3_check(torch, b: int, s: int, h: int, hk: int, dh: int, dtype) -> dict:
+    """K3 (causal) on seeded ``[B, S, H, Dh]`` operands against its plain
+    version, and its device time a launch beside its call time, the plain
+    version's, one SDPA call's and the bound; prints one line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.testing import attention_inputs
+
+    name = str(dtype).replace("torch.", "")
+    q, k, v = (x.to("cuda", dtype) for x in attention_inputs(b, s, s, h, hk, dh, seed=7))
+    sm90_before = fa_ops.flash_attention.sm90_launches
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.attention(q, k, v)
+    torch.cuda.synchronize()
+    on_sm90 = fa_ops.flash_attention.sm90_launches == sm90_before + 1
+    # The tensor-core kernel takes bf16 at Dh 64 and 128, the CUDA-core one the rest.
+    check(on_sm90 == (dtype == torch.bfloat16 and dh in (64, 128)),
+          f"K3 {name} Dh={dh} took the wrong kernel (tensor cores: {on_sm90})")
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[name])
+    err = float((got.float() - want.float()).abs().max())
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kern_dev = _device_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 5, 3)
+    call = _call_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 10)
+    plain = _device_ms(torch, lambda: fa_ref.attention(q, k, v), 3, 2)
+    lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 5, 3)
+    flops = 4 * b * h * s * s * dh / 2
+    nbytes = (2 * b * s * h * dh + 2 * b * s * hk * dh) * q.element_size()
+    bound, by = _bound_ms(flops, nbytes, name)
+    kind = "tensor cores" if on_sm90 else "CUDA cores"
+    print(f"kernel flash_attention {name:8s} ({kind}) B={b} S=T={s} H={h} Hkv={hk} Dh={dh}: "
+          f"device {kern_dev * 1e3:9.1f} us/launch, call {call * 1e3:9.1f} us "
+          f"(plain {plain * 1e3:9.1f}, sdpa {lib * 1e3:8.1f}, bound {bound * 1e3:7.1f} us "
+          f"by {by}; {flops / kern_dev / 1e9:.1f} TFLOP/s); max |err| {err:.3g}")
+    return dict(ms=kern_dev, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                call_ms=call, max_abs_err=err)
+
+
+def _k4_check(torch, b: int, w: int, h: int, hk: int, dh: int, dtype, seed: int = 8) -> dict:
+    """K4 on a seeded ``[B, W, Hkv, Dh]`` cache with ``count`` drawn from 0
+    to W (one empty and one full cache) against its plain version, timed
+    with a cold L2 (each timed call reads its own copy of the cache, and
+    the copies read between two uses of one copy exceed twice the 50 MB
+    L2) beside its call time, the plain version's, one masked SDPA call's
+    and the byte bound; prints one line."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
-    from repro_torch.testing import attention_inputs, decode_inputs
+    from repro_torch.testing import decode_inputs
 
-    # Float32: the kernel and the plain version sum 2048-long rows in
-    # another order.  bf16: both compute float32 and round once, so they
-    # differ by about one bf16 ulp (2**-8 relative) of an O(1) output.
-    tol = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-           torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
     dev = torch.device("cuda")
-    report = {}
-    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    for b, s, h, hk, dh in ((8, 2048, 9, 3, 64), (2, 2048, 16, 8, 128)):
-        base = attention_inputs(b, s, s, h, hk, dh, seed=7)
-        for dtype in (torch.bfloat16, torch.float32):
-            if dh == 128 and dtype == torch.float32:
-                continue
-            q, k, v = (x.to(dev, dtype) for x in base)
-            sm90_before = fa_ops.flash_attention.sm90_launches
-            got = fa_ops.flash_attention(q, k, v)
-            want = fa_ref.attention(q, k, v)
-            torch.cuda.synchronize()
-            on_sm90 = fa_ops.flash_attention.sm90_launches == sm90_before + 1
-            check(on_sm90 == (dtype == torch.bfloat16),
-                  f"K3 {dtype} Dh={dh} took the wrong kernel (tensor cores: {on_sm90})")
-            torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
-            err = float((got.float() - want.float()).abs().max())
-            max_err["flash_attention"] = max(max_err["flash_attention"], err)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            name = str(dtype).replace("torch.", "")
-            kern_dev = _device_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 5, 3)
-            call = _call_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 10)
-            plain = _device_ms(torch, lambda: fa_ref.attention(q, k, v), 3, 2)
-            lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 5, 3)
-            flops = 4 * b * h * s * s * dh / 2
-            nbytes = (2 * b * s * h * dh + 2 * b * s * hk * dh) * q.element_size()
-            bound, by = _bound_ms(flops, nbytes, name)
-            kind = "tensor cores" if on_sm90 else "CUDA cores"
-            print(f"kernel flash_attention {name:8s} ({kind}) B={b} S=T={s} H={h} Hkv={hk} Dh={dh}: "
-                  f"device {kern_dev * 1e3:9.1f} us/launch, call {call * 1e3:9.1f} us "
-                  f"(plain {plain * 1e3:9.1f}, sdpa {lib * 1e3:8.1f}, bound {bound * 1e3:7.1f} us "
-                  f"by {by}; {flops / kern_dev / 1e9:.1f} TFLOP/s); max |err| {err:.3g}")
-            if (dh, dtype) == (64, torch.bfloat16):
-                report["flash_attention"] = dict(ms=kern_dev, plain_ms=plain, bound_ms=bound,
-                                                 bound_by=by, library_ms=lib, call_ms=call)
-
-    b, w, h, hk, dh = 64, 512, 9, 3, 64
-    q0, k0, v0, _ = decode_inputs(b, w, h, hk, dh, seed=8)
-    count = torch.from_numpy(np.random.default_rng(9).integers(0, w + 1, b).astype(np.int32))
+    name = str(dtype).replace("torch.", "")
+    q0, k0, v0, _ = decode_inputs(b, w, h, hk, dh, seed=seed)
+    count = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, w + 1, b)
+                             .astype(np.int32))
     count[0], count[-1] = 0, w  # an empty and a full cache
     count = count.to(dev)
     valid = (torch.arange(w, device=dev)[None] < count[:, None])[:, None, None, :]
     rows = int(count.sum())
+    q, k, v = (x.to(dev, dtype) for x in (q0, k0, v0))
+    got = fd_ops.decode_attention(q, k, v, count)
+    want = fd_ref.decode_attention(q, k, v, count)
+    torch.cuda.synchronize()
+    check(bool((got[0] == 0).all()), "decode_attention: count == 0 must give zeros")
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[name])
+    err = float((got.float() - want.float()).abs().max())
+    s_el = q.element_size()
+    nbytes = 2 * b * h * dh * s_el + 4 * b + 2 * rows * hk * dh * s_el
+    copies = 2 + int(2 * L2_BYTES // nbytes)
+    caches = [(k.clone(), v.clone()) for _ in range(copies)]
+    sdpa_caches = [tuple(x.transpose(1, 2).contiguous() for x in kv) for kv in caches]
+    qt = q[:, :, None]  # [B, H, 1, Dh]
+    kern_dev = _device_ms(torch, _rotating(
+        lambda kc, vc: fd_ops.decode_attention(q, kc, vc, count), caches))
+    call = _call_ms(torch, _rotating(
+        lambda kc, vc: fd_ops.decode_attention(q, kc, vc, count), caches))
+    plain = _device_ms(torch, _rotating(
+        lambda kc, vc: fd_ref.decode_attention(q, kc, vc, count), caches), 20)
+    lib = _device_ms(torch, _rotating(
+        lambda kt, vt: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
+                                                      enable_gqa=True), sdpa_caches))
+    warm = _device_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
+    bound, by = _bound_ms(4 * h * dh * rows, nbytes, name)
+    print(f"kernel decode_attention {name:8s} B={b} W={w} H={h} Hkv={hk} Dh={dh} "
+          f"(mean count {rows / b:.1f}; cold L2, {copies} cache copies): device "
+          f"{kern_dev * 1e3:7.2f} us/launch ({bound / kern_dev:.3f} of its byte bound; "
+          f"warm L2 {warm * 1e3:7.2f}), call {call * 1e3:7.2f} us (plain {plain * 1e3:8.2f}, "
+          f"sdpa {lib * 1e3:7.2f}, bound {bound * 1e3:6.3f} us by {by}); max |err| {err:.3g}")
+    return dict(ms=kern_dev, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                call_ms=call, max_abs_err=err)
+
+
+def phase_attention_kernels(torch) -> dict:
+    """K3 at the prefill shapes and K4 at the serving shape, against their
+    plain versions; returns per-kernel numbers at the main path's shape
+    (bf16, SmolLM-135M's heads)."""
+    report = {}
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for b, s, h, hk, dh in ((8, 2048, 9, 3, 64), (2, 2048, 16, 8, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            if dh == 128 and dtype == torch.float32:
+                continue
+            row = _k3_check(torch, b, s, h, hk, dh, dtype)
+            max_err["flash_attention"] = max(max_err["flash_attention"], row["max_abs_err"])
+            if (dh, dtype) == (64, torch.bfloat16):
+                report["flash_attention"] = row
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (x.to(dev, dtype) for x in (q0, k0, v0))
-        got = fd_ops.decode_attention(q, k, v, count)
-        want = fd_ref.decode_attention(q, k, v, count)
-        torch.cuda.synchronize()
-        check(bool((got[0] == 0).all()), "decode_attention: count == 0 must give zeros")
-        torch.testing.assert_close(got.float(), want.float(), **tol[dtype])
-        err = float((got.float() - want.float()).abs().max())
-        max_err["decode_attention"] = max(max_err["decode_attention"], err)
-        s_el = q.element_size()
-        nbytes = 2 * b * h * dh * s_el + 4 * b + 2 * rows * hk * dh * s_el
-        # Cold L2: each timed call reads its own copy of the cache, and the
-        # copies read between two uses of one copy exceed twice the 50 MB L2.
-        copies = 2 + int(2 * L2_BYTES // nbytes)
-        caches = [(k.clone(), v.clone()) for _ in range(copies)]
-        sdpa_caches = [tuple(x.transpose(1, 2).contiguous() for x in kv) for kv in caches]
-        qt = q[:, :, None]  # [B, H, 1, Dh]
-        name = str(dtype).replace("torch.", "")
-        kern_dev = _device_ms(torch, _rotating(
-            lambda kc, vc: fd_ops.decode_attention(q, kc, vc, count), caches))
-        call = _call_ms(torch, _rotating(
-            lambda kc, vc: fd_ops.decode_attention(q, kc, vc, count), caches))
-        plain = _device_ms(torch, _rotating(
-            lambda kc, vc: fd_ref.decode_attention(q, kc, vc, count), caches), 20)
-        lib = _device_ms(torch, _rotating(
-            lambda kt, vt: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
-                                                          enable_gqa=True), sdpa_caches))
-        warm = _device_ms(torch, lambda: fd_ops.decode_attention(q, k, v, count))
-        bound, by = _bound_ms(4 * h * dh * rows, nbytes, name)
-        print(f"kernel decode_attention {name:8s} B={b} W={w} H={h} Hkv={hk} Dh={dh} "
-              f"(mean count {rows / b:.1f}; cold L2, {copies} cache copies): device "
-              f"{kern_dev * 1e3:7.2f} us/launch ({bound / kern_dev:.3f} of its byte bound; "
-              f"warm L2 {warm * 1e3:7.2f}), call {call * 1e3:7.2f} us (plain {plain * 1e3:8.2f}, "
-              f"sdpa {lib * 1e3:7.2f}, bound {bound * 1e3:6.3f} us by {by}); max |err| {err:.3g}")
+        row = _k4_check(torch, 64, 512, 9, 3, 64, dtype)
+        max_err["decode_attention"] = max(max_err["decode_attention"], row["max_abs_err"])
         if dtype == torch.bfloat16:
-            report["decode_attention"] = dict(ms=kern_dev, plain_ms=plain, bound_ms=bound,
-                                              bound_by=by, library_ms=lib, call_ms=call)
-        del caches, sdpa_caches
+            report["decode_attention"] = row
     for name in report:
         report[name]["max_abs_err"] = max_err[name]
     return report
@@ -865,17 +903,17 @@ def phase_engine(torch) -> int:
         eng.generate(prompts, plens)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    avgs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    dev_us = sum(e.self_device_time_total for e in avgs)
-    n_kernels = sum(e.count for e in avgs)
+    kernels = _device_kernels(torch, prof)
+    dev_us = sum(ns for _, ns in kernels.values()) / 1e3
+    n_kernels = sum(n for n, _ in kernels.values())
     print(f"engine: profiled run: device busy {dev_us / 1e3:.3f} ms of its own "
           f"{prof_wall * 1e3:.3f} ms wall ({dev_us / 1e6 / prof_wall:.4f} busy share); "
           f"{n_kernels} device kernels ({n_kernels / res.steps:.1f} per dispatch)")
-    for e in sorted(avgs, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  {e.key[:90]}")
-    k4 = [e for e in avgs if "decode_split" in e.key or "decode_combine" in e.key]
-    print(f"engine: K4 device time {sum(e.self_device_time_total for e in k4) / 1e3:.3f} ms "
-          f"in {sum(e.count for e in k4)} kernel launches (split and combine) of the "
+    for key, (n, ns) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {ns / 1e6:9.3f} ms {n:7d}x  {key[:90]}")
+    k4 = [v for key, v in kernels.items() if "decode_split" in key or "decode_combine" in key]
+    print(f"engine: K4 device time {sum(ns for _, ns in k4) / 1e6:.3f} ms "
+          f"in {sum(n for n, _ in k4)} kernel launches (split and combine) of the "
           f"profiled run")
     return launches
 
@@ -901,15 +939,28 @@ def _timed_run(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def _device_kernels(torch, prof) -> dict:
+    """The device events (kernels, copies, fills) of a finished profile by
+    name, ``{name: [count, ns]}``, read straight from its trace: the
+    profiler's own per-op tables take minutes to build for the 10^5-10^6
+    events of a serving run."""
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            entry = out.setdefault(e.name(), [0, 0])
+            entry[0] += 1
+            entry[1] += e.duration_ns()
+    return out
+
+
 def _busy(torch, fn) -> tuple[float, int, float]:
     """Device busy ms, device kernels and wall s of one profiled ``fn()``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = _timed_run(torch, fn)
-    avgs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-    return (sum(e.self_device_time_total for e in avgs) / 1e3, sum(e.count for e in avgs),
-            wall)
+    kernels = _device_kernels(torch, prof).values()
+    return sum(ns for _, ns in kernels) / 1e6, sum(n for n, _ in kernels), wall
 
 
 def _compaction_cost(torch, kern, args) -> None:
@@ -1811,6 +1862,230 @@ def phase_train(torch, smi: str) -> None:
     print(f"train: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 16. the MoE, xLSTM and Mamba2-hybrid families
+# ---------------------------------------------------------------------------
+
+#: (arch, layers of the float32 oracle check, param dtype of the bf16 run).
+#: DeepSeek-MoE-16B: its dense first layer and 2 MoE layers; its weights in
+#: bf16, the dtype its published checkpoint ships in (65.5 GB in float32).
+#: Zamba2-7B: one group of 6 mamba layers with the shared block and a tail
+#: layer.  xLSTM-350M: all 24 layers.
+FAMILIES = (("deepseek-moe-16b", 3, "bfloat16"), ("zamba2-7b", 7, "float32"),
+            ("xlstm-350m", 24, "float32"))
+FAMILY_PREFILL = (2, 2048)  # batch x tokens of the prefill forward
+
+
+def _family_oracle(torch, arch: str, depth: int) -> None:
+    """Float32, full width at ``depth`` layers: the engine at 4 lanes x 2
+    requests gives the sequential oracle's tokens (4 lanes drop no MoE
+    assignment: capacity max(ceil(4 x 6 x 1.25 / 64), 4) = 4 and a token
+    puts at most one of its 6 on an expert)."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import EngineConfig, GenerationEngine
+    from repro_torch.testing import engine_inputs
+
+    cfg = replace(configs.get_config(arch), num_layers=depth, compute_dtype="float32")
+    model = get_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(20))
+    ecfg = EngineConfig(lanes=4, max_context=32, max_prompt_len=16, max_new_tokens=8,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(model, params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=21)
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, plens)
+    ref = eng.reference_generate(prompts, plens)
+    check(np.array_equal(res["tokens"], ref["tokens"])
+          and np.array_equal(res["lengths"], ref["lengths"]),
+          f"families: {arch} float32 engine tokens != the sequential oracle")
+    print(f"families: {arch} full width float32 at {depth} of {configs.get_config(arch).num_layers}"
+          f" layers, 4 lanes x 2 requests: equal to the sequential oracle token for token "
+          f"({int(res['lengths'].sum())} tokens, {eng.batched.last_result.steps} dispatches; "
+          f"{time.perf_counter() - t0:.2f} s)")
+
+
+def _family_serve(torch, arch: str, param_dtype: str, smi: str):
+    """bf16 at full depth: 16 lanes x 2 requests a lane measured and profiled;
+    returns the model and its compute weights."""
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import EngineConfig, GenerationEngine
+    from repro_torch.testing import engine_inputs
+
+    cfg = replace(configs.get_config(arch), param_dtype=param_dtype)
+    model = get_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # The compute copy alone: the float32 masters go once it is made.
+    params = model.cast_for_compute(model.init(torch.Generator(device="cuda").manual_seed(23)))
+    leaves = tree_flatten(params)[0]
+    n_params = sum(x.numel() for x in leaves)
+    weight_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    init_peak = torch.cuda.max_memory_allocated()
+    ecfg = EngineConfig(lanes=16, max_context=128, max_prompt_len=32, max_new_tokens=32,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(model, params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=22)
+    # Warm-up: the lowering and one short request, on one lane.
+    one = np.zeros(ecfg.lanes, np.int32)
+    one[0] = 1
+    _, warm = _timed_run(torch, lambda: eng.generate(prompts, np.full_like(plens, 2), n_req=one))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_launches()
+    out, wall = _timed_run(torch, lambda: eng.generate(prompts, plens))
+    launched = _kernel_launches()
+    res = eng.batched.last_result
+    execs, active = eng.batched.tag_stats["decode"]
+    n_tok = int(out["lengths"].sum())
+    check(res.converged and n_tok > 0, f"families: {arch} engine run: {n_tok} tokens")
+    check(launched["decode_attention"] == model.attention_sites * execs,
+          f"families: {arch} K4 launched {launched['decode_attention']} times, want "
+          f"{model.attention_sites} attention sites x {execs} decode executions")
+    check(launched["flash_attention"] == 0, f"families: {arch} serving launched {launched}")
+    peak = torch.cuda.max_memory_allocated()
+    # The profiled run: the first request of every lane.
+    dev_ms, kernels, prof_wall = _busy(torch, lambda: eng.generate(
+        prompts, plens, n_req=np.ones(ecfg.lanes, np.int32)))
+    prof_steps = eng.batched.last_result.steps
+    drop = (", mean moe_dropped_frac " + _moe_dropped_frac(torch, model, params, prompts)
+            if cfg.family == "moe" else "")
+    print(f"families: {arch} full width bf16 ({n_params / 1e9:.3f} B params, {weight_gb:.2f} GB "
+          f"of compute weights, {cfg.param_dtype} params), 16 lanes x 2 requests a lane, prompts "
+          f"2-32, 32 new tokens, cache 128: wall {wall:.3f} s (warm-up on one lane "
+          f"{warm:.2f} s), "
+          f"{n_tok} tokens, {n_tok / wall:.1f} tokens/s, {res.steps} dispatches, "
+          f"{wall / res.steps * 1e3:.3f} ms/dispatch, decode executions {execs} (active "
+          f"lane-steps {active}), K4 launches {launched['decode_attention']} = "
+          f"{model.attention_sites} x {execs} (K1/K2 {launched['masked_push']}/"
+          f"{launched['masked_peek']}: the program's return); peak memory {peak / 1e9:.3f} GB "
+          f"serving, {init_peak / 1e9:.3f} GB at init; profiled run (1 request a lane, "
+          f"{prof_steps} dispatches): busy {dev_ms:.3f} of {prof_wall * 1e3:.3f} ms "
+          f"({dev_ms / 1e3 / prof_wall:.4f} busy share), {kernels} kernels "
+          f"({kernels / prof_steps:.1f} a dispatch){drop} on {smi}")
+    return model, params
+
+
+def _moe_dropped_frac(torch, model, params, prompts: np.ndarray) -> str:
+    """The MoE layers' ``moe_dropped_frac`` at the serving batch, outside
+    the timed runs: the lanes' first prompts go through ``decode_step``'s
+    layers in lockstep, one token of every lane a step, as in the engine's
+    batched decode (capacity from the lane count), each MoE layer's aux
+    read.  Returns the mean and the count of layer calls, as text."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    lanes, steps = prompts.shape[0], prompts.shape[2]
+    cache = model.init_cache(lanes, steps)
+    dropped = []
+    with torch.no_grad():
+        for t in range(steps):
+            tokens = torch.from_numpy(prompts[:, 0, t].copy()).to(model.device)
+            pos = torch.full((lanes,), t, dtype=torch.int32, device=model.device)
+            h = L.embed(params["embed"], tokens[:, None], cfg)
+            for i, lp in enumerate(params["dense_layers"]):
+                h, cache["dense_kv"][i] = T.attn_block_decode(lp, h, cfg, cache["dense_kv"][i],
+                                                              pos)
+            for i in range(cache["kv"]["k"].shape[0]):
+                lp = T._index(params["layers"], i)
+                out, lc = L.attention_decode(lp["attn"], L.norm(lp["ln1"], h, cfg), cfg,
+                                             T._index(cache["kv"], i), pos)
+                for name, x in lc.items():
+                    cache["kv"][name][i] = x
+                h = h + out
+                y, aux = T._ffn(lp, h, cfg)
+                h = h + y
+                dropped.append(aux["moe_dropped_frac"])
+    return (f"{float(torch.stack(dropped).mean()):.6f} over {len(dropped)} MoE layer calls "
+            f"({lanes} lanes' first prompts, {steps} tokens in lockstep)")
+
+
+def _family_prefill(torch, model, params, smi: str) -> None:
+    """bf16 forward at 2 x 2,048 tokens: through K3 where the family has
+    attention (against the plain blocked attention), else the plain
+    forward alone."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import get_model
+
+    cfg = model.cfg
+    b, s = FAMILY_PREFILL
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    batch = {"tokens": tokens}
+    flash = get_model(cfg, use_flash=model.attention_sites > 0, device="cuda")
+    with torch.no_grad():
+        if model.attention_sites:  # warm K3 up (serving warmed the rest)
+            flash.forward(params, batch)
+        _reset_kernel_launches()
+        (lf, _), wall = _timed_run(torch, lambda: flash.forward(params, batch))
+        launches = fa_ops.flash_attention.launches
+        check(launches == model.attention_sites,
+              f"families: {cfg.name} prefill launched K3 {launches} times, want "
+              f"{model.attention_sites}")
+        check(bool(torch.isfinite(lf).all()), f"families: {cfg.name} prefill logits not finite")
+        line = (f"families: {cfg.name} prefill forward bf16, {b} x {s} tokens: {wall * 1e3:.3f} ms, "
+                f"{b * s / wall:.1f} tokens/s, K3 launches {launches} "
+                f"(tensor-core kernel {fa_ops.flash_attention.sm90_launches})")
+        if launches:
+            lp, _ = model.forward(params, batch)
+            diff = float((lf.float() - lp.float()).abs().max())
+            top1 = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+            line += f"; against the plain attention: max |logit diff| {diff:.3g}, top-1 " \
+                    f"agreement {top1:.4f}"
+            del lp
+    print(line + f" on {smi}")
+    del lf
+
+
+def _family_kernel_checks(torch, arch: str) -> dict:
+    """K3 and K4 at the family's own attention shapes (none in xLSTM),
+    against their plain versions: K3 at the prefill forward's bf16 shape,
+    K4 at the serving batch and cache in bf16 and in float32 (the oracle
+    check's dtype).  Returns each kernel's largest error."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if cfg.family == "ssm":
+        return {}
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    err = {"flash_attention": _k3_check(torch, *FAMILY_PREFILL, *heads,
+                                        torch.bfloat16)["max_abs_err"]}
+    err["decode_attention"] = max(_k4_check(torch, 16, 128, *heads, dtype, seed=25)["max_abs_err"]
+                                  for dtype in (torch.bfloat16, torch.float32))
+    return err
+
+
+def phase_families(torch, smi: str) -> dict:
+    """DeepSeek-MoE-16B, Zamba2-7B and xLSTM-350M: the float32 oracle check
+    at reduced depth, bf16 serving at full depth, the prefill forward, and
+    K3 and K4 at each family's attention shapes (Zamba2's head dim 112);
+    returns each kernel's largest error in those checks."""
+    import gc
+
+    t_phase = time.perf_counter()
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for arch, depth, param_dtype in FAMILIES:
+        t0 = time.perf_counter()
+        _family_oracle(torch, arch, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, params = _family_serve(torch, arch, param_dtype, smi)
+        _family_prefill(torch, model, params, smi)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, err in _family_kernel_checks(torch, arch).items():
+            max_err[name] = max(max_err[name], err)
+        print(f"families: {arch} took {time.perf_counter() - t0:.1f} s")
+    print(f"families: phase took {time.perf_counter() - t_phase:.1f} s")
+    return max_err
+
+
 def main() -> int:
     # cuBLAS picks its workspace when it makes a handle, so the setting
     # that phase 15's deterministic mode asks for comes before any CUDA work.
@@ -1839,6 +2114,8 @@ def main() -> int:
     phase_pgo(torch, run6, launches, settings, smi)
     phase_frontend(torch, run6, smi)
     phase_train(torch, smi)
+    for name, err in phase_families(torch, smi).items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
 
     kdir = "src/repro_torch/kernels"
     where = {

@@ -1,12 +1,24 @@
 """Registry of the architectures the port runs, and the workload shapes.
 
-Only the two dense configurations are here: SmolLM-135M (the serving
-model) and Qwen3-0.6B (``qk_norm`` and an explicit ``head_dim``).  The
-JAX package's other families wait for their slices of the port.
+The configurations of the families the port runs: the dense decoders
+(SmolLM-135M, the serving model; Qwen3-0.6B and Qwen3-14B with
+``qk_norm`` and an explicit ``head_dim``; Qwen1.5-32B with QKV biases),
+the MoE decoders (DeepSeek-MoE-16B, Qwen3-MoE-235B-A22B), xLSTM-350M
+(``ssm``) and Zamba2-7B (``hybrid``).  HuBERT-XLarge (``audio``) and
+Qwen2-VL-2B (``vlm``) wait for their families' slice of the port.
 """
 from __future__ import annotations
 
-from . import qwen3_0_6b, smollm_135m
+from . import (
+    deepseek_moe_16b,
+    qwen1_5_32b,
+    qwen3_0_6b,
+    qwen3_14b,
+    qwen3_moe_235b_a22b,
+    smollm_135m,
+    xlstm_350m,
+    zamba2_7b,
+)
 from .base import (
     SHAPES,
     ArchConfig,
@@ -15,7 +27,9 @@ from .base import (
 )
 
 REGISTRY: dict[str, ArchConfig] = {
-    cfg.name: cfg for cfg in (m.config() for m in (qwen3_0_6b, smollm_135m))
+    cfg.name: cfg for cfg in (m.config() for m in (
+        qwen3_0_6b, qwen1_5_32b, qwen3_14b, smollm_135m, deepseek_moe_16b,
+        qwen3_moe_235b_a22b, xlstm_350m, zamba2_7b))
 }
 
 

@@ -33,7 +33,9 @@
 // leave the thread.  The probabilities go through shared memory once per
 // tile for the P.V product.  Tiles are numbered so that the longest rows
 // (the last query tiles, which see the most keys) start first.  No tensor
-// cores, no TMA: wgmma and a producer warp are a later step.
+// cores, no TMA: wgmma and a producer warp are a later step.  Head dims
+// 16, 32, 64, 80, 112 and 128 (any multiple of 8 would do: a thread owns
+// Dh / 8 output columns); 80 and 112 are HuBERT-XLarge's and Zamba2-7B's.
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing, and returns cudaGetLastError().
@@ -229,6 +231,8 @@ int dispatch_dh(int head_dim, void* out, const void* q, const void* k, const voi
     case 16: return launch<T, 16>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
     case 32: return launch<T, 32>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
     case 64: return launch<T, 64>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 80: return launch<T, 80>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 112: return launch<T, 112>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
     case 128: return launch<T, 128>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

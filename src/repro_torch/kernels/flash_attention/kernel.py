@@ -5,8 +5,8 @@ replaces the Pallas TPU kernel
 Two kernels, chosen by :func:`route` from the dtype and head dim alone:
 ``csrc/flash_attention_sm90.cu`` (bf16, Dh 64 or 128: TMA loads and
 ``wgmma`` on the tensor cores) and ``csrc/flash_attention.cu`` (float32,
-and bf16 with Dh 16 or 32: float32 FMAs on the CUDA cores).  Both take the
-model's ``[B, S, H, Dh]`` / ``[B, T, Hkv, Dh]`` layout and read each
+and bf16 with Dh 16, 32, 80 or 112: float32 FMAs on the CUDA cores).  Both
+take the model's ``[B, S, H, Dh]`` / ``[B, T, Hkv, Dh]`` layout and read each
 operand through its strides; :mod:`.ops` validates arguments and counts
 launches.  Each library is built with ``nvcc`` at its first launch (see
 :mod:`repro_torch.kernels._build`), never at import; a failed build raises
@@ -27,7 +27,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu",)
 SM90_SOURCES = (_CSRC / "flash_attention_sm90.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 SM90_HEAD_DIMS = (64, 128)
 BLOCK = 64  # query and key rows per tile
 

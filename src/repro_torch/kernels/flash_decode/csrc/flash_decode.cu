@@ -37,9 +37,12 @@
 // zero-filled, not read), all issued before the first use and holding no
 // registers while in flight: 16 KB a CTA at bf16, Dh = 64.
 //   bf16: each warp runs its 16 rows on the tensor cores (mma.sync
-//     m16n8k16; decode_split_mma_kernel), the G query rows padded to 16.
-//   float32: CUDA-core FMAs (decode_split_kernel); Dh / 4 lanes share a
-//     row, reduce q.k with shuffles and keep the warp's online softmax.
+//     m16n8k16; decode_split_mma_kernel), the G <= 16 query rows padded
+//     to 16.
+//   float32: CUDA-core FMAs (decode_split_kernel); Dh / 4 lanes, rounded
+//     up to a power of two, share a row, reduce q.k with shuffles and
+//     keep the warp's online softmax.
+// Head dims 16, 32, 64, 80, 112 and 128; groups of up to 16 query heads.
 // One __syncthreads merges the 4 warps' (m, l, acc) through shared memory.
 // With one split the CTA writes the output; otherwise it writes its
 // partial (acc[G, Dh], m, l) in float32 to a scratch buffer the wrapper
@@ -60,7 +63,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;                     // cache rows per CTA
 constexpr int kRowsPerWarp = kChunk / kWarps;  // 16
-constexpr int kMaxGroup = 8;
+constexpr int kMaxGroup = 16;  // query heads per KV head
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -73,16 +76,25 @@ struct CacheStrides {
   long long b, w, h;  // elements; the head-dim axis is contiguous
 };
 
-// How a warp of the float32 path covers its rows with 16-byte loads.
-template <int DH>
+__host__ __device__ constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+
+// How a warp of the float32 path covers its rows with 16-byte loads.  A
+// row takes a power of two of lanes; at a head dim that is not a power of
+// two (80, 112) the lanes past the row's last 16-byte piece idle: they
+// load nothing (zero-filled), hold a zero query and add zeros to the
+// shuffled sums.  With 16 query rows a pass takes one cache row, to keep
+// the per-row scores in registers.
+template <int DH, int MG>
 struct Tiling {
   static constexpr int kVec = 4;                              // floats per load
-  static constexpr int kLanesPerRow = DH / kVec;              // 4 .. 32
+  static constexpr int kLanesUsed = DH / kVec;                // 4 .. 32 lanes load a row
+  static constexpr int kLanesPerRow = pow2_ceil(kLanesUsed);  // lanes a row takes
   static constexpr int kRowsPerStep = 32 / kLanesPerRow;      // rows a warp loads at once
   static constexpr int kSteps = kRowsPerWarp / kRowsPerStep;  // loads per thread per chunk
-  static constexpr int kPass = kSteps < 4 ? kSteps : 4;       // rows per softmax update
+  static constexpr int kPass = MG > 8 ? 1 : kSteps < 4 ? kSteps : 4;  // rows per softmax update
   static constexpr int kPasses = kSteps / kPass;
-  static_assert(kLanesPerRow <= 32 && kSteps % kPass == 0, "unsupported head dim");
+  static_assert(DH % kVec == 0 && kLanesPerRow <= 32 && kSteps % kPass == 0,
+                "unsupported head dim");
 };
 
 __device__ __forceinline__ void unpack(const uint4& raw, float (&x)[4]) {
@@ -150,7 +162,7 @@ decode_split_kernel(float* __restrict__ out, float* __restrict__ part, const flo
                     const float* __restrict__ k, const float* __restrict__ v,
                     const int32_t* __restrict__ count, CacheStrides ks, CacheStrides vs,
                     int window, int heads, int group, int splits, float scale_log2) {
-  using Tl = Tiling<DH>;
+  using Tl = Tiling<DH, MG>;
   constexpr int kVec = Tl::kVec;
   extern __shared__ uint4 staged[];  // [K, V][kSteps][kThreads]
   __shared__ float m_s[kWarps][MG], l_s[kWarps][MG];
@@ -171,8 +183,10 @@ decode_split_kernel(float* __restrict__ out, float* __restrict__ part, const flo
 
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int col = (lane % Tl::kLanesPerRow) * kVec;  // this lane's columns: col .. col + kVec - 1
-  const int slot = lane / Tl::kLanesPerRow;           // its row within a step
+  const int piece = lane % Tl::kLanesPerRow;
+  const bool active = piece < Tl::kLanesUsed;   // a lane past the row's end idles
+  const int col = active ? piece * kVec : 0;    // this lane's columns: col .. col + kVec - 1
+  const int slot = lane / Tl::kLanesPerRow;     // its row within a step
   auto row_of = [&](int step) {
     return w0 + warp * kRowsPerWarp + step * Tl::kRowsPerStep + slot;
   };
@@ -185,7 +199,7 @@ decode_split_kernel(float* __restrict__ out, float* __restrict__ part, const flo
 #pragma unroll
   for (int step = 0; step < Tl::kSteps; ++step) {
     const int row = row_of(step);
-    const bool live = row < n;
+    const bool live = active && row < n;
     cp_async16(k_st + step * kThreads, live ? k_base + row * ks.w : k_base, live ? 16 : 0);
     cp_async16(v_st + step * kThreads, live ? v_base + row * vs.w : v_base, live ? 16 : 0);
   }
@@ -193,8 +207,9 @@ decode_split_kernel(float* __restrict__ out, float* __restrict__ part, const flo
   uint4 q_raw[MG];
 #pragma unroll
   for (int g = 0; g < MG; ++g)
-    q_raw[g] = g < group ? *reinterpret_cast<const uint4*>(q + (out_row + g) * DH + col)
-                         : make_uint4(0, 0, 0, 0);
+    q_raw[g] = g < group && active
+                   ? *reinterpret_cast<const uint4*>(q + (out_row + g) * DH + col)
+                   : make_uint4(0, 0, 0, 0);
   float qf[MG][kVec];
 #pragma unroll
   for (int g = 0; g < MG; ++g) unpack(q_raw[g], qf[g]);
@@ -275,7 +290,7 @@ decode_split_kernel(float* __restrict__ out, float* __restrict__ part, const flo
       for (int e = 0; e < kVec; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
     }
   }
-  if (slot == 0) {
+  if (slot == 0 && active) {
 #pragma unroll
     for (int g = 0; g < MG; ++g) {
 #pragma unroll
@@ -292,15 +307,18 @@ decode_split_kernel(float* __restrict__ out, float* __restrict__ part, const flo
 }
 
 // bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, float32 out) with
-// the group's G <= 8 query rows as the 16-row A operand (rows G..15 zero).
+// the group's G <= 16 query rows as the 16-row A operand (rows G..15 zero;
+// with MG = 8 rows 8..15 are not even loaded or softmaxed).
 // Each warp takes 16 cache rows of the chunk: S[16, 16] = Q.K^T in two
 // n-blocks, its online-softmax state for its 16 rows, and O[16, Dh] +=
 // P.V with P in registers (the accumulator layout of S is the A-fragment
 // layout of P), so a cache row costs a few instructions instead of the
 // CUDA-core path's ~90 a lane.  K and V reach the fragments through
 // ldmatrix from shared memory, each 16-byte piece at column (c ^ row % 8)
-// so that the 8 rows one ldmatrix reads fall in different banks.  P is
-// rounded to bf16 for the product (at most 2^-9 relative a term).
+// so that the 8 rows one ldmatrix reads fall in different banks; a staged
+// row takes a multiple of 8 pieces (16 at Dh 80 and 112, whose 10 and 14
+// pieces would otherwise swizzle past the row's end).  P is rounded to
+// bf16 for the product (at most 2^-9 relative a term).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -311,33 +329,69 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
-// d += a . b for one m16n8k16 tile; rows 8..15 of a (a1, a3) are zero here.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a2, uint32_t b0,
+// d += a . b for one m16n8k16 tile: a0, a2 hold row g of a, a1, a3 row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int DH>
+// 16-byte pieces a staged bf16 row takes: its Dh / 8, rounded up to the
+// 8-piece swizzle.
+__host__ __device__ constexpr int staged_pitch(int dh) { return dh / 8 < 8 ? dh / 8 : (dh / 8 + 7) / 8 * 8; }
+
+// The warp's softmax over its 16 rows for one query row: s[nb][i0], s[nb][i0 + 1]
+// (a quad's lanes share the row); s becomes P, returns (max, sum) in log2 units.
+__device__ __forceinline__ float2 quad_softmax(float (&s)[2][4], int i0, int row0, int kq,
+                                               int n, float scale_log2) {
+  float mx = -CUDART_INF_F;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool live = row0 + 8 * nb + kq + e < n;
+      s[nb][i0 + e] = live ? s[nb][i0 + e] * scale_log2 : -CUDART_INF_F;
+      mx = fmaxf(mx, s[nb][i0 + e]);
+    }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float m_use = mx == -CUDART_INF_F ? 0.f : mx;  // no live row in this warp
+  float lsum = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nb][i0 + e] = exp2f(s[nb][i0 + e] - m_use);
+      lsum += s[nb][i0 + e];
+    }
+  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+  lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+  return make_float2(mx, lsum);
+}
+
+template <int DH, int MG>
 __global__ void __launch_bounds__(kThreads)
 decode_split_mma_kernel(__nv_bfloat16* __restrict__ out, float* __restrict__ part,
                         const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ count,
                         CacheStrides ks, CacheStrides vs, int window, int heads, int group,
                         int splits, float scale_log2) {
+  constexpr bool kHi = MG > 8;          // query rows 8..15 live
   constexpr int kPieces = DH / 8;       // 16-byte pieces a row
   constexpr int kSwz = kPieces < 8 ? kPieces : 8;
-  constexpr int kWarpBytes = kRowsPerWarp * DH * 2;
-  extern __shared__ uint4 staged[];     // [warp][K, V][16 rows][kPieces], swizzled
-  __shared__ float m_s[kWarps][kMaxGroup], l_s[kWarps][kMaxGroup];
-  __shared__ float acc_s[kWarps][kMaxGroup][DH];
+  constexpr int kPitch = staged_pitch(DH);
+  constexpr int kWarpBytes = kRowsPerWarp * kPitch * 16;
+  static_assert(DH % 16 == 0, "mma.sync takes the head dim in steps of 16");
+  extern __shared__ uint4 staged[];     // [warp][K, V][16 rows][kPitch], swizzled
+  __shared__ float m_s[kWarps][MG], l_s[kWarps][MG];
+  __shared__ float acc_s[kWarps][MG][DH];
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -366,21 +420,27 @@ decode_split_mma_kernel(__nv_bfloat16* __restrict__ out, float* __restrict__ par
     const int r = c / kPieces, piece = c % kPieces;
     const int row = row0 + r;
     const bool live = row < n;
-    const uint32_t off = (r * kPieces + (piece ^ (r % kSwz))) * 16;
+    const uint32_t off = (r * kPitch + (piece ^ (r % kSwz))) * 16;
     cp_async16_addr(k_st + off, live ? k_base + row * ks.w + piece * 8 : k_base, live ? 16 : 0);
     cp_async16_addr(v_st + off, live ? v_base + row * vs.w + piece * 8 : v_base, live ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // Q as the A operand: a0 = (g, 16kk + 2(lane%4) + {0,1}), a2 = the same + 8.
+  // Q as the A operand: a0 = (g, 16kk + 2(lane%4) + {0,1}), a2 = the same
+  // + 8 columns; a1, a3 the same for query row g + 8.
   const int g = lane / 4;
   const int kq = 2 * (lane % 4);
-  uint32_t qa[DH / 16][2];
+  uint32_t qa[DH / 16][4];
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
-    const __nv_bfloat16* qr = q + (out_row + g) * DH + 16 * kk + kq;
-    qa[kk][0] = g < group ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
-    qa[kk][1] = g < group ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = g + 8 * hi;
+      const bool live = (hi == 0 || kHi) && row < group;
+      const __nv_bfloat16* qr = q + (out_row + row) * DH + 16 * kk + kq;
+      qa[kk][hi] = live ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
+      qa[kk][hi + 2] = live ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
+    }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncwarp();
@@ -391,44 +451,27 @@ decode_split_mma_kernel(__nv_bfloat16* __restrict__ out, float* __restrict__ par
   const int kr = (lane % 8) + 8 * (lane / 16), kp = (lane / 8) % 2;
   const int vr = lane % 16, vp = lane / 16;
   auto at = [&](uint32_t base, int r, int piece) {
-    return base + (r * kPieces + (piece ^ (r % kSwz))) * 16;
+    return base + (r * kPitch + (piece ^ (r % kSwz))) * 16;
   };
 
-  // S = Q.K^T: s[nb] holds rows g (c0, c1) and g + 8 (c2, c3, zero) for
+  // S = Q.K^T: s[nb] holds query rows g (c0, c1) and g + 8 (c2, c3) for
   // cache rows 8nb + 2(lane%4) + {0, 1}.
   float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     uint32_t kb[4];  // b0, b1 of n-block 0, then of n-block 1
     ldmatrix_x4(kb, at(k_st, kr, 2 * kk + kp));
-    mma_bf16(s[0], qa[kk][0], qa[kk][1], kb[0], kb[1]);
-    mma_bf16(s[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
+    mma_bf16(s[0], qa[kk], kb[0], kb[1]);
+    mma_bf16(s[1], qa[kk], kb[2], kb[3]);
   }
 
-  // The warp's softmax over its 16 rows for query row g (a quad's lanes).
-  float mx = -CUDART_INF_F;
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool live = row0 + 8 * nb + kq + e < n;
-      s[nb][e] = live ? s[nb][e] * scale_log2 : -CUDART_INF_F;
-      mx = fmaxf(mx, s[nb][e]);
-    }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  const float m_use = mx == -CUDART_INF_F ? 0.f : mx;  // no live row in this warp
-  float lsum = 0.f;
-#pragma unroll
-  for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[nb][e] = exp2f(s[nb][e] - m_use);
-      lsum += s[nb][e];
-    }
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-  const uint32_t pa0 = pack_bf16(s[0][0], s[0][1]), pa2 = pack_bf16(s[1][0], s[1][1]);
+  // The warp's softmax over its 16 rows for query rows g and g + 8.
+  const float2 lo = quad_softmax(s, 0, row0, kq, n, scale_log2);
+  const float2 hi = kHi ? quad_softmax(s, 2, row0, kq, n, scale_log2) : make_float2(0.f, 0.f);
+  const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                          kHi ? pack_bf16(s[0][2], s[0][3]) : 0u,
+                          pack_bf16(s[1][0], s[1][1]),
+                          kHi ? pack_bf16(s[1][2], s[1][3]) : 0u};
 
   // O = P.V: d-blocks of 8 columns, two per ldmatrix.
   float o[DH / 8][4];
@@ -438,25 +481,29 @@ decode_split_mma_kernel(__nv_bfloat16* __restrict__ out, float* __restrict__ par
   for (int db = 0; db < DH / 8; db += 2) {
     uint32_t vb[4];  // b0, b1 of d-block db, then of db + 1
     ldmatrix_x4_trans(vb, at(v_st, vr, db + vp));
-    mma_bf16(o[db], pa0, pa2, vb[0], vb[1]);
-    mma_bf16(o[db + 1], pa0, pa2, vb[2], vb[3]);
+    mma_bf16(o[db], pa, vb[0], vb[1]);
+    mma_bf16(o[db + 1], pa, vb[2], vb[3]);
   }
 
   // Merge the warps: the same arithmetic as the CUDA-core path.
-  if (g < group) {
 #pragma unroll
-    for (int db = 0; db < DH / 8; ++db) {
-      acc_s[warp][g][8 * db + kq] = o[db][0];
-      acc_s[warp][g][8 * db + kq + 1] = o[db][1];
-    }
-    if (lane % 4 == 0) {
-      m_s[warp][g] = mx;
-      l_s[warp][g] = lsum;
+  for (int h = 0; h < (kHi ? 2 : 1); ++h) {
+    const int row = g + 8 * h;
+    if (row < group) {
+#pragma unroll
+      for (int db = 0; db < DH / 8; ++db) {
+        acc_s[warp][row][8 * db + kq] = o[db][2 * h];
+        acc_s[warp][row][8 * db + kq + 1] = o[db][2 * h + 1];
+      }
+      if (lane % 4 == 0) {
+        m_s[warp][row] = h ? hi.x : lo.x;
+        l_s[warp][row] = h ? hi.y : lo.y;
+      }
     }
   }
   __syncthreads();
-  merge_warps<__nv_bfloat16, DH, kMaxGroup>(out, part, m_s, l_s, acc_s, out_row, group, splits,
-                                            static_cast<long long>(b) * gridDim.x + hk, split);
+  merge_warps<__nv_bfloat16, DH, MG>(out, part, m_s, l_s, acc_s, out_row, group, splits,
+                                     static_cast<long long>(b) * gridDim.x + hk, split);
 }
 
 // Merge the partials of the splits below count[b] for one (hk, b), in one
@@ -532,7 +579,7 @@ template <int DH, int MG>
 int launch_f32(void* out, void* part, const void* q, const void* k, const void* v,
                const void* count, CacheStrides ks, CacheStrides vs, int batch, int window,
                int heads, int kv_heads, int splits, float scale, cudaStream_t stream) {
-  constexpr int kStaged = 2 * Tiling<DH>::kSteps * kThreads * 16;  // K and V pieces
+  constexpr int kStaged = 2 * Tiling<DH, MG>::kSteps * kThreads * 16;  // K and V pieces
   const int err = allow_smem(decode_split_kernel<DH, MG>, kStaged, MG, DH);
   if (err != 0) return err;
   decode_split_kernel<DH, MG><<<dim3(kv_heads, batch, splits), kThreads, kStaged, stream>>>(
@@ -543,16 +590,16 @@ int launch_f32(void* out, void* part, const void* q, const void* k, const void* 
   return finish<float, DH>(out, part, count, batch, window, heads, kv_heads, splits, stream);
 }
 
-// bf16: the tensor-core split pass.
-template <int DH>
+// bf16: the tensor-core split pass, MG >= the group size.
+template <int DH, int MG>
 int launch_bf16(void* out, void* part, const void* q, const void* k, const void* v,
                 const void* count, CacheStrides ks, CacheStrides vs, int batch, int window,
                 int heads, int kv_heads, int splits, float scale, cudaStream_t stream) {
   using T = __nv_bfloat16;
-  constexpr int kStaged = kWarps * 2 * kRowsPerWarp * DH * 2;  // K and V rows
-  const int err = allow_smem(decode_split_mma_kernel<DH>, kStaged, kMaxGroup, DH);
+  constexpr int kStaged = kWarps * 2 * kRowsPerWarp * staged_pitch(DH) * 16;  // K and V rows
+  const int err = allow_smem(decode_split_mma_kernel<DH, MG>, kStaged, MG, DH);
   if (err != 0) return err;
-  decode_split_mma_kernel<DH><<<dim3(kv_heads, batch, splits), kThreads, kStaged, stream>>>(
+  decode_split_mma_kernel<DH, MG><<<dim3(kv_heads, batch, splits), kThreads, kStaged, stream>>>(
       static_cast<T*>(out), static_cast<float*>(part), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int32_t*>(count), ks,
       vs, window, heads, heads / kv_heads, splits, scale * kLog2e);
@@ -564,14 +611,18 @@ int dispatch(int dtype, void* out, void* part, const void* q, const void* k, con
              const void* count, CacheStrides ks, CacheStrides vs, int batch, int window,
              int heads, int kv_heads, int splits, float scale, cudaStream_t stream) {
   const int group = heads / kv_heads;
+  if (dtype == 1 && group <= 8)
+    return launch_bf16<DH, 8>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
   if (dtype == 1)
-    return launch_bf16<DH>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
+    return launch_bf16<DH, kMaxGroup>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
   if (group <= 2)
     return launch_f32<DH, 2>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
   if (group == 3)
     return launch_f32<DH, 3>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
   if (group <= 4)
     return launch_f32<DH, 4>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
+  if (group <= 8)
+    return launch_f32<DH, 8>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
   return launch_f32<DH, kMaxGroup>(out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, stream);
 }
 
@@ -597,6 +648,8 @@ extern "C" int flash_decode_fwd(void* out, void* part, const void* q, const void
     case 16: return dispatch<16>(dtype, out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, s);
     case 32: return dispatch<32>(dtype, out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, s);
     case 64: return dispatch<64>(dtype, out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, s);
+    case 80: return dispatch<80>(dtype, out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, s);
+    case 112: return dispatch<112>(dtype, out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, s);
     case 128: return dispatch<128>(dtype, out, part, q, k, v, count, ks, vs, batch, window, heads, kv_heads, splits, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

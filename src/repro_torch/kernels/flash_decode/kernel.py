@@ -26,8 +26,8 @@ from .. import _build
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP = 8  # query heads per KV head
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+MAX_GROUP = 16  # query heads per KV head
 CHUNK = 64  # cache rows per CTA; the kernel's kChunk
 
 _P = ctypes.c_void_p

@@ -20,8 +20,24 @@ JAX); ``remat`` checkpoints each layer (``none | full | dots``).
 ``use_flash`` sends causal prefill attention through K3, which has no
 backward: under autograd it raises, as the reference's Pallas kernel does
 under ``jax.grad``, so training leaves it off.  Decode attention always
-goes through K4.  Only the ``dense`` family is ported; the others raise
-``NotImplementedError`` (ROADMAP queue 1, item 11).
+goes through K4.
+
+Families, with the reference's trees:
+
+* ``dense``: ``layers`` stacked on ``[L]``; cache ``kv`` ``[L, ...]``.
+* ``moe``: ``dense_layers``, a list of the first ``first_dense_layers``
+  blocks (FFN width ``dense_d_ff``), and ``layers``, the MoE blocks
+  stacked on ``[L - fd]``; cache ``dense_kv`` (a list) and ``kv``.
+* ``ssm`` (xLSTM): ``groups`` stacked on ``[G]``, one per cycle of
+  ``xlstm_pattern``, each with ``mlstm`` stacked on ``[n_m]`` and one
+  ``slstm``; the cache nests the same way.
+* ``hybrid`` (Zamba2): ``layers`` (mamba2) stacked on ``[L]`` and one
+  ``shared`` attention block, applied after every ``shared_attn_every``
+  mamba layers (one weight copy); cache ``mamba`` ``[L, ...]`` and
+  ``shared_kv``, one ring cache per site of the shared block.
+
+``audio`` and ``vlm`` raise ``NotImplementedError`` (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -38,8 +54,11 @@ from torch.utils.checkpoint import (
 from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
 from ..mcmc import prng
-from . import layers as L
 from ..core.tree import tree_flatten_with_path, tree_unflatten
+from . import layers as L
+from . import mamba2 as M
+from . import moe as MOE
+from . import xlstm as X
 
 Params = dict
 
@@ -70,55 +89,91 @@ def _remat(fn, mode: str):
     raise ValueError(f"unknown remat mode {mode!r}")
 
 
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: only "
-            "'dense' runs in repro_torch (ROADMAP queue 1, item 11)"
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: repro_torch runs "
+            f"{', '.join(PORTED_FAMILIES)} (ROADMAP queue 1, item 11)"
         )
 
 
-def init_attn_block(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+def init_attn_block(gen: torch.Generator, cfg: ArchConfig, device, moe_layer: bool = False
+                    ) -> Params:
     p = {
         "ln1": L.init_norm(cfg, cfg.d_model, device),
         "attn": L.init_attention(gen, cfg, device),
         "ln2": L.init_norm(cfg, cfg.d_model, device),
     }
-    if cfg.norm == "ln":
+    if moe_layer:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    elif cfg.norm == "ln":
         p["mlp"] = L.init_gelu_mlp(gen, cfg, cfg.d_model, cfg.d_ff, device)
     else:
-        p["mlp"] = L.init_swiglu(gen, cfg, cfg.d_model, cfg.d_ff, device)
+        d_ff = cfg.dense_d_ff if cfg.family == "moe" else cfg.d_ff
+        p["mlp"] = L.init_swiglu(gen, cfg, cfg.d_model, d_ff, device)
     return p
 
 
-def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     hn = L.norm(p["ln2"], h, cfg)
-    return L.gelu_mlp(p["mlp"], hn) if cfg.norm == "ln" else L.swiglu(p["mlp"], hn)
+    if "moe" in p:
+        return MOE.moe_ffn(p["moe"], hn, cfg)
+    return (L.gelu_mlp(p["mlp"], hn) if cfg.norm == "ln" else L.swiglu(p["mlp"], hn)), {}
 
 
-def attn_block(p, h, cfg, positions, use_flash=False):
+def attn_block(p, h, cfg, positions, use_flash=False) -> tuple[torch.Tensor, dict]:
+    """One attention block; returns (h, aux), aux empty unless MoE."""
     h = h + L.attention(p["attn"], L.norm(p["ln1"], h, cfg), cfg, positions,
                         use_flash=use_flash)
-    return h + _ffn(p, h, cfg)
+    y, aux = _ffn(p, h, cfg)
+    return h + y, aux
 
 
 def attn_block_decode(p, h, cfg, cache, pos):
     out, cache = L.attention_decode(p["attn"], L.norm(p["ln1"], h, cfg), cfg, cache, pos)
     h = h + out
-    return h + _ffn(p, h, cfg), cache
+    return h + _ffn(p, h, cfg)[0], cache
 
 
 def _index(tree, i: int):
-    """Layer ``i`` of a dict of stacked tensors (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+    """Entry ``i`` of a dict of stacked tensors (views, no copies)."""
+    return _map(lambda t: t[i], tree)
 
 
 def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _stacked(n: int, make) -> Params:
+    """``make()`` called ``n`` times, its trees stacked on a new leading
+    axis.  Each is copied into the stack as it comes, so one lives beside
+    the stack at a time: a list of all of them would double the peak
+    memory of a full-width init."""
+    out = None
+    for i in range(n):
+        entry = make()
+        if out is None:
+            out = _map(lambda t: t.new_empty((n,) + t.shape), entry)
+        _map(lambda dst, src: dst[i].copy_(src), out, entry)
+    return out
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of dicts of tensors, keeping each dict's key
+    order: a decode step's new cache must flatten in its ``init_cache``'s
+    order, which the serving engine relies on."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _n_mlstm(cfg: ArchConfig) -> int:
+    return cfg.xlstm_pattern.count("mlstm")
 
 
 @dataclass
@@ -157,13 +212,51 @@ class Model:
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters from ``generator`` (its draws, not JAX's: tests
         carry the JAX package's weights across instead)."""
-        cfg, dev = self.cfg, self.device
-        return {
-            "final_norm": L.init_norm(cfg, cfg.d_model, dev),
-            "embed": L.init_embed(generator, cfg, dev),
-            "layers": _stack([init_attn_block(generator, cfg, dev)
-                              for _ in range(cfg.num_layers)]),
-        }
+        cfg, dev, gen = self.cfg, self.device, generator
+        params: Params = {"final_norm": L.init_norm(cfg, cfg.d_model, dev),
+                          "embed": L.init_embed(gen, cfg, dev)}
+        if cfg.family == "dense":
+            params["layers"] = _stacked(cfg.num_layers, lambda: init_attn_block(gen, cfg, dev))
+        elif cfg.family == "moe":
+            fd = cfg.first_dense_layers
+            params["dense_layers"] = [init_attn_block(gen, cfg, dev) for _ in range(fd)]
+            params["layers"] = _stacked(cfg.num_layers - fd, lambda: init_attn_block(
+                gen, cfg, dev, moe_layer=True))
+        elif cfg.family == "ssm":
+            def init_group() -> Params:
+                g: Params = {}
+                if _n_mlstm(cfg):
+                    g["mlstm"] = _stacked(_n_mlstm(cfg), lambda: {
+                        "ln": L.init_norm(cfg, cfg.d_model, dev),
+                        "cell": X.init_mlstm(gen, cfg, dev)})
+                if "slstm" in cfg.xlstm_pattern:
+                    g["slstm"] = {"ln": L.init_norm(cfg, cfg.d_model, dev),
+                                  "cell": X.init_slstm(gen, cfg, dev)}
+                return g
+
+            params["groups"] = _stacked(self._n_groups, init_group)
+        else:  # hybrid
+            params["layers"] = _stacked(cfg.num_layers, lambda: {
+                "ln": L.init_norm(cfg, cfg.d_model, dev), "mamba": M.init_mamba2(gen, cfg, dev)})
+            params["shared"] = init_attn_block(gen, cfg, dev)
+        return params
+
+    @property
+    def attention_sites(self) -> int:
+        """Attention layers a decode step runs, each one K4 launch (none in
+        xLSTM; one a site of Zamba2's shared block)."""
+        if self.cfg.family == "ssm":
+            return 0
+        return self._n_groups if self.cfg.family == "hybrid" else self.cfg.num_layers
+
+    @property
+    def _n_groups(self) -> int:
+        """xLSTM pattern cycles (``ssm``) or sites of the shared block
+        (``hybrid``)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return cfg.num_layers // len(cfg.xlstm_pattern)
+        return cfg.num_layers // cfg.shared_attn_every
 
     # ------------------------------------------------------------- fwd
 
@@ -181,20 +274,67 @@ class Model:
     def forward(self, params: Params, batch: dict, remat: str = "none"
                 ) -> tuple[torch.Tensor, dict]:
         """Full-sequence logits ``[B, S, V]`` in the compute dtype, and the
-        aux dict (``moe_aux_loss``, 0 for the dense family)."""
+        aux dict (``moe_aux_loss``, summed over the MoE layers; 0 for the
+        other families)."""
         cfg = self.cfg
         tokens, positions, _ = self._inputs(batch)
         h = L.embed(params["embed"], tokens, cfg)
-
-        def body(h, lp):
-            return attn_block(lp, h, cfg, positions, use_flash=self.use_flash)
-
-        body = _remat(body, remat)
-        for i in range(cfg.num_layers):
-            h = body(h, _index(params["layers"], i))
+        h, aux_loss = self.backbone(params, h, positions, remat)
         h = L.norm(params["final_norm"], h, cfg)
-        aux = {"moe_aux_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
-        return L.unembed(params["embed"], h, cfg), aux
+        return L.unembed(params["embed"], h, cfg), {"moe_aux_loss": aux_loss}
+
+    def backbone(self, params: Params, h: torch.Tensor, positions: torch.Tensor,
+                 remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
+        """The layer stack: (h, the MoE layers' summed ``moe_aux_loss``).
+        ``remat`` checkpoints each scanned body of the reference: a layer,
+        an xLSTM group, a Zamba2 group with its shared block, a tail layer."""
+        cfg = self.cfg
+        aux_loss = torch.zeros((), dtype=torch.float32, device=h.device)
+
+        def block(h, lp):
+            h, aux = attn_block(lp, h, cfg, positions, use_flash=self.use_flash)
+            return h, aux.get("moe_aux_loss")
+
+        if cfg.family in ("dense", "moe"):
+            dense_layers = params.get("dense_layers", [])
+            for lp in dense_layers:
+                h, _ = block(h, lp)
+            body = _remat(block, remat)
+            for i in range(cfg.num_layers - len(dense_layers)):
+                h, layer_aux = body(h, _index(params["layers"], i))
+                if layer_aux is not None:
+                    aux_loss = aux_loss + layer_aux
+        elif cfg.family == "ssm":
+            def group(h, gp):
+                for j in range(_n_mlstm(cfg)):
+                    mp = _index(gp["mlstm"], j)
+                    h = h + X.mlstm_forward(mp["cell"], L.norm(mp["ln"], h, cfg), cfg)
+                if "slstm" in gp:
+                    sp = gp["slstm"]
+                    h = h + X.slstm_forward(sp["cell"], L.norm(sp["ln"], h, cfg), cfg)
+                return h
+
+            body = _remat(group, remat)
+            for g in range(self._n_groups):
+                h = body(h, _index(params["groups"], g))
+        else:  # hybrid
+            every, layers = cfg.shared_attn_every, params["layers"]
+
+            def mamba(h, lp):
+                return h + M.mamba2_forward(lp["mamba"], L.norm(lp["ln"], h, cfg), cfg)
+
+            def group(h, first):
+                for i in range(first, first + every):
+                    h = mamba(h, _index(layers, i))
+                return attn_block(params["shared"], h, cfg, positions,
+                                  use_flash=self.use_flash)[0]
+
+            group, mamba = _remat(group, remat), _remat(mamba, remat)
+            for g in range(self._n_groups):
+                h = group(h, g * every)
+            for i in range(self._n_groups * every, cfg.num_layers):
+                h = mamba(h, _index(layers, i))
+        return h, aux_loss
 
     # ------------------------------------------------------------- loss
 
@@ -217,13 +357,34 @@ class Model:
     # ------------------------------------------------------------- serve
 
     def init_cache(self, batch: int, window: int, device=None) -> Params:
-        """``{"kv": {"k": [L, B, W, Hkv, Dh], "v": ...}}`` zeros in the
-        compute dtype, on ``device`` (default: the model's)."""
+        """The decode cache in the reference's tree (see the module
+        docstring), on ``device`` (default: the model's).  KV rings are
+        zeros of ``[B, W, Hkv, Dh]`` in the compute dtype; recurrent states
+        are float32, with the xLSTM stabilizers ``m`` at ``-1e30``."""
         cfg = self.cfg
         dev = self.device if device is None else torch.device(device)
-        layer = L.init_kv_cache(cfg, batch, window, L.cdtype(cfg), dev)
-        return {"kv": {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.dim())
-                       for k, v in layer.items()}}
+        dt = L.cdtype(cfg)
+
+        def kv(n: int) -> Params:
+            return _stacked(n, lambda: L.init_kv_cache(cfg, batch, window, dt, dev))
+
+        if cfg.family == "dense":
+            return {"kv": kv(cfg.num_layers)}
+        if cfg.family == "moe":
+            fd = cfg.first_dense_layers
+            return {"dense_kv": [L.init_kv_cache(cfg, batch, window, dt, dev) for _ in range(fd)],
+                    "kv": kv(cfg.num_layers - fd)}
+        if cfg.family == "ssm":
+            cache: Params = {}
+            if _n_mlstm(cfg):
+                cache["mlstm"] = _stacked(self._n_groups, lambda: _stacked(
+                    _n_mlstm(cfg), lambda: X.init_mlstm_cache(cfg, batch, dt, dev)))
+            if "slstm" in cfg.xlstm_pattern:
+                cache["slstm"] = _stacked(self._n_groups,
+                                          lambda: X.init_slstm_cache(cfg, batch, dt, dev))
+            return cache
+        return {"mamba": _stacked(cfg.num_layers, lambda: M.init_mamba2_cache(cfg, batch, dt, dev)),
+                "shared_kv": kv(self._n_groups)}
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
                     pos: torch.Tensor) -> tuple[torch.Tensor, Params]:
@@ -231,15 +392,57 @@ class Model:
         Returns (logits [B, V] float32, new cache); ``cache`` is not written."""
         cfg = self.cfg
         h = L.embed(params["embed"], tokens[:, None], cfg)  # [B,1,d]
-        new_layers = []
-        for i in range(cfg.num_layers):
-            h, lc = attn_block_decode(_index(params["layers"], i), h, cfg,
-                                      _index(cache["kv"], i), pos)
-            new_layers.append(lc)
+        if cfg.family in ("dense", "moe"):
+            new = {}
+            if cfg.family == "moe":
+                new["dense_kv"] = []
+                for lp, lc in zip(params["dense_layers"], cache["dense_kv"]):
+                    h, lc = attn_block_decode(lp, h, cfg, lc, pos)
+                    new["dense_kv"].append(lc)
+            layers = []
+            for i in range(cache["kv"]["k"].shape[0]):
+                h, lc = attn_block_decode(_index(params["layers"], i), h, cfg,
+                                          _index(cache["kv"], i), pos)
+                layers.append(lc)
+            new["kv"] = _stack(layers)
+        elif cfg.family == "ssm":
+            groups = []
+            for g in range(self._n_groups):
+                gp, gc = _index(params["groups"], g), _index(cache, g)
+                new_gc = {}
+                if "mlstm" in gp:
+                    cells = []
+                    for j in range(_n_mlstm(cfg)):
+                        mp = _index(gp["mlstm"], j)
+                        y, mc = X.mlstm_decode_step(mp["cell"], L.norm(mp["ln"], h, cfg), cfg,
+                                                    _index(gc["mlstm"], j))
+                        h = h + y
+                        cells.append(mc)
+                    new_gc["mlstm"] = _stack(cells)
+                if "slstm" in gp:
+                    sp = gp["slstm"]
+                    y, new_gc["slstm"] = X.slstm_decode_step(
+                        sp["cell"], L.norm(sp["ln"], h, cfg), cfg, gc["slstm"])
+                    h = h + y
+                groups.append(new_gc)
+            new = _stack(groups)
+        else:  # hybrid
+            every = cfg.shared_attn_every
+            mamba, sites = [], []
+            for i in range(cfg.num_layers):
+                lp = _index(params["layers"], i)
+                y, lc = M.mamba2_decode_step(lp["mamba"], L.norm(lp["ln"], h, cfg), cfg,
+                                             _index(cache["mamba"], i))
+                h = h + y
+                mamba.append(lc)
+                if (i + 1) % every == 0:  # a site of the shared block
+                    h, skv = attn_block_decode(params["shared"], h, cfg,
+                                               _index(cache["shared_kv"], len(sites)), pos)
+                    sites.append(skv)
+            new = {"mamba": _stack(mamba), "shared_kv": _stack(sites)}
         h = L.norm(params["final_norm"], h, cfg)
         logits = L.unembed(params["embed"], h, cfg)[:, 0]
-        return logits.float(), {"kv": _stack(new_layers)}
-
+        return logits.float(), new
 
     # ------------------------------------------------------------- specs
 

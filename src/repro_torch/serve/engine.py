@@ -9,7 +9,7 @@ a pre-assigned queue of requests.  The per-lane program is plain control
 flow::
 
     for each request in my queue:          # outer while
-        reset cache;                        # masked zeroing
+        reset cache;                        # masked, to init_cache
         while t < prompt_len: decode(...)   # streaming prefill
         while not EOS and n < max_new:      # generation loop
             emit token; decode(...)
@@ -139,6 +139,16 @@ def _cache_layout(model: Model, window: int):
     return pytree.tree_structure(c1), axes, member_specs
 
 
+def _cache_inits(model: Model, window: int, axes: list[int]) -> list[torch.Tensor]:
+    """One lane's cache leaves as ``init_cache`` makes them (on the CPU):
+    what each lane's cache is reset to before a request.  KV rings and
+    SSM states start at zero, the xLSTM stabilizers ``m`` at -1e30 (the
+    JAX package's engine zeroes them, so it starts xLSTM requests from
+    another state than its own ``init_cache`` and oracle)."""
+    leaves = pytree.tree_leaves(model.init_cache(1, window, device="cpu"))
+    return [leaf.select(ax, 0) for leaf, ax in zip(leaves, axes)]
+
+
 def _get(arr: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
     """``arr[idx]`` with each index clamped into its axis, as JAX's gathers
     clamp: a lane outside the block that reads (a finished prefill's
@@ -241,6 +251,7 @@ class GenerationEngine:
         #: engines to aggregate them.
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.treedef, self.axes, self.member_specs = _cache_layout(model, cfg.max_context)
+        self.member_inits = _cache_inits(model, cfg.max_context, self.axes)
         self.program = self._build_program()
         self.batched = batching.autobatch(
             self.program,
@@ -289,8 +300,11 @@ class GenerationEngine:
             else:
                 tok = torch.func.vmap(lambda k, lg: prng.categorical(k, lg / temp))(
                     keys[:, 1], logits).to(torch.int32)
-            new_leaves = [leaf.movedim(ax, 0) for leaf, ax in
-                          zip(pytree.tree_leaves(new_cache), axes)]
+            flat, new_def = pytree.tree_flatten(new_cache)
+            if new_def != treedef:
+                raise ValueError(f"decode_step returned a cache of another tree than "
+                                 f"init_cache's: {new_def} vs {treedef}")
+            new_leaves = [leaf.movedim(ax, 0) for leaf, ax in zip(flat, axes)]
             return (tok, keys[:, 0], *new_leaves)
 
         return decode
@@ -348,9 +362,8 @@ class GenerationEngine:
         n_leaves = len(self.member_specs)
         eos, n_new = cfg.eos_id, cfg.max_new_tokens
         # reset per-request state (masked, per-lane)
-        for v, sp in zip(leaf_vars, self.member_specs):
-            zeros = torch.zeros(sp.shape, dtype=sp.dtype)
-            fb.prim(lambda zeros=zeros: zeros, (), out=v, name="reset_cache")
+        for v, init in zip(leaf_vars, self.member_inits):
+            fb.prim(lambda init=init: init, (), out=v, name="reset_cache")
         fb.const(0, torch.int32, out="pos")
         fb.const(0, torch.int32, out="t")
         # ---- streaming prefill ----

@@ -2,8 +2,8 @@
 (stack ops K1/K2, flash attention K3, decode attention K4) against their
 plain versions, a failed build raising, and the VM (every schedule, lane
 compaction), local static batching from CUDA graphs, NUTS (pc and
-iterative) and the serving engine on CUDA against the same port on the CPU,
-its eager mode or its own oracle; segmented runs and quarantined faults on
+iterative), the serving engine and the MoE, xLSTM and Zamba2 models on
+CUDA against the same port on the CPU, its eager mode or its own oracle; segmented runs and quarantined faults on
 the card against one run and the CPU, and open-loop serving against its
 oracle; traced and profile-guided NUTS bit-exact with the plain run on the
 card, and the engine's program verified there (fake typing, K3/K4 through
@@ -39,6 +39,7 @@ from repro_torch.testing import (  # noqa: E402
     attention_inputs, build_fib, build_mutual, decode_inputs, engine_inputs,
     stack_group_inputs, to_torch,
 )
+from repro_torch.train.fault_tolerance import reshard  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -343,13 +344,17 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=1e-2
     (2, 32, 32, 4, 1, 16, True),
     (1, 192, 192, 2, 2, 128, True),
     (2, 64, 128, 4, 2, 64, False),
+    (2, 128, 128, 4, 2, 112, True),   # Zamba2-7B's head dim
+    (1, 192, 192, 4, 4, 80, True),    # HuBERT-XLarge's head dim
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, h, hk, dh, causal):
     q, k, v = (x.to(cuda, dtype) for x in attention_inputs(b, s, t, h, hk, dh, seed=1))
-    before = fa_ops.flash_attention.launches
+    before, before_sm90 = fa_ops.flash_attention.launches, fa_ops.flash_attention.sm90_launches
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
+    on_sm90 = fa_kernel.route(dtype, dh) == "sm90"
+    assert fa_ops.flash_attention.sm90_launches == before_sm90 + on_sm90
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), fa_ref.attention(q, k, v, causal=causal).float(),
                                **TOL[dtype])
@@ -433,6 +438,11 @@ def test_decode_attention_splits_at_chunk_boundaries(cuda, dtype, b, hk):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,w,h,hk,dh", [
     (2, 128, 4, 2, 16), (4, 256, 8, 1, 32), (3, 512, 9, 3, 64), (2, 96, 4, 2, 128),
+    (2, 256, 8, 4, 112),   # Zamba2-7B's head dim
+    (3, 192, 4, 2, 80),    # HuBERT-XLarge's head dim
+    (2, 128, 16, 1, 64),   # 16 query heads per KV head (Qwen3-MoE-235B-A22B's group)
+    (2, 200, 32, 2, 128),  # the same group at Dh 128, with a partial last chunk
+    (2, 96, 16, 1, 112),   # the largest group at Dh 112
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, b, w, h, hk, dh):
     q, k, v, count = decode_inputs(b, w, h, hk, dh, seed=3)
@@ -512,6 +522,59 @@ def test_failed_build_raises(cuda, monkeypatch, library, counter, call):
     finally:
         library.cache_clear()
     assert counter.launches == before
+
+
+FAMILY_ARCHS = ["deepseek-moe-16b", "xlstm-350m", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_decode_on_cuda_match_cpu(cuda, arch):
+    """Float32 smoke configs of the MoE, xLSTM and Zamba2 families: the
+    same weights on the card and on the CPU give the same logits (forward,
+    and 6 decode steps through K4), within 1e-4: float32 sums in another
+    order on each device, through every layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke_config(arch)
+    cpu = get_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    dev = get_model(cfg, device=cuda)
+    dparams = reshard(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32))
+    want, _ = cpu.forward(params, {"tokens": tokens})
+    got, _ = dev.forward(dparams, {"tokens": tokens.to(cuda)})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cache, dcache = cpu.init_cache(2, 8), dev.init_cache(2, 8)
+    before = fd_ops.decode_attention.launches
+    for step in range(6):
+        tok, pos = tokens[:, step], torch.full((2,), step, dtype=torch.int32)
+        want, cache = cpu.decode_step(params, cache, tok, pos)
+        got, dcache = dev.decode_step(dparams, dcache, tok.to(cuda), pos.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert fd_ops.decode_attention.launches == before + 6 * dev.attention_sites
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_engines_on_cuda_match_their_oracle(cuda, arch):
+    """The MoE, xLSTM and Zamba2 smoke configs served on the card, 4 lanes
+    x 2 requests: the sequential oracle's tokens, with K4 launched once per
+    attention site of every decode execution."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke_config(arch)
+    model = get_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ecfg = EngineConfig(lanes=4, max_context=16, max_prompt_len=6, max_new_tokens=6,
+                        requests_per_lane=2, eos_id=0)
+    eng = GenerationEngine(model, params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=0)
+    eng.batched.lowered
+    fd_ops.decode_attention.launches = 0
+    res = eng.generate(prompts, plens)
+    execs = eng.batched.tag_stats["decode"][0]
+    assert fd_ops.decode_attention.launches == model.attention_sites * execs
+    ref_out = eng.reference_generate(prompts, plens)
+    np.testing.assert_array_equal(res["tokens"], ref_out["tokens"])
+    np.testing.assert_array_equal(res["lengths"], ref_out["lengths"])
 
 
 def test_engine_on_cuda_matches_its_oracle(cuda):

@@ -224,8 +224,9 @@ def test_serve_step_is_greedy_decode(arch):
 
 def test_unported_paths_raise():
     cfg = configs.get_smoke_config("smollm-135m")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(dataclasses.replace(cfg, family="moe"), device="cpu")
+    for family in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            get_model(dataclasses.replace(cfg, family=family), device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):
         get_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device="cpu").init_cache(1, 4)
 
@@ -238,11 +239,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_decode_window_and_registry():
-    assert configs.list_archs() == ["qwen3-0.6b", "smollm-135m"]
+    assert configs.list_archs() == [
+        "deepseek-moe-16b", "qwen1.5-32b", "qwen3-0.6b", "qwen3-14b", "qwen3-moe-235b-a22b",
+        "smollm-135m", "xlstm-350m", "zamba2-7b"]
     full = configs.get_config("smollm-135m")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.d_ff, full.vocab_size) == (30, 576, 9, 3, 64, 1536, 49_152)
-    for name in ARCHS:
+    for name in configs.list_archs():
         assert configs.get_config(name) == _as_port(j_configs.get_config(name))
         for shape in configs.SHAPES.values():
             assert steps.decode_cache_window(configs.get_config(name), shape) == \
