@@ -141,7 +141,25 @@ non-zero (nothing is caught):
     attention printed; xLSTM without a kernel); then K3 and K4 at each
     family's own attention shapes (DeepSeek's Dh 128, Zamba2's Dh 112),
     K4 in bf16 and float32, against their plain versions, timed as in
-    phase 7.
+    phase 7;
+17. multimodal and int8: Qwen2-VL-2B (M-RoPE) at full width: the float32
+    engine at 4 of its 28 layers (4 lanes x 2 requests) equal token for
+    token to the sequential oracle with the compute-dtype and with the
+    int8 KV cache; bf16 serving at full depth as in phase 16 (16 lanes x 2
+    requests a lane, the same reduction), once with each cache (K4
+    launches held to 28 x decode executions in both), the two runs'
+    token agreement printed; the multimodal prefill at 2 x 2,048 (256
+    patch embeddings on a 16 x 16 grid at t = 0, 1,792 text tokens after
+    them, 3-axis positions) with its 28 K3 launches held to the
+    tensor-core kernel, logits against the plain attention printed; K3
+    and K4 at its heads (H 12, Hkv 2, Dh 128) against their plain
+    versions, timed as in phase 7.  HuBERT-XLarge (48 layers, d 1280, an
+    encoder) at full width: the bf16 forward over 2 x 2,048 frames (ms,
+    peak memory, finite ``[2, 2048, 504]`` logits, no kernel launched: its
+    attention is not causal, so it stays on the plain path, as in the
+    reference), the float32 forward at 4 layers on 1 x 256 frames on the
+    card against the CPU (within 1e-3), and two ``launch.train`` steps at
+    2 x 1,024 frames (the second timed; finite losses, peak memory).
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -1876,7 +1894,7 @@ FAMILIES = (("deepseek-moe-16b", 3, "bfloat16"), ("zamba2-7b", 7, "float32"),
 FAMILY_PREFILL = (2, 2048)  # batch x tokens of the prefill forward
 
 
-def _family_oracle(torch, arch: str, depth: int) -> None:
+def _family_oracle(torch, arch: str, depth: int, kv_cache_dtype: str = "compute") -> None:
     """Float32, full width at ``depth`` layers: the engine at 4 lanes x 2
     requests gives the sequential oracle's tokens (4 lanes drop no MoE
     assignment: capacity max(ceil(4 x 6 x 1.25 / 64), 4) = 4 and a token
@@ -1888,7 +1906,8 @@ def _family_oracle(torch, arch: str, depth: int) -> None:
     from repro_torch.serve.engine import EngineConfig, GenerationEngine
     from repro_torch.testing import engine_inputs
 
-    cfg = replace(configs.get_config(arch), num_layers=depth, compute_dtype="float32")
+    cfg = replace(configs.get_config(arch), num_layers=depth, compute_dtype="float32",
+                  kv_cache_dtype=kv_cache_dtype)
     model = get_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(20))
     ecfg = EngineConfig(lanes=4, max_context=32, max_prompt_len=16, max_new_tokens=8,
@@ -1902,14 +1921,17 @@ def _family_oracle(torch, arch: str, depth: int) -> None:
           and np.array_equal(res["lengths"], ref["lengths"]),
           f"families: {arch} float32 engine tokens != the sequential oracle")
     print(f"families: {arch} full width float32 at {depth} of {configs.get_config(arch).num_layers}"
-          f" layers, 4 lanes x 2 requests: equal to the sequential oracle token for token "
+          f" layers, {kv_cache_dtype} KV cache, 4 lanes x 2 requests: equal to the sequential "
+          f"oracle token for token "
           f"({int(res['lengths'].sum())} tokens, {eng.batched.last_result.steps} dispatches; "
           f"{time.perf_counter() - t0:.2f} s)")
 
 
-def _family_serve(torch, arch: str, param_dtype: str, smi: str):
-    """bf16 at full depth: 16 lanes x 2 requests a lane measured and profiled;
-    returns the model and its compute weights."""
+def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: str = "compute",
+                  params=None):
+    """bf16 at full depth: 16 lanes x 2 requests a lane measured and profiled
+    (on ``params`` if given, else on seeded weights); returns the model, its
+    compute weights and the measured run's output."""
     from dataclasses import replace
 
     from repro_torch import configs
@@ -1918,11 +1940,16 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str):
     from repro_torch.serve.engine import EngineConfig, GenerationEngine
     from repro_torch.testing import engine_inputs
 
-    cfg = replace(configs.get_config(arch), param_dtype=param_dtype)
+    cfg = replace(configs.get_config(arch), param_dtype=param_dtype,
+                  kv_cache_dtype=kv_cache_dtype)
     model = get_model(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    # The compute copy alone: the float32 masters go once it is made.
-    params = model.cast_for_compute(model.init(torch.Generator(device="cuda").manual_seed(23)))
+    at = "before serving (weights passed in)"
+    if params is None:
+        # The compute copy alone: the float32 masters go once it is made.
+        params = model.cast_for_compute(model.init(
+            torch.Generator(device="cuda").manual_seed(23)))
+        at = "at init"
     leaves = tree_flatten(params)[0]
     n_params = sum(x.numel() for x in leaves)
     weight_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
@@ -1955,7 +1982,8 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str):
     drop = (", mean moe_dropped_frac " + _moe_dropped_frac(torch, model, params, prompts)
             if cfg.family == "moe" else "")
     print(f"families: {arch} full width bf16 ({n_params / 1e9:.3f} B params, {weight_gb:.2f} GB "
-          f"of compute weights, {cfg.param_dtype} params), 16 lanes x 2 requests a lane, prompts "
+          f"of compute weights, {cfg.param_dtype} params, {kv_cache_dtype} KV cache), 16 lanes x "
+          f"2 requests a lane, prompts "
           f"2-32, 32 new tokens, cache 128: wall {wall:.3f} s (warm-up on one lane "
           f"{warm:.2f} s), "
           f"{n_tok} tokens, {n_tok / wall:.1f} tokens/s, {res.steps} dispatches, "
@@ -1963,11 +1991,11 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str):
           f"lane-steps {active}), K4 launches {launched['decode_attention']} = "
           f"{model.attention_sites} x {execs} (K1/K2 {launched['masked_push']}/"
           f"{launched['masked_peek']}: the program's return); peak memory {peak / 1e9:.3f} GB "
-          f"serving, {init_peak / 1e9:.3f} GB at init; profiled run (1 request a lane, "
+          f"serving, {init_peak / 1e9:.3f} GB {at}; profiled run (1 request a lane, "
           f"{prof_steps} dispatches): busy {dev_ms:.3f} of {prof_wall * 1e3:.3f} ms "
           f"({dev_ms / 1e3 / prof_wall:.4f} busy share), {kernels} kernels "
           f"({kernels / prof_steps:.1f} a dispatch){drop} on {smi}")
-    return model, params
+    return model, params, out
 
 
 def _moe_dropped_frac(torch, model, params, prompts: np.ndarray) -> str:
@@ -2005,18 +2033,18 @@ def _moe_dropped_frac(torch, model, params, prompts: np.ndarray) -> str:
             f"({lanes} lanes' first prompts, {steps} tokens in lockstep)")
 
 
-def _family_prefill(torch, model, params, smi: str) -> None:
-    """bf16 forward at 2 x 2,048 tokens: through K3 where the family has
-    attention (against the plain blocked attention), else the plain
-    forward alone."""
+def _family_prefill(torch, model, params, smi: str, batch=None, what: str = "") -> None:
+    """bf16 forward at 2 x 2,048 tokens (or of ``batch``): through K3 where
+    the family has attention (against the plain blocked attention), else
+    the plain forward alone."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import get_model
 
     cfg = model.cfg
     b, s = FAMILY_PREFILL
-    tokens = torch.from_numpy(np.random.default_rng(24).integers(
-        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
-    batch = {"tokens": tokens}
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(24).integers(
+            0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()}
     flash = get_model(cfg, use_flash=model.attention_sites > 0, device="cuda")
     with torch.no_grad():
         if model.attention_sites:  # warm K3 up (serving warmed the rest)
@@ -2028,7 +2056,8 @@ def _family_prefill(torch, model, params, smi: str) -> None:
               f"families: {cfg.name} prefill launched K3 {launches} times, want "
               f"{model.attention_sites}")
         check(bool(torch.isfinite(lf).all()), f"families: {cfg.name} prefill logits not finite")
-        line = (f"families: {cfg.name} prefill forward bf16, {b} x {s} tokens: {wall * 1e3:.3f} ms, "
+        line = (f"families: {cfg.name} prefill forward bf16, {b} x {s} tokens{what}: "
+                f"{wall * 1e3:.3f} ms, "
                 f"{b * s / wall:.1f} tokens/s, K3 launches {launches} "
                 f"(tensor-core kernel {fa_ops.flash_attention.sm90_launches})")
         if launches:
@@ -2074,7 +2103,7 @@ def phase_families(torch, smi: str) -> dict:
         _family_oracle(torch, arch, depth)
         gc.collect()
         torch.cuda.empty_cache()
-        model, params = _family_serve(torch, arch, param_dtype, smi)
+        model, params, _ = _family_serve(torch, arch, param_dtype, smi)
         _family_prefill(torch, model, params, smi)
         del model, params
         gc.collect()
@@ -2084,6 +2113,168 @@ def phase_families(torch, smi: str) -> dict:
         print(f"families: {arch} took {time.perf_counter() - t0:.1f} s")
     print(f"families: phase took {time.perf_counter() - t_phase:.1f} s")
     return max_err
+
+
+# ---------------------------------------------------------------------------
+# 17. multimodal and int8: Qwen2-VL-2B (M-RoPE) and HuBERT-XLarge
+# ---------------------------------------------------------------------------
+
+VLM = "qwen2-vl-2b"
+VLM_ORACLE_DEPTH = 4  # of 28 layers, for the float32 oracle checks
+VLM_GRID = 16  # the prefill's patches: one image on a 16 x 16 (h, w) grid
+AUDIO = "hubert-xlarge"
+AUDIO_ORACLE = (4, 1, 256)  # layers, batch, frames of the float32 card-vs-CPU forward
+AUDIO_TRAIN = (2, 1024)  # batch x frames of the train step
+
+
+def _vlm_batch(torch, cfg) -> dict:
+    """The multimodal prefill's inputs, 2 x 2,048 positions: 256 patch
+    embeddings (one image, t = 0 on a 16 x 16 (h, w) grid), then 1,792 text
+    tokens at ``16 + j`` on all three axes, as Qwen2-VL numbers them."""
+    b, s = FAMILY_PREFILL
+    si = VLM_GRID * VLM_GRID
+    i = np.arange(si)
+    grid = np.stack([np.zeros(si), i // VLM_GRID, i % VLM_GRID])
+    text = np.broadcast_to(VLM_GRID + np.arange(s - si), (3, s - si))
+    pos = np.broadcast_to(np.concatenate([grid, text], axis=1), (b, 3, s)).astype(np.int32)
+    rng = np.random.default_rng(26)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s - si))
+                                       .astype(np.int32)).cuda(),
+            "patch_embeds": torch.randn((b, si, cfg.d_model), generator=gen, device="cuda",
+                                        dtype=torch.bfloat16),
+            "positions": torch.from_numpy(pos.copy()).cuda()}
+
+
+def _vlm(torch, smi: str) -> dict:
+    """Qwen2-VL-2B: the float32 oracle checks with either cache, bf16
+    serving at full depth with the compute and the int8 cache, the
+    multimodal prefill through K3, and K3/K4 at its heads; returns each
+    kernel's largest error in those checks."""
+    import gc
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    for kv in ("compute", "int8"):
+        _family_oracle(torch, VLM, VLM_ORACLE_DEPTH, kv_cache_dtype=kv)
+        gc.collect()
+        torch.cuda.empty_cache()
+    model, params, out = _family_serve(torch, VLM, "float32", smi)
+    _, _, out8 = _family_serve(torch, VLM, "float32", smi, kv_cache_dtype="int8", params=params)
+    n = min(out["tokens"].shape[-1], out8["tokens"].shape[-1])
+    same = float((out["tokens"][..., :n] == out8["tokens"][..., :n]).mean())
+    whole = int(sum(np.array_equal(a[:la], c[:lc]) for a, c, la, lc in zip(
+        out["tokens"].reshape(-1, out["tokens"].shape[-1]),
+        out8["tokens"].reshape(-1, out8["tokens"].shape[-1]),
+        out["lengths"].reshape(-1), out8["lengths"].reshape(-1))))
+    print(f"multimodal: {VLM} bf16 serving, int8 against the compute KV cache: token "
+          f"agreement {same:.4f} over the output slots, {whole} of {out['lengths'].size} "
+          f"requests identical (printed, not checked: int8 rounding changes greedy picks)")
+    batch = _vlm_batch(torch, model.cfg)
+    _family_prefill(torch, model, params, smi, batch=batch,
+                    what=f" (256 patches on a {VLM_GRID} x {VLM_GRID} grid and 1,792 text tokens, "
+                         "3-axis M-RoPE positions)")
+    check(fa_ops.flash_attention.sm90_launches == model.attention_sites,
+          f"multimodal: the prefill launched the tensor-core K3 "
+          f"{fa_ops.flash_attention.sm90_launches} times, want {model.attention_sites}")
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _family_kernel_checks(torch, VLM)
+
+
+def _hubert(torch, smi: str) -> None:
+    """HuBERT-XLarge at full width: the bf16 forward over 2 x 2,048 frames,
+    the float32 forward at 4 layers on the card against the CPU, and the
+    launcher's train step at 2 x 1,024 frames."""
+    import gc
+    from dataclasses import replace
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.mcmc import prng
+    from repro_torch.models import get_model
+
+    cfg = configs.get_config(AUDIO)
+    b, s = FAMILY_PREFILL
+    model = get_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.cast_for_compute(model.init(torch.Generator(device="cuda").manual_seed(27)))
+    n_params = sum(x.numel() for x in tree_flatten(params)[0])
+    batch = model.make_batch(prng.prng_key(27).cuda(), ShapeSpec("p", s, b, "prefill"))
+    with torch.no_grad():
+        model.forward(params, batch)  # warm-up
+        _reset_kernel_launches()
+        (logits, _), wall = _timed_run(torch, lambda: model.forward(params, batch))
+    launched = _kernel_launches()
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"multimodal: {AUDIO} logits {tuple(logits.shape)} not finite or of the wrong shape")
+    check(all(v == 0 for v in launched.values()),
+          f"multimodal: {AUDIO}'s non-causal attention launched {launched}")
+    print(f"multimodal: {AUDIO} full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params) bf16 forward over {b} x {s} frames: "
+          f"{wall * 1e3:.3f} ms, {b * s / wall:.1f} frames/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, logits {tuple(logits.shape)} "
+          f"finite, no kernel launched (the encoder's attention is not causal, so it stays on "
+          f"the plain path, as in the reference) on {smi}")
+    del model, params, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    depth, ob, os_ = AUDIO_ORACLE
+    small = replace(cfg, num_layers=depth, compute_dtype="float32")
+    cpu_model = get_model(small, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(28))
+    frames = torch.randn((ob, os_, cfg.d_model), generator=torch.Generator().manual_seed(29))
+    with torch.no_grad():
+        want, _ = cpu_model.forward(cpu_params, {"frames": frames})
+        got, _ = get_model(small, device="cuda").forward(
+            pytree.tree_map(lambda t: t.cuda(), cpu_params), {"frames": frames.cuda()})
+    err = float((got.cpu() - want).abs().max())
+    check(err < 1e-3, f"multimodal: {AUDIO} float32 forward on the card differs from the CPU "
+                      f"by {err:.3g}")
+    print(f"multimodal: {AUDIO} float32 forward at {depth} of {cfg.num_layers} layers, {ob} x "
+          f"{os_} frames: card against CPU max |logit diff| {err:.3g} (limit 1e-3)")
+
+    torch.cuda.reset_peak_memory_stats()
+    tb, ts_ = AUDIO_TRAIN
+    tmodel, tparams, opt_state, step, stream = build_trainer(
+        AUDIO, seq_len=ts_, global_batch=tb, steps=2, lr=1e-4, microbatches=1, remat="none",
+        smoke=False, device="cuda")
+    losses, times = [], []
+    for i in range(2):  # the first step warms up
+        data = stream.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tparams, opt_state, metrics = step(tparams, opt_state, data)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"multimodal: {AUDIO} train losses {losses}")
+    print(f"multimodal: {AUDIO} full width launch.train step, {tb} x {ts_} frames (bf16 "
+          f"compute, float32 masters, AdamW, remat none): loss {losses[0]:.4f} then "
+          f"{losses[1]:.4f}, finite; {times[1] * 1e3:.1f} ms a step (warm-up step "
+          f"{times[0] * 1e3:.1f} ms), peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"on {smi}")
+    del tmodel, tparams, opt_state, step, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_multimodal(torch, smi: str) -> dict:
+    """Qwen2-VL-2B and HuBERT-XLarge; returns each kernel's largest error
+    in the checks at Qwen2-VL-2B's heads."""
+    t_phase = time.perf_counter()
+    err = _vlm(torch, smi)
+    print(f"multimodal: {VLM} took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    _hubert(torch, smi)
+    print(f"multimodal: {AUDIO} took {time.perf_counter() - t0:.1f} s")
+    print(f"multimodal: phase took {time.perf_counter() - t_phase:.1f} s")
+    return err
 
 
 def main() -> int:
@@ -2115,6 +2306,8 @@ def main() -> int:
     phase_frontend(torch, run6, smi)
     phase_train(torch, smi)
     for name, err in phase_families(torch, smi).items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    for name, err in phase_multimodal(torch, smi).items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
 
     kdir = "src/repro_torch/kernels"

@@ -12,19 +12,26 @@ draws in both packages:
 * ``random_bits(key, shape)[i] = w0 ^ w1`` of ``threefry(key, (0, i))``
   over the flat index ``i``;
 * ``uniform``: the top 23 bits as the mantissa of a float in ``[1, 2)``,
-  minus one, scaled, then ``max(minval, .)``;
+  minus one, scaled, then ``max(minval, .)``; in bfloat16 (7 mantissa
+  bits) JAX draws 8 bits, the low byte of the word, and keeps its top 7,
+  and the arithmetic runs in bfloat16;
 * ``bernoulli``: ``uniform < p``;
 * ``randint``: higher and lower 32-bit words from the two halves of a
   split, folded into ``[minval, maxval)`` with JAX's span multiplier in
   unsigned 32-bit arithmetic;
 * ``normal``: ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``, with
-  XLA's float32 ``erfinv`` polynomial (``ErfInv32``) written as tensor ops.
+  XLA's float32 ``erfinv`` polynomial (``ErfInv32``) written as tensor ops;
+  in bfloat16 the uniform draw is bfloat16 (see above), ``erfinv`` runs in
+  float32 and is rounded to bfloat16, and the product is bfloat16's.
 
 A key is a ``[2]`` tensor of **int32 bit patterns** (JAX keeps uint32; the
 bits are the same).  Arithmetic runs in int64 masked to 32 bits.  Every
 function is pure tensor code on one key, so ``torch.func.vmap`` maps it
-over a batch of keys.  ``normal`` matches JAX to one or two ulp, not bit
-for bit: the polynomial is XLA's, but ``log1p`` is PyTorch's.
+over a batch of keys.  A float32 ``normal`` matches JAX to a few ulp, not
+bit for bit: the polynomial is XLA's, but ``log1p`` is PyTorch's (and XLA
+fuses the polynomial's steps into FMAs).  A bfloat16 ``normal`` is bit for
+bit JAX's: its uniform draw takes one of 128 values, and each gives JAX's
+bfloat16 after the float32 ``erfinv`` is rounded.
 """
 from __future__ import annotations
 
@@ -97,13 +104,21 @@ def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
-            maxval=1.0) -> torch.Tensor:
-    """float32 uniform on ``[minval, maxval)`` (``jax.random.uniform``)."""
-    # bitcast(bits >> 9 | 0x3F800000) - 1 is exactly mantissa * 2**-23.
-    floats = (random_bits(key, shape) >> 9).to(torch.float32) * (2.0**-23)
+            maxval=1.0, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """float32 or bfloat16 uniform on ``[minval, maxval)``
+    (``jax.random.uniform``)."""
+    bits = random_bits(key, shape)
+    if dtype == torch.float32:
+        # bitcast(bits >> 9 | 0x3F800000) - 1 is exactly mantissa * 2**-23.
+        floats = (bits >> 9).to(torch.float32) * (2.0**-23)
+    elif dtype == torch.bfloat16:
+        # JAX draws 8 bits for a type of fewer than 8 mantissa bits.
+        floats = ((bits & 0xFF) >> 1).to(torch.bfloat16) * (2.0**-7)
+    else:
+        raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
     # Filled on the device (no host copy, so a CUDA graph can capture it).
-    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=dtype, device=key.device)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -136,6 +151,7 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_LO_BF16 = -1.0 + 2.0**-8  # nextafter(-1, 0) in bfloat16
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
@@ -163,9 +179,15 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """float32 standard normals (``jax.random.normal``), via :func:`erfinv`."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+def normal(key: torch.Tensor, shape: Sequence[int] = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """float32 or bfloat16 standard normals (``jax.random.normal``), via
+    :func:`erfinv`."""
+    if dtype == torch.bfloat16:
+        u = uniform(key, shape, _NORMAL_LO_BF16, 1.0, dtype)
+        return erfinv(u.float()).to(dtype) * torch.full((), _SQRT2, dtype=dtype,
+                                                         device=key.device)
+    u = uniform(key, shape, _NORMAL_LO, 1.0, dtype)
     return _SQRT2 * erfinv(u)
 
 

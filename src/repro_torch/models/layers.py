@@ -8,13 +8,17 @@ A port of the JAX package's ``models/layers.py`` with its conventions:
   separate axis ``[B, S, H, Dh]`` until the output projection.
 * Softmax and norm statistics run in float32.
 * KV caches are fixed-shape ring buffers ``{"k": [B, W, Hkv, Dh], "v": ...}``
-  in the compute dtype.
+  in the compute dtype, or with ``kv_cache_dtype="int8"`` symmetric int8
+  rows ``k_q``/``v_q`` with a bf16 scale per position and head
+  (``k_s``/``v_s`` ``[B, W, Hkv]``).
+* Positions are ``[B, S]``, or ``[B, 3, S]`` (t, h, w) under M-RoPE
+  (``cfg.mrope_sections``, the vlm family).
 
-Not ported yet: M-RoPE (the vlm family) and the int8 KV cache.  The
-sharding constraints of ``_project_qkv`` are left out: they do nothing
+The sharding constraints of ``_project_qkv`` are left out: they do nothing
 without a mesh.  Prefill attention goes through K3 when ``use_flash`` is
-set, decode attention always through K4 (the JAX package computes the
-same masked softmax in plain XLA there).
+set on a causal layer with no ``seg_mask``, as in the reference; decode
+attention always goes through K4, on the dequantized cache when it is int8
+(the JAX package computes the same masked softmax in plain XLA there).
 """
 from __future__ import annotations
 
@@ -83,13 +87,24 @@ def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables ``[B, S, Dh/2]`` for ``positions [B, S]``."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: tuple[int, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``[B, S, Dh/2]`` for ``positions [B, S]``, or for
+    ``[B, 3, S]`` under M-RoPE: the frequencies are split into
+    ``mrope_sections`` and section ``i`` takes its angles from axis ``i``
+    (t, h, w) of the positions."""
     half = head_dim // 2
     inv = (theta ** (-np.arange(0, half) * 2.0 / head_dim)).astype(np.float32)
     inv = torch.from_numpy(inv).to(positions.device)
-    angles = positions[..., None].float() * inv
+    angles = positions[..., None].float() * inv  # [B, S, half] or [B, 3, S, half]
+    if mrope_sections:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs [B, 3, S] positions, got {tuple(positions.shape)}")
+        parts, start = [], 0
+        for axis, sec in enumerate(mrope_sections):
+            parts.append(angles[:, axis, :, start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -168,25 +183,32 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
-              positions: torch.Tensor, *, use_flash: bool = False) -> torch.Tensor:
-    """Full-sequence attention (prefill); ``positions`` [B, S].  Causality
-    comes from ``cfg.causal``.  With ``use_flash`` a causal layer runs K3."""
+              positions: torch.Tensor, *, seg_mask: torch.Tensor | None = None,
+              use_flash: bool = False) -> torch.Tensor:
+    """Full-sequence attention (train and prefill); ``positions`` [B, S] or
+    [B, 3, S] (M-RoPE).  Causality comes from ``cfg.causal``; ``seg_mask``
+    ([B, S] bool, True where valid) masks padded keys.  With ``use_flash``
+    a causal layer without ``seg_mask`` runs K3, the reference's rule."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
-    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                           cfg.mrope_sections)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if use_flash and cfg.causal:
+    if use_flash and cfg.causal and seg_mask is None:
         out = flash_ops.flash_attention(q, k, v, causal=True).reshape(b, s, -1)
     else:
-        out = _blocked_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk)
+        out = _blocked_attention(q, k, v, causal=cfg.causal, seg_mask=seg_mask,
+                                 q_chunk=cfg.attn_q_chunk)
     return out @ params["wo"].to(x.dtype)
 
 
-def _blocked_attention(q, k, v, *, causal: bool, q_chunk: int) -> torch.Tensor:
+def _blocked_attention(q, k, v, *, causal: bool, seg_mask: torch.Tensor | None,
+                       q_chunk: int) -> torch.Tensor:
     """Row-blocked attention in plain PyTorch: static query chunks, so one
     ``[B, H, q_chunk, T]`` score block is live at a time; each query row
-    still sees its whole softmax."""
+    still sees its whole softmax.  A row whose keys are all masked gets
+    the uniform softmax over ``NEG_INF``, as in the reference."""
     b, s, h, dh = q.shape
     t = k.shape[1]
     qc = q_chunk
@@ -199,19 +221,38 @@ def _blocked_attention(q, k, v, *, causal: bool, q_chunk: int) -> torch.Tensor:
             rows = i * qc + torch.arange(qc, device=q.device)
             cmask = rows[:, None] >= torch.arange(t, device=q.device)[None, :]
             scores = torch.where(cmask, scores, NEG_INF)
+        if seg_mask is not None:
+            scores = torch.where(seg_mask[:, None, None, None, :], scores, NEG_INF)
         outs.append(_gqa_out(torch.softmax(scores, dim=-1), v))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, window: int, dtype, device) -> Params:
-    if cfg.kv_cache_dtype != "compute":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 KV cache is not "
-            "ported yet (ROADMAP queue 1, item 12)"
-        )
     shape = (batch, window, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        # Symmetric int8 with a bf16 scale per (position, head).
+        return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+                "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_s": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [..., Dh] -> (int8 values, bf16 scale over the last dim)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1) + 1e-8
+    scale = (amax / 127.0).to(torch.bfloat16)
+    # torch.round, like jnp.round, rounds half to even.
+    q = torch.clamp(torch.round(xf / scale.float()[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """In the compute dtype directly, as the reference does (``|q| <= 127``
+    converts exactly)."""
+    return q.to(dtype) * scale.to(dtype)[..., None]
 
 
 def attention_decode(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -221,22 +262,39 @@ def attention_decode(params: Params, x: torch.Tensor, cfg: ArchConfig,
     absolute position of the new token.  Returns (out [B, 1, d], new cache).
 
     The new token's K/V go into ring slot ``position % W`` of a new cache
-    (the cache passed in is not written); the attention core is one K4
-    call over the ``min(position + 1, W)`` slots written so far."""
+    (the cache passed in is not written), quantized first when the cache is
+    int8; the attention core is one K4 call over the ``min(position + 1,
+    W)`` slots written so far (of the dequantized cache when int8).  Under
+    M-RoPE the token's position is the same on all three axes."""
     b = x.shape[0]
-    window = cache["k"].shape[1]
+    quantized = "k_q" in cache
+    window = cache["k_q" if quantized else "k"].shape[1]
     q, k_new, v_new = _project_qkv(params, x, cfg)  # S = 1
-    cos, sin = rope_angles(position[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    pos_rope = position[:, None]
+    if cfg.mrope_sections:
+        pos_rope = pos_rope[:, None].expand(b, 3, 1)
+    cos, sin = rope_angles(pos_rope, cfg.resolved_head_dim, cfg.rope_theta, cfg.mrope_sections)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
     slot = (position % window).long()
     bidx = torch.arange(b, device=x.device)
-    k_cache = cache["k"].index_put((bidx, slot), k_new[:, 0])
-    v_cache = cache["v"].index_put((bidx, slot), v_new[:, 0])
+
+    def write(name: str, row: torch.Tensor) -> torch.Tensor:
+        return cache[name].index_put((bidx, slot), row[:, 0])
+
+    if quantized:
+        (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
+        new_cache = {"k_q": write("k_q", kq), "k_s": write("k_s", ks),
+                     "v_q": write("v_q", vq), "v_s": write("v_s", vs)}
+        k_cache = _dequantize_kv(new_cache["k_q"], new_cache["k_s"], x.dtype)
+        v_cache = _dequantize_kv(new_cache["v_q"], new_cache["v_s"], x.dtype)
+    else:
+        k_cache, v_cache = write("k", k_new), write("v", v_new)
+        new_cache = {"k": k_cache, "v": v_cache}
     count = torch.clamp(position + 1, max=window).to(torch.int32)
     out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache, count)  # [B,H,Dh]
     out = out.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
-    return out, {"k": k_cache, "v": v_cache}
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,10 @@ def router_probs(params: Params, x: torch.Tensor, cfg: ArchConfig):
     """x: [T, d] -> (weights [T, k], expert ids [T, k], aux metrics)."""
     logits = x.float() @ params["router"].float()  # [T, E]
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, cfg.top_k, dim=-1)  # [T, k], descending
+    # A stable descending sort puts the lower expert first among equal
+    # probabilities, as ``jax.lax.top_k`` does (``torch.topk`` does not).
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :cfg.top_k], top_e[:, :cfg.top_k]  # [T, k]
     if cfg.moe_renorm_topk:
         top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     # Switch-style load-balance loss: E * sum_e f_e * p_e.

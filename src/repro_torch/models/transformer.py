@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoder family (a port of the JAX package's
-``models/transformer.py``).
+"""Model assembly for every architecture family (a port of the JAX
+package's ``models/transformer.py``).
 
 :class:`Model` is a plain class, not an ``nn.Module``: like the JAX model
 it holds no weights, and its methods take a params dict that mirrors the
@@ -25,6 +25,16 @@ goes through K4.
 Families, with the reference's trees:
 
 * ``dense``: ``layers`` stacked on ``[L]``; cache ``kv`` ``[L, ...]``.
+* ``vlm`` (Qwen2-VL): the dense tree.  Its batch holds precomputed
+  ``patch_embeds`` (the vision tower is a stub, as in the reference),
+  placed before the text's embeddings, and ``positions [B, 3, S]`` for
+  M-RoPE; the loss skips the patches.  Decode takes text tokens, each at
+  the same position on the three axes.
+* ``audio`` (HuBERT): an encoder (non-causal) over precomputed ``frames``
+  through a GELU MLP ``head``, ``layers`` stacked on ``[L]``, a top-level
+  ``lm_head`` and no ``embed``; the loss is per-frame classification of
+  ``labels``.  It has no decode path: ``init_cache`` and ``decode_step``
+  raise the reference's ``ValueError``, so the serving engine refuses it.
 * ``moe``: ``dense_layers``, a list of the first ``first_dense_layers``
   blocks (FFN width ``dense_d_ff``), and ``layers``, the MoE blocks
   stacked on ``[L - fd]``; cache ``dense_kv`` (a list) and ``kv``.
@@ -35,9 +45,6 @@ Families, with the reference's trees:
   ``shared`` attention block, applied after every ``shared_attn_every``
   mamba layers (one weight copy); cache ``mamba`` ``[L, ...]`` and
   ``shared_kv``, one ring cache per site of the shared block.
-
-``audio`` and ``vlm`` raise ``NotImplementedError`` (ROADMAP queue 1,
-item 11).
 """
 from __future__ import annotations
 
@@ -89,15 +96,13 @@ def _remat(fn, mode: str):
     raise ValueError(f"unknown remat mode {mode!r}")
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: repro_torch runs "
-            f"{', '.join(PORTED_FAMILIES)} (ROADMAP queue 1, item 11)"
-        )
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); the families are "
+                         f"{', '.join(PORTED_FAMILIES)}")
 
 
 def init_attn_block(gen: torch.Generator, cfg: ArchConfig, device, moe_layer: bool = False
@@ -124,10 +129,11 @@ def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dic
     return (L.gelu_mlp(p["mlp"], hn) if cfg.norm == "ln" else L.swiglu(p["mlp"], hn)), {}
 
 
-def attn_block(p, h, cfg, positions, use_flash=False) -> tuple[torch.Tensor, dict]:
+def attn_block(p, h, cfg, positions, seg_mask=None, use_flash=False
+               ) -> tuple[torch.Tensor, dict]:
     """One attention block; returns (h, aux), aux empty unless MoE."""
     h = h + L.attention(p["attn"], L.norm(p["ln1"], h, cfg), cfg, positions,
-                        use_flash=use_flash)
+                        seg_mask=seg_mask, use_flash=use_flash)
     y, aux = _ffn(p, h, cfg)
     return h + y, aux
 
@@ -172,6 +178,17 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _n_stacked(tree) -> int:
+    """The leading (layer) axis of a dict of stacked tensors."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _no_decode(cfg: ArchConfig) -> ValueError:
+    return ValueError(f"{cfg.family} has no decode path")
+
+
 def _n_mlstm(cfg: ArchConfig) -> int:
     return cfg.xlstm_pattern.count("mlstm")
 
@@ -213,9 +230,15 @@ class Model:
         """Random parameters from ``generator`` (its draws, not JAX's: tests
         carry the JAX package's weights across instead)."""
         cfg, dev, gen = self.cfg, self.device, generator
-        params: Params = {"final_norm": L.init_norm(cfg, cfg.d_model, dev),
-                          "embed": L.init_embed(gen, cfg, dev)}
-        if cfg.family == "dense":
+        params: Params = {"final_norm": L.init_norm(cfg, cfg.d_model, dev)}
+        if cfg.family == "audio":
+            # The frontend is a stub that supplies frame embeddings.
+            params["head"] = L.init_gelu_mlp(gen, cfg, cfg.d_model, cfg.d_model, dev)
+            params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), L.pdtype(cfg),
+                                          dev) / cfg.d_model ** 0.5
+        else:
+            params["embed"] = L.init_embed(gen, cfg, dev)
+        if cfg.family in ("dense", "vlm", "audio"):
             params["layers"] = _stacked(cfg.num_layers, lambda: init_attn_block(gen, cfg, dev))
         elif cfg.family == "moe":
             fd = cfg.first_dense_layers
@@ -244,8 +267,9 @@ class Model:
     @property
     def attention_sites(self) -> int:
         """Attention layers a decode step runs, each one K4 launch (none in
-        xLSTM; one a site of Zamba2's shared block)."""
-        if self.cfg.family == "ssm":
+        xLSTM or in the decode-less audio encoder; one a site of Zamba2's
+        shared block)."""
+        if self.cfg.family in ("ssm", "audio"):
             return 0
         return self._n_groups if self.cfg.family == "hybrid" else self.cfg.num_layers
 
@@ -260,28 +284,47 @@ class Model:
 
     # ------------------------------------------------------------- fwd
 
-    @staticmethod
-    def _inputs(batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(tokens [B, S], positions [B, S], loss mask [B, S] float32)."""
+    def _embed_batch(self, params: Params, batch: dict):
+        """(h [B, S, d], positions [B, S] or [B, 3, S], loss mask [B, S]
+        float32, labels [B, S]) of a batch (see the module docstring)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            h = L.gelu_mlp(params["head"], batch["frames"].to(L.cdtype(cfg)))
+            b, s, _ = h.shape
+            mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+            return h, arange_positions((b, s), h.device), mask, batch.get("labels")
         tokens = batch["tokens"]
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h = L.embed(params["embed"], tokens, cfg)
+        b, st = tokens.shape
+        if cfg.family == "vlm":
+            patches = batch["patch_embeds"].to(h.dtype)
+            si = patches.shape[1]
+            mask = torch.cat([torch.zeros((b, si), dtype=torch.float32, device=h.device),
+                              torch.ones((b, st), dtype=torch.float32, device=h.device)], dim=1)
+            labels = torch.cat([tokens.new_zeros((b, si)), tokens], dim=1)
+            return torch.cat([patches, h], dim=1), batch["positions"], mask, labels
         mask = batch.get("loss_mask")
         if mask is None:
-            mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
-        return tokens, positions, mask
+            mask = torch.ones((b, st), dtype=torch.float32, device=h.device)
+        return h, arange_positions((b, st), h.device), mask, tokens
 
     def forward(self, params: Params, batch: dict, remat: str = "none"
                 ) -> tuple[torch.Tensor, dict]:
         """Full-sequence logits ``[B, S, V]`` in the compute dtype, and the
         aux dict (``moe_aux_loss``, summed over the MoE layers; 0 for the
         other families)."""
+        h, positions, _, _ = self._embed_batch(params, batch)
+        return self._logits(params, h, positions, remat)
+
+    def _logits(self, params: Params, h: torch.Tensor, positions: torch.Tensor, remat: str):
         cfg = self.cfg
-        tokens, positions, _ = self._inputs(batch)
-        h = L.embed(params["embed"], tokens, cfg)
         h, aux_loss = self.backbone(params, h, positions, remat)
         h = L.norm(params["final_norm"], h, cfg)
-        return L.unembed(params["embed"], h, cfg), {"moe_aux_loss": aux_loss}
+        if cfg.family == "audio":
+            logits = h @ params["lm_head"].to(h.dtype)
+        else:
+            logits = L.unembed(params["embed"], h, cfg)
+        return logits, {"moe_aux_loss": aux_loss}
 
     def backbone(self, params: Params, h: torch.Tensor, positions: torch.Tensor,
                  remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
@@ -295,7 +338,7 @@ class Model:
             h, aux = attn_block(lp, h, cfg, positions, use_flash=self.use_flash)
             return h, aux.get("moe_aux_loss")
 
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm", "audio"):
             dense_layers = params.get("dense_layers", [])
             for lp in dense_layers:
                 h, _ = block(h, lp)
@@ -340,14 +383,19 @@ class Model:
 
     def loss(self, params: Params, batch: dict, remat: str = "none"
              ) -> tuple[torch.Tensor, dict]:
-        """Next-token cross-entropy in float32 over the loss mask (the last
-        position and any position whose successor is masked drop out),
-        plus ``0.01 * moe_aux_loss``.  Returns (loss, {"ce", "moe_aux_loss"})."""
-        logits, aux = self.forward(params, batch, remat)
-        labels, _, mask = self._inputs(batch)
-        tgt = torch.roll(labels, -1, dims=1).long()
-        m = mask * torch.roll(mask, -1, dims=1)
-        m[:, -1] = 0.0
+        """Cross-entropy in float32 over the loss mask, plus ``0.01 *
+        moe_aux_loss``: of the next token for a decoder (the last position
+        and any position whose successor is masked drop out), of each
+        position's own label for an encoder.  Returns (loss, {"ce",
+        "moe_aux_loss"})."""
+        h, positions, mask, labels = self._embed_batch(params, batch)
+        logits, aux = self._logits(params, h, positions, remat)
+        if self.cfg.is_encoder:
+            tgt, m = labels.long(), mask
+        else:
+            tgt = torch.roll(labels, -1, dims=1).long()
+            m = mask * torch.roll(mask, -1, dims=1)
+            m[:, -1] = 0.0
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, tgt[..., None], dim=-1)[..., 0]
@@ -368,7 +416,7 @@ class Model:
         def kv(n: int) -> Params:
             return _stacked(n, lambda: L.init_kv_cache(cfg, batch, window, dt, dev))
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             return {"kv": kv(cfg.num_layers)}
         if cfg.family == "moe":
             fd = cfg.first_dense_layers
@@ -383,6 +431,8 @@ class Model:
                 cache["slstm"] = _stacked(self._n_groups,
                                           lambda: X.init_slstm_cache(cfg, batch, dt, dev))
             return cache
+        if cfg.family == "audio":
+            raise _no_decode(cfg)
         return {"mamba": _stacked(cfg.num_layers, lambda: M.init_mamba2_cache(cfg, batch, dt, dev)),
                 "shared_kv": kv(self._n_groups)}
 
@@ -391,8 +441,10 @@ class Model:
         """One token per sequence. tokens [B] int32, pos [B] int32.
         Returns (logits [B, V] float32, new cache); ``cache`` is not written."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            raise _no_decode(cfg)
         h = L.embed(params["embed"], tokens[:, None], cfg)  # [B,1,d]
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             new = {}
             if cfg.family == "moe":
                 new["dense_kv"] = []
@@ -400,7 +452,7 @@ class Model:
                     h, lc = attn_block_decode(lp, h, cfg, lc, pos)
                     new["dense_kv"].append(lc)
             layers = []
-            for i in range(cache["kv"]["k"].shape[0]):
+            for i in range(_n_stacked(cache["kv"])):
                 h, lc = attn_block_decode(_index(params["layers"], i), h, cfg,
                                           _index(cache["kv"], i), pos)
                 layers.append(lc)
@@ -448,27 +500,53 @@ class Model:
 
     def input_specs(self, shape: ShapeSpec) -> dict:
         """Every model input of ``shape`` as a tensor on the ``meta``
-        device (shape and dtype only): ``tokens [B, S]`` for train and
-        prefill, ``tokens [B]`` and ``pos [B]`` for decode."""
+        device (shape and dtype only): ``tokens [B]`` and ``pos [B]`` for
+        decode; for train and prefill ``tokens [B, S]``, or the audio
+        encoder's ``frames [B, S, d]`` and ``labels [B, S]``, or the vlm's
+        ``S // 8`` patches ``patch_embeds [B, S // 8, d]``, the rest as
+        ``tokens`` and ``positions [B, 3, S]`` over both."""
+        cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
         meta = dict(dtype=torch.int32, device="meta")
+        cd = dict(dtype=L.cdtype(cfg), device="meta")
         if shape.kind == "decode":
             return {"tokens": torch.empty((b,), **meta), "pos": torch.empty((b,), **meta)}
+        if cfg.family == "audio":
+            return {"frames": torch.empty((b, s, cfg.d_model), **cd),
+                    "labels": torch.empty((b, s), **meta)}
+        if cfg.family == "vlm":
+            si = s // 8  # image patches take 1/8 of the sequence
+            return {"tokens": torch.empty((b, s - si), **meta),
+                    "patch_embeds": torch.empty((b, si, cfg.d_model), **cd),
+                    "positions": torch.empty((b, 3, s), **meta)}
         return {"tokens": torch.empty((b, s), **meta)}
 
     def make_batch(self, key: torch.Tensor, shape: ShapeSpec) -> dict:
         """Random inputs matching ``input_specs`` from a threefry key, on
-        the model's device: the reference's draws (``tokens`` uniform over
-        the vocabulary, ``pos`` zeros)."""
+        the model's device, drawn as the reference draws them: ``tokens``
+        and ``labels`` uniform over the vocabulary, ``positions`` an arange
+        on every axis, ``pos`` and other integers zeros, floats standard
+        normals in their dtype."""
         out = {}
         for name, spec in self.input_specs(shape).items():
             key, k = prng.split(key)
-            if name == "tokens":
-                x = prng.randint(k, tuple(spec.shape), 0, self.cfg.vocab_size)
+            shp = tuple(spec.shape)
+            if spec.is_floating_point():
+                x = prng.normal(k, shp, spec.dtype)
+            elif name in ("tokens", "labels"):
+                x = prng.randint(k, shp, 0, self.cfg.vocab_size)
+            elif name == "positions":
+                x = arange_positions(shp)
             else:
-                x = torch.zeros(tuple(spec.shape), dtype=spec.dtype)
+                x = torch.zeros(shp, dtype=spec.dtype)
             out[name] = x.to(self.device)
         return out
+
+
+def arange_positions(shape: tuple[int, ...], device=None) -> torch.Tensor:
+    """int32 positions ``0 .. S-1`` along the last axis of ``shape``,
+    broadcast over the rest."""
+    return torch.arange(shape[-1], dtype=torch.int32, device=device).expand(shape)
 
 
 def get_model(cfg: ArchConfig, use_flash: bool = False, device=None) -> Model:

@@ -17,7 +17,7 @@ import torch
 
 from ..configs.base import ShapeSpec
 from ..mcmc import prng
-from ..models.transformer import Model
+from ..models.transformer import Model, arange_positions
 
 
 @dataclass(frozen=True)
@@ -66,7 +66,11 @@ class SyntheticStream:
                 b, s = shape if len(shape) == 2 else (shape[0], 1)
                 x = torch.from_numpy(self._markov_tokens(k, b, s, self.model.cfg.vocab_size)
                                      .reshape(shape))
-            else:
+            elif name == "positions":
+                x = arange_positions(shape)
+            elif spec.is_floating_point():
+                x = prng.normal(k, shape, spec.dtype)
+            else:  # pos and any other integer input
                 x = torch.zeros(shape, dtype=spec.dtype)
             out[name] = x.to(self.model.device)
         return out

@@ -223,12 +223,20 @@ def test_serve_step_is_greedy_decode(arch):
 
 
 def test_unported_paths_raise():
-    cfg = configs.get_smoke_config("smollm-135m")
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            get_model(dataclasses.replace(cfg, family=family), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        get_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device="cpu").init_cache(1, 4)
+    """Every family is ported: ``get_model`` takes vlm and audio, and the
+    one path left that raises is the reference's own refusal, audio's decode."""
+    for name in ("qwen2-vl-2b", "hubert-xlarge"):
+        assert get_model(configs.get_smoke_config(name), device="cpu").cfg.family in ("vlm",
+                                                                                      "audio")
+    audio = get_model(configs.get_smoke_config("hubert-xlarge"), device="cpu")
+    jaudio = j_get_model(j_configs.get_smoke_config("hubert-xlarge"))
+    with pytest.raises(ValueError, match="audio has no decode path") as want:
+        jaudio.init_cache(1, 4)
+    with pytest.raises(ValueError, match=str(want.value)):
+        audio.init_cache(1, 4)
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(dataclasses.replace(configs.get_smoke_config("smollm-135m"), family="rnn"),
+                  device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -239,9 +247,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_decode_window_and_registry():
-    assert configs.list_archs() == [
-        "deepseek-moe-16b", "qwen1.5-32b", "qwen3-0.6b", "qwen3-14b", "qwen3-moe-235b-a22b",
-        "smollm-135m", "xlstm-350m", "zamba2-7b"]
+    assert configs.list_archs() == sorted(j_configs.list_archs()) == [
+        "deepseek-moe-16b", "hubert-xlarge", "qwen1.5-32b", "qwen2-vl-2b", "qwen3-0.6b",
+        "qwen3-14b", "qwen3-moe-235b-a22b", "smollm-135m", "xlstm-350m", "zamba2-7b"]
     full = configs.get_config("smollm-135m")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.d_ff, full.vocab_size) == (30, 576, 9, 3, 64, 1536, 49_152)

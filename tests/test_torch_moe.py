@@ -6,13 +6,16 @@ expert, ``qk_norm``), with the JAX weights carried across.
 
 Trees, forward logits and ``moe_aux_loss``, loss and every gradient leaf,
 20 decode steps past a 16-slot window (logits and cache), the MoE FFN and
-its router, the dispatch at capacities that drop assignments (the dropped
+its router, tied router probabilities (the lower expert first, as
+``jax.lax.top_k`` orders them), the dispatch at capacities that drop assignments (the dropped
 set equal exactly: an assignment is dropped where the output's gradient
 with respect to its combine weight is exactly zero, in both packages), and
 the serving engine at 4 lanes against the JAX engine.  Tolerances are in
 tests/torch_parity.py.  The JAX side runs once per config, in a
 module-scoped fixture.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -112,6 +115,52 @@ def test_moe_ffn_and_router_match_jax(fam):
     np.testing.assert_array_equal(top_e.numpy(), want_e)
     tp.close(top_p, want_p)
     tp.close(raux["moe_aux_loss"], want_aux_loss)
+
+
+@pytest.mark.parametrize("router", ["layer", "equal-columns", "zero-64x6"])
+def test_tied_probabilities_route_to_the_lower_experts_as_in_jax(fam, router):
+    """An all-zero token (uniform router probabilities) under the layer's
+    router, every token under a router of equal columns, and every token
+    over 64 experts, top 6, under a zero router: ``jax.lax.top_k`` puts the
+    lower expert first among equal probabilities, and so must the port.
+    The expert ids equal exactly; the weights, the dispatch's output and its
+    gradient with respect to the weights within ``TOL``."""
+    cfg, jcfg = fam["cfg"], fam["jcfg"]
+    x = _unit_inputs(cfg)
+    x[0, 0] = 0.0
+    lp = dict(fam["lp"])
+    jlp = dict(jax.tree.map(lambda t: t[0], fam["jparams"]["layers"])["moe"])
+    if router == "equal-columns":
+        lp["router"] = lp["router"][:, :1].expand(-1, cfg.num_experts).contiguous()
+        jlp["router"] = jnp.asarray(lp["router"].numpy())
+    elif router == "zero-64x6":
+        cfg = dataclasses.replace(cfg, num_experts=64, top_k=6)
+        jcfg = dataclasses.replace(jcfg, num_experts=64, top_k=6)
+        lp = {"router": torch.zeros((cfg.d_model, 64))}
+        jlp = {"router": jnp.zeros((cfg.d_model, 64))}
+    xf = torch.from_numpy(x).reshape(-1, cfg.d_model)
+    top_p, top_e, _ = MOE.router_probs(lp, xf, cfg)
+    want_p, want_e, want_aux = J_MOE.router_probs(jlp, jnp.asarray(xf.numpy()), jcfg)
+    np.testing.assert_array_equal(top_e.numpy(), np.asarray(want_e))
+    tp.close(top_p, want_p)
+    tied = np.arange(cfg.top_k) if router != "layer" else np.asarray(want_e)[0]
+    np.testing.assert_array_equal(top_e[0].numpy(), tied)
+    if router == "zero-64x6":
+        return
+    cap = MOE.expert_capacity(xf.shape[0], cfg)
+    w = top_p.detach().requires_grad_(True)
+    out, _ = MOE._dispatch_compute_combine(lp, torch.from_numpy(x), xf, w, top_e,
+                                           {"moe_aux_loss": 0.0}, cap, cfg)
+    (grad,) = torch.autograd.grad(out.sum(), w)
+
+    def total(wj):
+        o, _ = J_MOE._dispatch_compute_combine(jlp, jnp.asarray(x), jnp.asarray(xf.numpy()), wj,
+                                               want_e, want_aux, cap, jcfg)
+        return jnp.sum(o), o
+
+    want_grad, want_out = jax.grad(total, has_aux=True)(want_p)
+    tp.close(out, want_out)
+    tp.close(grad, want_grad)
 
 
 @pytest.mark.parametrize("cap", CAPACITIES)

@@ -84,6 +84,27 @@ def test_normal_matches_jax_over_100k_draws():
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-7, atol=1e-8)
 
 
+@pytest.mark.parametrize("draw", ["normal", "uniform"])
+def test_bfloat16_draws_equal_jax_bit_for_bit(draw):
+    """JAX's bfloat16 draws take 8 random bits, not the float32 draw cast:
+    every one of the 128 uniform values appears in 100k draws, and each
+    draw equals JAX's."""
+    rng = np.random.default_rng(14)
+    raw = rng.integers(0, 2**32, size=(2000, 2), dtype=np.uint64).astype(np.uint32)
+    jfn = getattr(jax.random, draw)
+    want = np.asarray(jax.vmap(lambda x: jfn(x, (50,), jax.numpy.bfloat16))(
+        jax.numpy.asarray(raw)).astype(jax.numpy.float32))
+    fn = getattr(prng, draw)
+    got = torch.func.vmap(lambda x: fn(x, (50,), dtype=torch.bfloat16))(
+        interop.keys_from_numpy(raw, "cpu"))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert len(np.unique(want)) == 128
+    cast = np.asarray(jfn(jax.numpy.asarray(raw[0]), (50,)).astype(jax.numpy.bfloat16)
+                      .astype(jax.numpy.float32))
+    assert not np.array_equal(got[0].float().numpy(), cast)
+
+
 def test_erfinv_matches_xla_including_the_ends():
     x = np.concatenate([[-1.0, 1.0, 0.0],
                         np.random.default_rng(13).uniform(-1, 1, 20_000)]).astype(np.float32)
