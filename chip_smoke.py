@@ -159,7 +159,27 @@ non-zero (nothing is caught):
     attention is not causal, so it stays on the plain path, as in the
     reference), the float32 forward at 4 layers on 1 x 256 frames on the
     card against the CPU (within 1e-3), and two ``launch.train`` steps at
-    2 x 1,024 frames (the second timed; finite losses, peak memory).
+    2 x 1,024 frames (the second timed; finite losses, peak memory);
+18. chaos and entry points: ``benchmarks/torch_serve_bench.py``'s
+    ``chaos_sweep`` called in-process on SmolLM-135M at full width in bf16
+    at 16 and 64 lanes: 64 requests arriving by a Poisson process at 32
+    per s (seed 0), a fifth of them (13) NaN-poisoning or livelocking
+    their lane through ``tools/torch_chaos.py``'s ``ChaosModel``, prompts
+    of up to 6 tokens and 64 new tokens, under quarantine, the non-finite
+    check and a watchdog calibrated on a fault-free 1-lane serve, one
+    retry a request: no violation, the healthy requests bit-exact with a
+    chaos-free serve, every injected request faulted with its own fault
+    kind, 64 terminal statuses, K4 launches held to 30 x the sweep's decode
+    executions (statuses, rates, p50/p99, tokens/s, the budget and the
+    phase's seconds printed); ``Target.grad``/``value_and_grad`` on phase
+    6's 10,000 x 100 logistic regression (one chain and 1024 through
+    ``vmap``) against ``torch.autograd.grad`` of ``logp`` (within 1e-5 of
+    the largest entry); and, as subprocesses on the card beside the sweep,
+    ``examples/torch_serve_lm.py --check`` (closed loop, equal to the
+    sequential oracle), ``examples/torch_serve_lm.py --open-loop`` and
+    ``python -m benchmarks.torch_run --only fig6,serve --batches 8
+    --serve-arrivals poisson --serve-requests 16`` with its records in
+    ``chiprun_out/``, both strictly valid.
 
 The second-to-last line of output is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
@@ -2277,6 +2297,142 @@ def phase_multimodal(torch, smi: str) -> dict:
     return err
 
 
+# ---------------------------------------------------------------------------
+# 18. chaos and entry points
+# ---------------------------------------------------------------------------
+
+CHAOS_LANES = [16, 64]
+CHAOS = dict(rate=32.0, chaos_rate=0.2, num_requests=64, segment_steps=64, max_new=64,
+             prompt_len=6, seed=0)  # benchmarks/serve_bench.py's chaos defaults, at 32/s
+
+
+def _entry_points(out_dir: Path) -> dict:
+    """The port's serving example in both modes and the benchmark driver,
+    each a subprocess on the card, all started together; their output goes
+    to ``out_dir``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {
+        "serve_lm_check": [sys.executable, "examples/torch_serve_lm.py", "--check"],
+        "serve_lm_open_loop": [sys.executable, "examples/torch_serve_lm.py", "--open-loop"],
+        "torch_run": [sys.executable, "-m", "benchmarks.torch_run", "--only", "fig6,serve",
+                      "--batches", "8", "--serve-arrivals", "poisson", "--serve-requests",
+                      "16", "--fig6-json-out", str(out_dir / "phase18_fig6.json"),
+                      "--serve-json-out", str(out_dir / "phase18_serve.json")],
+    }
+    procs = {}
+    for name, cmd in cmds.items():
+        with open(out_dir / f"phase18_{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT)
+    return procs
+
+
+def _grad_check(torch) -> None:
+    """``Target.grad``/``value_and_grad`` against ``torch.autograd.grad``."""
+    from repro_torch.mcmc import targets
+
+    target = targets.logistic_regression(num_data=10_000, dim=100, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs = torch.randn(CHAINS, 100, generator=gen, device="cuda") * 0.1
+    xr = xs.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(torch.func.vmap(target.logp)(xr).sum(), xr)
+    value, grad = target.value_and_grad()(xs[0])
+    errs = {
+        "grad": (target.grad()(xs[0]) - want[0]).abs().max().item(),
+        "value_and_grad": (grad - want[0]).abs().max().item(),
+        "vmap(grad)": (torch.func.vmap(target.grad())(xs) - want).abs().max().item(),
+    }
+    scale = want.abs().max().item()
+    check(abs(value.item() - target.logp(xs[0]).item()) <= 1e-5 * abs(value.item()),
+          "value_and_grad's value differs from logp")
+    for name, err in errs.items():
+        check(err <= 1e-5 * scale, f"Target.{name} differs from autograd by {err:.3e} "
+                                   f"(largest entry {scale:.3e})")
+    print("chaos: Target.grad/value_and_grad on logistic_regression(10000, 100), one chain "
+          f"and {CHAINS} through vmap, against torch.autograd.grad of logp: largest "
+          f"differences {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (largest "
+          f"entry {scale:.3e})")
+
+
+def phase_chaos(torch) -> None:
+    """Fault-injected serving at full width, Target.grad, and the serving
+    example and benchmark driver as subprocesses."""
+    from benchmarks import torch_serve_bench as sb
+    from benchmarks.common import validate_bench_json
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    # The subprocesses run beside the sweep (the phase's budget is 60 s; one
+    # after the other they took 70 s on an H100 at 700 W), so the sweep's
+    # wall-clock numbers are taken with three more processes on the card
+    # and the host.
+    procs = _entry_points(out_dir)
+    try:
+        model = sb.load_model(True, torch.device("cuda"))
+        cfg = model[0]
+        fd_ops.decode_attention.launches = 0
+        tab, records = sb.chaos_sweep(model, CHAOS_LANES, device=torch.device("cuda"), **CHAOS)
+        torch.cuda.synchronize()
+        launches = fd_ops.decode_attention.launches
+        print(tab.render())
+        execs = records[0]["calibration"]["decode_executions"] + sum(
+            sum(r["decode_executions"].values()) for r in records)
+        check(launches == cfg.num_layers * execs,
+              f"chaos: K4 launched {launches} times, want {cfg.num_layers} x {execs}")
+        for r in records:
+            what = f"chaos at {r['lanes']} lanes"
+            check(r["violations"] == [], f"{what}: violations {r['violations']}")
+            check(r["healthy_bitexact"], f"{what}: healthy requests not bit-exact")
+            check(len(r["injected_rids"]) == 13, f"{what}: injected {r['injected_rids']}")
+            ended = {rid: r["faults"].get(rid) for rid in r["injected_rids"]}
+            check(ended == r["injected_rids"],
+                  f"{what}: injected requests ended {ended}, want {r['injected_rids']}")
+            check(sum(r["statuses"].values()) == CHAOS["num_requests"],
+                  f"{what}: statuses {r['statuses']}")
+            print(f"chaos: {ARCH} full width bf16, {r['lanes']} lanes, 64 Poisson arrivals at "
+                  f"32/s, 13 injected {r['injected']}: statuses {r['statuses']}, error rate "
+                  f"{r['error_rate']:.4f}, retry rate {r['retry_rate']:.4f}, shed rate "
+                  f"{r['shed_rate']:.4f}, timeout rate {r['timeout_rate']:.4f}, latency p50 "
+                  f"{r['p50_latency_s']:.3f} s p99 {r['p99_latency_s']:.3f} s, "
+                  f"{r['tok_s']:.1f} tokens/s ({r['generated_tokens']} tokens in "
+                  f"{r['wall_s']:.3f} s), {r['vm_steps']} dispatches, {r['segments']} "
+                  f"segments, lane_step_budget {r['lane_step_budget']} (2 x "
+                  f"{r['calibration']['vm_steps']}), faults {sorted(set(r['faults'].values()))}"
+                  f", healthy bit-exact")
+        print(f"chaos: K4 launches {launches} = {cfg.num_layers} x {execs} decode executions "
+              f"(calibration, chaos-free and chaotic serves); sweep "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        _grad_check(torch)
+        for name, proc in procs.items():
+            rc = proc.wait(timeout=300)
+            log = (out_dir / f"phase18_{name}.log").read_text()
+            check(rc == 0, f"{name} exited {rc}: {log[-2000:]}")
+        lines = {name: (out_dir / f"phase18_{name}.log").read_text().splitlines()
+                 for name in procs}
+        check("matches sequential oracle: True" in lines["serve_lm_check"],
+              "torch_serve_lm --check: not equal to the sequential oracle")
+        check(any(ln.startswith("served 16 requests") for ln in lines["serve_lm_open_loop"]),
+              "torch_serve_lm --open-loop: not every request served")
+        paths = [str(out_dir / "phase18_fig6.json"), str(out_dir / "phase18_serve.json")]
+        validate_bench_json(paths)
+        check(any(ln.startswith("[validated strict JSON:") for ln in lines["torch_run"]),
+              "torch_run did not validate its records")
+        for name in ("serve_lm_check", "serve_lm_open_loop"):
+            for ln in lines[name]:
+                if not ln.startswith("  request "):
+                    print(f"chaos: {name}: {ln}")
+        print(f"chaos: torch_run --only fig6,serve: records {', '.join(paths)} strictly "
+              f"valid; {lines['torch_run'][-1].strip()}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"chaos: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # cuBLAS picks its workspace when it makes a handle, so the setting
     # that phase 15's deterministic mode asks for comes before any CUDA work.
@@ -2309,6 +2465,7 @@ def main() -> int:
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     for name, err in phase_multimodal(torch, smi).items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    phase_chaos(torch)
 
     kdir = "src/repro_torch/kernels"
     where = {

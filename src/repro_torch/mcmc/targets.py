@@ -36,6 +36,21 @@ class Target:
     true_mean: np.ndarray | None = None
     true_std: np.ndarray | None = None
 
+    def grad(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """``x -> d logp / dx`` (``jax.grad(logp)`` in the reference)."""
+        return torch.func.grad(self.logp)
+
+    def value_and_grad(self) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+        """``x -> (logp(x), d logp / dx)``, in JAX's order (``torch.func``
+        returns the gradient first)."""
+        vg = torch.func.grad_and_value(self.logp)
+
+        def value_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            g, v = vg(x)
+            return v, g
+
+        return value_and_grad
+
 
 def correlated_gaussian(dim: int = 100, rho: float = 0.95, *, device=None) -> Target:
     """N(0, Sigma) with AR(1)-style correlation ``rho`` between neighbours.

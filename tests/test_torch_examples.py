@@ -70,3 +70,29 @@ def test_train_lm_quick_runs_on_the_cpu():
     assert "injecting simulated node failure at step 30" in proc.stdout
     assert "final step 60, restarts 1" in proc.stdout
     assert "(improved)" in proc.stdout
+
+
+def test_serve_lm_closed_loop_matches_the_oracle_on_the_cpu():
+    proc = _run("examples/torch_serve_lm.py", "--device", "cpu", "--lanes", "3",
+                "--requests-per-lane", "2", "--max-new", "6", "--check")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "engine on cpu: 3 lanes x 2 requests, program blocks:" in proc.stdout
+    assert "tok/s), decode-batch utilization" in proc.stdout
+    assert "matches sequential oracle: True" in proc.stdout
+
+
+def test_serve_lm_open_loop_on_the_cpu():
+    proc = _run("examples/torch_serve_lm.py", "--device", "cpu", "--lanes", "2",
+                "--open-loop", "--num-requests", "5", "--max-new", "6")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.count(" done on lane ") == 5
+    assert "served 5 requests / " in proc.stdout and "p99 " in proc.stdout
+
+
+def test_serve_lm_without_a_device_refuses_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default run would use it")
+    proc = _run("examples/torch_serve_lm.py", "--lanes", "2")
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert "generated" not in proc.stdout

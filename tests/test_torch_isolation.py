@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the JAX package, and no source of the port (nor
 ``chip_smoke.py``, the card's tests, the port's Fig. 5 / Fig. 6 and
-serving benchmarks and its chaos harness) imports either."""
+serving benchmarks, their driver, its chaos harness and its examples)
+imports either."""
 import ast
 import json
 import os
@@ -59,8 +60,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "tools" / "torch_vmtrace.py", REPO / "tools" / "torch_pgo.py",
     REPO / "tools" / "torch_irlint.py", REPO / "tools" / "torch_verify_cost.py",
     REPO / "benchmarks" / "torch_fig5.py", REPO / "benchmarks" / "torch_fig6.py",
-    REPO / "benchmarks" / "torch_serve_bench.py", REPO / "benchmarks" / "common.py",
-]
+    REPO / "benchmarks" / "torch_serve_bench.py", REPO / "benchmarks" / "torch_run.py",
+    REPO / "benchmarks" / "common.py",
+] + sorted((REPO / "examples").glob("torch_*.py"))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
@@ -71,9 +73,12 @@ def test_no_jax_or_reference_import_in_source(path):
 
 
 _BENCH_PROBE = """
-import json, sys
+import json, pathlib, runpy, sys
 import benchmarks.torch_fig5, benchmarks.torch_fig6, benchmarks.torch_serve_bench
+import benchmarks.torch_run
 import tools.torch_chaos
+for path in sorted(pathlib.Path("examples").glob("torch_*.py")):
+    runpy.run_path(str(path), run_name="probe")  # the module body, not its main
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(json.dumps(bad))
@@ -81,7 +86,8 @@ print(json.dumps(bad))
 
 
 def test_importing_the_fig_benchmarks_loads_no_jax():
-    """The Fig. 5 / Fig. 6 and serving benchmarks and the chaos harness."""
+    """The Fig. 5 / Fig. 6 and serving benchmarks, their driver, the chaos
+    harness and the examples."""
     proc = subprocess.run(
         [sys.executable, "-c", _BENCH_PROBE], capture_output=True, text=True,
         timeout=300, cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO / "src")},

@@ -27,6 +27,10 @@ and checks that
 
 Lane sharding (``--mesh`` of the JAX harness) is not ported.  Exit status
 1 on any violation; ``--json`` writes a strict-JSON record per cell.
+
+:class:`ChaosModel` is the serving side of the same harness: a language
+model wrapper whose sentinel prompts NaN-poison or livelock their own lane
+(``python -m benchmarks.torch_serve_bench --chaos``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 for _p in (_REPO, os.path.join(_REPO, "src")):
@@ -45,6 +50,7 @@ for _p in (_REPO, os.path.join(_REPO, "src")):
 from repro_torch.core import batching, frontend, pc_vm  # noqa: E402
 from repro_torch.core.frontend import F32, I32  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.serve.engine import _cache_layout  # noqa: E402
 
 #: The harness's VM limits: the bomb recurses past MAX_DEPTH and the
 #: livelock spins past LANE_STEP_BUDGET; healthy lanes run < 200
@@ -110,6 +116,72 @@ def build_chaos_program():
     fb.return_()
     pb.add(fb)
     return pb.build()
+
+
+class ChaosModel:
+    """A language model wrapper that injects per-lane serving faults, keyed
+    by sentinel prompt tokens (``benchmarks/torch_serve_bench --chaos``);
+    the counterpart of ``tools/chaos.py``'s ``ChaosModel``.
+
+    * token ``vocab-1`` (the NaN sentinel): NaN is added along the lane's
+      own batch slice of every floating cache leaf (integer leaves, the
+      int8 ``k_q``/``v_q``, are left as they are), so the VM's opt-in
+      ``detect_nonfinite`` check faults the lane (``nonfinite``) when the
+      poisoned cache is written back into VM state;
+    * token ``vocab-2`` (the livelock sentinel): the logits are forced to
+      emit ``vocab-2`` again, so the lane never reaches EOS and burns
+      decode steps until the ``lane_step_budget`` watchdog fires
+      (``watchdog``);
+    * any other token: the wrapped model's logits, except that EOS is
+      forced once ``pos >= eos_pos``, so a healthy request finishes in
+      bounded, known work (which keeps the watchdog's budget separable:
+      healthy lanes run under twice a calibrated fault-free request, a
+      livelocked lane needs about ``max_new / eos_pos`` times it).
+
+    A fault touches only its own lane's batch slice, so healthy lanes'
+    tokens are bit-exact with a chaos-free serve of the same requests.
+    The engine calls :meth:`decode_step` batched, on ``[Z]`` tokens and
+    positions.
+    """
+
+    def __init__(self, inner, *, eos_pos: int, eos_id: int = 0):
+        self.inner = inner
+        self.cfg = inner.cfg
+        self.device = inner.device
+        self.nan_token = inner.cfg.vocab_size - 1
+        self.slow_token = inner.cfg.vocab_size - 2
+        self.eos_pos = eos_pos
+        self.eos_id = eos_id
+        # Each cache leaf's batch axis, from the meta device (window-invariant).
+        _, self._axes, _ = _cache_layout(inner, 8)
+
+    def init(self, generator: torch.Generator) -> dict:
+        return self.inner.init(generator)
+
+    def init_cache(self, batch: int, window: int, device=None) -> dict:
+        return self.inner.init_cache(batch, window, device=device)
+
+    def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
+                    pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        logits, new_cache = self.inner.decode_step(params, cache, token, pos)
+        is_slow = token == self.slow_token
+        is_nan = token == self.nan_token
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        slow_logits = torch.where(vocab == self.slow_token, 0.0, -1e9).to(logits.dtype)
+        eos_logits = torch.where(vocab == self.eos_id, 0.0, -1e9).to(logits.dtype)
+        force_eos = torch.logical_and(torch.logical_not(is_slow), pos >= self.eos_pos)
+        logits = torch.where(is_slow[:, None], slow_logits, logits)
+        logits = torch.where(force_eos[:, None], eos_logits, logits)
+        poison = torch.where(is_nan, float("nan"), 0.0).to(torch.float32)
+        leaves, treedef = pytree.tree_flatten(new_cache)
+        out = []
+        for leaf, ax in zip(leaves, self._axes):
+            if leaf.is_floating_point():
+                shape = [1] * leaf.dim()
+                shape[ax] = -1
+                leaf = leaf + poison.reshape(shape).to(leaf.dtype)
+            out.append(leaf)
+        return logits, pytree.tree_unflatten(out, treedef)
 
 
 def make_modes(batch: int, rate: float, seed: int) -> np.ndarray:
