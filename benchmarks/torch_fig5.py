@@ -20,7 +20,15 @@ once at set-up, untimed: a traced run of its own configuration at
 :data:`PGO_PROFILE_BATCH` chains, whose block profile re-lowers it through
 the profile-guided passes (``kernel.optimize``), bit-exact and with fewer
 dispatches.  ``--verify`` runs the lowered-IR verifier between every pass.
-Lane sharding (``--mesh``) is not ported yet and is refused.
+
+``--mesh`` adds lane-sharded pc arms, as the JAX benchmark's
+``--per-device-batch`` reading of it: ``--mesh none,2`` runs every pc
+variant unsharded and over 2 ranks, and a ``mesh{n}`` arm at batch ``z``
+holds ``z`` chains a rank (``n * z`` in all).  The benchmark starts the
+ranks itself (``repro_torch.distributed.spawn``, one process a rank, a
+gloo group), so no launcher is needed; every arm without a mesh runs on
+the first rank alone, and the first rank writes the record.  One rank
+count a run.
 
 Throughput = member gradient evaluations per second (active leaf
 executions x grads per leaf over the wall), best of ``repeats`` warm runs;
@@ -33,6 +41,7 @@ Run from the repository root, e.g.::
     python -m benchmarks.torch_fig5 --device cpu --batches 1,2 --repeats 1
     python -m benchmarks.torch_fig5 --device cpu --batches 4,8 --arms pc --pgo on,off
     python -m benchmarks.torch_fig5 --full --schedule earliest,sweep
+    python -m benchmarks.torch_fig5 --device cpu --batches 2 --arms pc --mesh none,2
 
 Records go to ``--json`` (default ``BENCH_fig5_torch.json``).
 """
@@ -40,33 +49,40 @@ from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 import time
 
 import torch
 
+from repro_torch import distributed
 from repro_torch.device import resolve_device
 from repro_torch.mcmc import iterative, nuts, targets
 from repro_torch.obs import block_profile
 
 from .common import Table, write_json
 
-#: (schedule, fuse, compact_every, pgo) combinations of the plain "pc" arm
-#: (a 3-tuple means pgo off).
+#: (schedule, fuse, compact_every, pgo, mesh) combinations of the plain "pc"
+#: arm (a shorter tuple means pgo off and no mesh).
 DEFAULT_PC_VARIANTS = (("earliest", True, None),)
 ARMS = ("pc", "local", "local_eager", "unbatched", "iterative")
-#: Where the knobs this benchmark refuses are tracked (ROADMAP.md, queue 1).
-REFUSED = {"mesh": "item 14 (multi-device lane sharding)"}
 #: Chains and trace-ring capacity of a pgo variant's set-up profiling run,
 #: as the JAX benchmark profiles (the ring holds the whole run).
 PGO_PROFILE_BATCH = 32
 PGO_TRACE_CAPACITY = 262_144
 
 
-def pc_arm_name(schedule: str, fuse: bool, compact_every=None, pgo: bool = False, *,
-                solo: bool) -> str:
-    if solo:
+def pc_variant(variant) -> tuple:
+    """A pc variant as ``(schedule, fuse, compact_every, pgo, mesh)``."""
+    return tuple(variant) + (False, None)[len(variant) - 3:]
+
+
+def pc_arm_name(schedule: str, fuse: bool, compact_every=None, pgo: bool = False,
+                mesh=None, *, solo: bool) -> str:
+    if solo and mesh is None:
         return "pc"
     parts = [schedule, "fuse" if fuse else "nofuse"]
+    if mesh is not None:
+        parts.append(f"mesh{mesh}")
     if compact_every is not None:
         parts.append(f"ce{compact_every}")
     if pgo:
@@ -96,6 +112,32 @@ def device_record(device: torch.device) -> dict:
     return {"type": device.type, "name": device.type, "count": 1}
 
 
+def lead_rank() -> bool:
+    """Whether this process runs the arms without a mesh: the only process,
+    or the first rank of a sharded run."""
+    return not distributed.world_size() or torch.distributed.get_rank() == 0
+
+
+def on_ranks(fn, n: int, device, *args):
+    """``fn(rank, device, *args)`` on ``n`` ranks started here, with a gloo
+    default group (it carries no traffic of the VM's, which has its own
+    gloo group, and lets ranks share a card); a CUDA run gives rank ``r``
+    the card ``r % device_count``.  The first rank's result."""
+    dev = None if device is None else torch.device(device)
+    devices = None if dev is None or dev.type == "cuda" else [str(dev)] * n
+    with tempfile.TemporaryDirectory() as tmp:
+        return distributed.spawn(fn, n, rendezvous_dir=tmp, backend="gloo",
+                                 devices=devices, args=args)[0]
+
+
+def mesh_ranks(pc_variants) -> int:
+    """The one rank count of the variants' meshes (0: none has one)."""
+    counts = {pc_variant(v)[4] for v in pc_variants} - {None}
+    if len(counts) > 1:
+        raise SystemExit(f"--mesh takes one rank count a run, got {sorted(counts)}")
+    return counts.pop() if counts else 0
+
+
 def throughput_sweep(
     batch_sizes: list[int],
     *,
@@ -113,8 +155,10 @@ def throughput_sweep(
     device=None,
 ) -> tuple[Table, list[dict]]:
     """Run the sweep on ``device`` (default: the card); returns the table
-    and JSON-able records."""
+    and JSON-able records.  A variant with a mesh runs over the ranks of the
+    process group, each on its ``device`` (see the module docstring)."""
     device = resolve_device(device)
+    lead = lead_rank()
     target = targets.logistic_regression(num_data=num_data, dim=dim, device=device)
     settings = nuts.NutsSettings(max_tree_depth=max_tree_depth, num_steps=num_steps,
                                  steps_per_leaf=steps_per_leaf)
@@ -125,10 +169,10 @@ def throughput_sweep(
     for arm in arms:
         if arm == "pc":
             for variant in pc_variants:
-                sched, fz, ce, pg = tuple(variant) + (False,) * (4 - len(variant))
-                name = pc_arm_name(sched, fz, ce, pg, solo=solo)
+                meta = pc_variant(variant)
+                name = pc_arm_name(*meta, solo=solo)
                 columns.append(name)
-                pc_meta[name] = (sched, fz, ce, pg)
+                pc_meta[name] = meta
         else:
             columns.append(arm)
     tab = Table(
@@ -139,15 +183,16 @@ def throughput_sweep(
     # One kernel per arm, shared across batch sizes (the lowering is made
     # once; each batch size gets its own executor).
     kernels = {}
-    for name, (sched, fz, ce, pg) in pc_meta.items():
+    for name, (sched, fz, ce, pg, mesh) in pc_meta.items():
         kern = nuts.make_nuts_kernel(target, settings, max_steps=500_000, schedule=sched,
-                                     fuse=fz, compact_every=ce, verify=verify, device=device)
+                                     fuse=fz, compact_every=ce, verify=verify, mesh=mesh,
+                                     device=device)
         if pg:
             # Set-up time, untimed: profile a traced run of this very
             # configuration and re-lower through the profile-guided passes.
             traced = kern.with_options(trace=PGO_TRACE_CAPACITY)
-            traced(*nuts.initial_state(target, PGO_PROFILE_BATCH, eps=eps, seed=0,
-                                       device=device))
+            traced(*nuts.initial_state(target, PGO_PROFILE_BATCH * (mesh or 1), eps=eps,
+                                       seed=0, device=device))
             kern = kern.optimize(block_profile(traced.last_trace))
         kernels[name] = kern
     for arm in ("local", "local_eager"):
@@ -157,7 +202,8 @@ def throughput_sweep(
     if "unbatched" in arms:
         kernels["unbatched"] = nuts.make_nuts_kernel(target, settings, backend="reference",
                                                      device=device)
-        counter = next((kernels[n] for n in pc_meta), None) \
+        # The gradient counter: an unsharded pc kernel.
+        counter = next((kernels[n] for n, meta in pc_meta.items() if meta[4] is None), None) \
             or nuts.make_nuts_kernel(target, settings, max_steps=500_000, device=device)
     if "iterative" in arms:
         run_iterative = iterative.make_batched(target, settings, device=device)
@@ -168,21 +214,28 @@ def throughput_sweep(
         rec = {"arm": arm, "batch": z, "grads_per_sec": grads / wall, "grads": grads,
                "wall_s": wall}
         if arm in pc_meta:
-            sched, fz, ce, pg = pc_meta[arm]
-            rec.update(schedule=sched, fuse=fz, compact_every=ce, pgo=pg)
+            sched, fz, ce, pg, mesh = pc_meta[arm]
+            rec.update(schedule=sched, fuse=fz, compact_every=ce, pgo=pg, mesh=mesh or 1,
+                       per_device_batch=z // (mesh or 1))
         rec.update(extra)
         records.append(rec)
         return rec["grads_per_sec"]
 
     for z in batch_sizes:
-        args = nuts.initial_state(target, z, eps=eps, seed=0, device=device)
         row = [z]
         for arm in columns:
+            mesh = pc_meta[arm][4] if arm in pc_meta else None
+            if mesh is None and not lead:
+                row.append(float("nan"))  # the first rank runs it
+                continue
+            # A mesh arm holds z chains a rank.
+            z_arm = z * (mesh or 1)
+            args = nuts.initial_state(target, z_arm, eps=eps, seed=0, device=device)
             if arm == "iterative":
                 out = run_iterative(*args)  # warm-up
                 grads = int(out["grads"].sum())
                 wall = best_of(lambda: run_iterative(*args), repeats, device)
-                row.append(record(arm, z, grads, wall,
+                row.append(record(arm, z_arm, grads, wall,
                                   iterations=run_iterative.chain.iterations))
                 continue
             if arm == "unbatched":
@@ -192,7 +245,7 @@ def throughput_sweep(
                 counter(*args)
                 _, active = counter.tag_stats["grad"]
                 wall = best_of(lambda: kernels["unbatched"](*args), 1, device)
-                row.append(record(arm, z, active * gpl, wall))
+                row.append(record(arm, z_arm, active * gpl, wall))
                 continue
             kern = kernels[arm]
             kern(*args)  # warm-up (type inference, lowering, graph capture)
@@ -203,11 +256,12 @@ def throughput_sweep(
                 extra = {"vm_steps": st.steps, "num_blocks": st.num_blocks,
                          "mean_occupancy": st.mean_occupancy,
                          "mean_lane_occupancy": st.mean_lane_occupancy,
+                         "num_devices": st.num_devices,
                          "masked_updates": st.masked_updates}
             else:
                 extra = {"block_execs": kern.local_stats.block_execs}
             wall = best_of(lambda: kern(*args), repeats, device)
-            row.append(record(arm, z, active * gpl, wall, **extra))
+            row.append(record(arm, z_arm, active * gpl, wall, **extra))
         tab.add(*row)
     return tab, records
 
@@ -223,26 +277,31 @@ def parse_onoff(text: str, flag: str) -> list[bool]:
     return out
 
 
-def parse_pc_variants(schedules: str, fuses: str, compacts: str = "none") -> tuple:
+def parse_none_or_int(text: str, flag: str) -> list:
+    out = []
+    for c in (c.strip().lower() for c in text.split(",")):
+        if c in ("none", "0"):
+            out.append(None)
+        elif c.isdigit():
+            out.append(int(c))
+        elif c:
+            raise SystemExit(f"{flag} values must be ints or 'none', got {c!r}")
+    return out
+
+
+def parse_pc_variants(schedules: str, fuses: str, compacts: str = "none",
+                      meshes: str = "none") -> tuple:
+    """``(schedule, fuse, compact_every)`` variants, with ``(False, mesh)``
+    appended to each when ``meshes`` names a rank count."""
     scheds = [s.strip() for s in schedules.split(",") if s.strip()]
     fzs = parse_onoff(fuses, "--fuse")
-    ces = []
-    for c in (c.strip().lower() for c in compacts.split(",")):
-        if c in ("none", "0"):
-            ces.append(None)
-        elif c.isdigit():
-            ces.append(int(c))
-        elif c:
-            raise SystemExit(f"--compact-every values must be ints or 'none', got {c!r}")
-    if not scheds or not fzs or not ces:
-        raise SystemExit("--schedule, --fuse and --compact-every must each name a value")
-    return tuple((s, f, c) for c in ces for f in fzs for s in scheds)
-
-
-def refuse_unported(args) -> None:
-    """``--mesh`` names a knob the port does not have yet."""
-    if any(m.strip().lower() not in ("", "none") for m in args.mesh.split(",")):
-        raise SystemExit(f"--mesh is not ported yet: ROADMAP.md queue 1, {REFUSED['mesh']}")
+    ces = parse_none_or_int(compacts, "--compact-every")
+    ms = parse_none_or_int(meshes, "--mesh")
+    if not scheds or not fzs or not ces or not ms:
+        raise SystemExit("--schedule, --fuse, --compact-every and --mesh must each name a "
+                         "value")
+    return tuple((s, f, c) + (() if ms == [None] else (False, m))
+                 for m in ms for c in ces for f in fzs for s in scheds)
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> None:
@@ -252,9 +311,15 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--fuse", default="on", help="comma list of on/off: superblock fusion")
     ap.add_argument("--compact-every", default="none",
                     help="comma list of lane-compaction cadences ('none' = off)")
-    ap.add_argument("--mesh", default="none", help="not ported (refused unless 'none')")
+    ap.add_argument("--mesh", default="none",
+                    help="comma list of rank counts to shard the pc arms' lanes over "
+                         "('none' = unsharded; one count a run)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for a CPU run)")
+
+
+def _sweep_on_rank(rank: int, device, batches: list[int], sweep: dict):
+    return throughput_sweep(batches, device=device, **sweep)
 
 
 def main(argv=None) -> int:
@@ -271,7 +336,6 @@ def main(argv=None) -> int:
                     help="run the lowered-IR verifier between every pass")
     add_common_args(ap)
     args = ap.parse_args(argv)
-    refuse_unported(args)
     if args.full:
         kw: dict = dict(num_data=10_000, dim=100, max_tree_depth=10, num_steps=10)
         batches = [1, 4, 16, 64, 256, 1024]
@@ -287,12 +351,18 @@ def main(argv=None) -> int:
     pgos = parse_onoff(args.pgo, "--pgo")
     if not pgos:
         raise SystemExit("--pgo must name a value (on, off or on,off)")
-    pc_variants = tuple(v + (p,) for p in pgos
-                        for v in parse_pc_variants(args.schedule, args.fuse, args.compact_every))
+    pc_variants = tuple(pc_variant(v)[:3] + (p, pc_variant(v)[4]) for p in pgos
+                        for v in parse_pc_variants(args.schedule, args.fuse, args.compact_every,
+                                                   args.mesh))
+    sweep = dict(repeats=args.repeats, arms=arms, pc_variants=pc_variants,
+                 verify=args.verify, **kw)
+    ranks = mesh_ranks(pc_variants)
     device = resolve_device(args.device)
-    tab, records = throughput_sweep(batches, repeats=args.repeats, arms=arms,
-                                    pc_variants=pc_variants, verify=args.verify,
-                                    device=device, **kw)
+    if ranks:
+        tab, records = on_ranks(_sweep_on_rank, ranks, args.device,
+                                batches, sweep)
+    else:
+        tab, records = throughput_sweep(batches, device=device, **sweep)
     print(tab.render())
     write_json(args.json, {
         "benchmark": "fig5_throughput_torch",
@@ -300,7 +370,7 @@ def main(argv=None) -> int:
         "device": device_record(device),
         "config": {"full": bool(args.full), "batches": batches, "repeats": args.repeats,
                    "arms": list(arms), "pc_variants": [list(v) for v in pc_variants],
-                   "verify": args.verify, **kw},
+                   "verify": args.verify, "ranks": ranks or 1, **kw},
         "records": records,
     })
     print(f"[wrote {args.json}: {len(records)} records]")

@@ -9,13 +9,18 @@ evaluations / (gradient launches x batch size), from the kernels'
 trajectory boundaries (its host recursion pins every member to the same
 call stack), the pc VM batches gradients across trajectory and recursion
 depth.  The pc arm expands over ``--schedule`` x ``--fuse`` x
-``--compact-every``; ``--mesh`` is refused (not ported).  There is no
-``--pgo``, as the JAX benchmark has none.
+``--compact-every`` x ``--mesh``.  A ``mesh{n}`` arm shards the batch's
+lanes over ``n`` ranks that the benchmark starts itself, as
+``benchmarks/torch_fig5.py`` does; as in the JAX benchmark the batch is
+the whole batch here, and one that ``n`` does not divide gives a nan
+cell (a null record).  There is no ``--pgo``, as the JAX benchmark has
+none.
 
 Run from the repository root, e.g.::
 
     python -m benchmarks.torch_fig6 --device cpu --batches 2,4
     python -m benchmarks.torch_fig6 --full --batches 64
+    python -m benchmarks.torch_fig6 --device cpu --batches 2,3 --mesh none,2
 
 Records go to ``--json`` (default ``BENCH_fig6_torch.json``).
 """
@@ -28,8 +33,8 @@ from repro_torch.device import resolve_device
 from repro_torch.mcmc import nuts, targets
 
 from .common import Table, write_json
-from .torch_fig5 import (DEFAULT_PC_VARIANTS, add_common_args, device_record,
-                         parse_pc_variants, pc_arm_name, refuse_unported)
+from .torch_fig5 import (DEFAULT_PC_VARIANTS, add_common_args, device_record, lead_rank,
+                         mesh_ranks, on_ranks, parse_pc_variants, pc_arm_name, pc_variant)
 
 
 def utilization_sweep(
@@ -45,34 +50,45 @@ def utilization_sweep(
     device=None,
 ) -> tuple[Table, list[dict]]:
     """Run the sweep on ``device`` (default: the card); returns the table
-    and JSON-able records (one per batch size)."""
+    and JSON-able records (one per batch size).  A variant with a mesh runs
+    over the ranks of the process group; the others on the first rank."""
     device = resolve_device(device)
+    lead = lead_rank()
     target = targets.correlated_gaussian(dim=dim, rho=rho, device=device)
     settings = nuts.NutsSettings(max_tree_depth=max_tree_depth, num_steps=num_steps,
                                  steps_per_leaf=steps_per_leaf)
     solo = len(pc_variants) == 1
-    pc_cols = [pc_arm_name(s, f, c, solo=solo) for s, f, c in pc_variants]
+    variants = [pc_variant(v) for v in pc_variants]
+    pc_cols = [pc_arm_name(*v, solo=solo) for v in variants]
     tab = Table(
         f"Fig 6 (PyTorch port, {device_record(device)['name']}) — batch utilization of "
         f"gradient evals (correlated Gaussian d={dim} rho={rho}, {num_steps} trajectories)",
         ["batch", *pc_cols, "local_static", f"{pc_cols[0]}/local"],
     )
     pcs = [nuts.make_nuts_kernel(target, settings, schedule=s, fuse=f, compact_every=c,
-                                 device=device) for s, f, c in pc_variants]
+                                 mesh=m, device=device) for s, f, c, _, m in variants]
     loc = nuts.make_nuts_kernel(target, settings, backend="local", device=device)
+    nan = float("nan")
     records = []
     for z in batch_sizes:
         args = nuts.initial_state(target, z, eps=eps, seed=0, device=device)
         u_pcs = []
-        for pc in pcs:
+        for pc, (*_, mesh) in zip(pcs, variants):
+            if (mesh is None and not lead) or (mesh is not None and z % mesh):
+                u_pcs.append(nan)  # another rank's arm, or lanes that do not divide
+                continue
             pc(*args)
             u_pcs.append(grad_utilization(pc))
-        loc(*args)
-        u_loc = grad_utilization(loc)
-        ratio = u_pcs[0] / u_loc if u_loc else float("nan")
+        u_loc = nan
+        if lead:
+            loc(*args)
+            u_loc = grad_utilization(loc)
+        ratio = u_pcs[0] / u_loc if u_loc else nan
         tab.add(z, *u_pcs, u_loc, ratio)
-        records.append({"batch": z, "pc": dict(zip(pc_cols, u_pcs)), "local": u_loc,
-                        "ratio": ratio})
+        # Strict JSON: a cell that did not run is null.
+        records.append({"batch": z,
+                        "pc": {c: None if u != u else u for c, u in zip(pc_cols, u_pcs)},
+                        "local": u_loc, "ratio": None if ratio != ratio else ratio})
     return tab, records
 
 
@@ -86,6 +102,10 @@ def grad_utilization(kernel) -> float:
     return u
 
 
+def _sweep_on_rank(rank: int, device, batches: list[int], sweep: dict):
+    return utilization_sweep(batches, device=device, **sweep)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -93,7 +113,6 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default="BENCH_fig6_torch.json", metavar="PATH")
     add_common_args(ap)
     args = ap.parse_args(argv)
-    refuse_unported(args)
     if args.full:
         batches = [1, 2, 4, 8, 16, 32, 64]
         kw: dict = dict(dim=100, num_steps=10, max_tree_depth=10)
@@ -102,16 +121,21 @@ def main(argv=None) -> int:
         kw = dict(dim=16, num_steps=6, max_tree_depth=7)
     if args.batches:
         batches = [int(b) for b in args.batches.split(",")]
-    pc_variants = parse_pc_variants(args.schedule, args.fuse, args.compact_every)
+    pc_variants = parse_pc_variants(args.schedule, args.fuse, args.compact_every, args.mesh)
+    ranks = mesh_ranks(pc_variants)
     device = resolve_device(args.device)
-    tab, records = utilization_sweep(batches, pc_variants=pc_variants, device=device, **kw)
+    if ranks:
+        tab, records = on_ranks(_sweep_on_rank, ranks, args.device,
+                                batches, dict(pc_variants=pc_variants, **kw))
+    else:
+        tab, records = utilization_sweep(batches, pc_variants=pc_variants, device=device, **kw)
     print(tab.render())
     write_json(args.json, {
         "benchmark": "fig6_utilization_torch",
         "unit": "grad utilization (active / (executions x batch))",
         "device": device_record(device),
         "config": {"full": bool(args.full), "batches": batches,
-                   "pc_variants": [list(v) for v in pc_variants], **kw},
+                   "pc_variants": [list(v) for v in pc_variants], "ranks": ranks or 1, **kw},
         "records": records,
     })
     print(f"[wrote {args.json}: {len(records)} records]")

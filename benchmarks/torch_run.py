@@ -14,10 +14,11 @@ Records go to ``BENCH_fig5_torch.json``, ``BENCH_fig6_torch.json`` and
 ``BENCH_serve_torch.json`` at the repository root unless ``--json-out``,
 ``--fig6-json-out`` and ``--serve-json-out`` name other paths; the JAX
 package's records, ``BENCH_fig5.json`` and ``BENCH_serve.json``, are
-refused.  Refused as well: ``--mesh`` and
-``--only roofline`` (lane sharding and the dry-run artifacts the roofline
-reads come with ROADMAP item 14), and ``--use-kernel off`` (the port runs
-the K1/K2 stack kernels on the card always).
+refused.  ``--mesh`` goes to fig5 (its pc arms, a batch a rank) and to
+serve (the largest rank count), as in the JAX driver; each starts its own
+ranks.  Refused as well: ``--only roofline`` (the dry-run artifacts the
+roofline reads come with ROADMAP item 14), and ``--use-kernel off`` (the
+port runs the K1/K2 stack kernels on the card always).
 """
 from __future__ import annotations
 
@@ -38,10 +39,6 @@ BENCHES = ("fig5", "fig6", "serve")
 
 
 def _refuse(args) -> None:
-    if args.mesh and any(m.strip().lower() not in ("", "none", "0", "1")
-                         for m in args.mesh.split(",")):
-        raise SystemExit("--mesh is not ported yet: ROADMAP.md queue 1, item 14 "
-                         "(multi-device lane sharding)")
     only = set(args.only.split(",")) if args.only else set(BENCHES)
     if "roofline" in only:
         raise SystemExit("--only roofline is not ported yet: it reads dry-run artifacts, "
@@ -65,7 +62,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, help="comma list: fig5,fig6,serve")
     ap.add_argument("--batches", default=None,
                     help="comma-separated batch sizes for fig5/fig6")
-    ap.add_argument("--mesh", default=None, help="not ported (refused)")
+    ap.add_argument("--mesh", default=None,
+                    help="comma list of rank counts for the fig5 pc arms ('none' = "
+                         "unsharded); serve takes the largest")
     ap.add_argument("--schedule", default=None,
                     help="comma list of pc schedules for fig5 (earliest, popular, sweep, "
                          "lookahead); default earliest")
@@ -107,6 +106,8 @@ def main(argv=None) -> int:
             fig5_args += ["--compact-every", args.compact_every]
         if args.pgo:
             fig5_args += ["--pgo", args.pgo]
+        if args.mesh:
+            fig5_args += ["--mesh", args.mesh]
         torch_fig5.main(fig5_args + ["--json", args.json_out])
         emitted.append(args.json_out)
     if "fig6" in only:
@@ -118,6 +119,10 @@ def main(argv=None) -> int:
         serve_args = device + ["--arrivals", args.serve_arrivals]
         if args.serve_arrivals == "poisson":
             serve_args += ["--num-requests", str(args.serve_requests)]
+        counts = [m for m in (args.mesh or "").split(",")
+                  if m.strip().lower() not in ("", "none", "0")]
+        if counts:
+            serve_args += ["--mesh", max(counts, key=int)]
         torch_serve_bench.main(serve_args + ["--json", args.serve_json_out])
         emitted.append(args.serve_json_out)
     # Every record this run wrote must parse as strict JSON (no bare NaN or

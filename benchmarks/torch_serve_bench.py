@@ -32,13 +32,20 @@ reports the statuses and the error, retry, shed and timeout rates beside
 tokens/s and p50/p99, checks that every request ends in a terminal status
 and that no injected request ends ``ok``, and holds the healthy requests'
 tokens bit-exact to a chaos-free serve of them; the exit status is 1 when
-any cell has a violation.  Lane sharding (``--mesh``) is not ported.
+any cell has a violation.
+
+``--mesh n`` shards every engine's lanes over ``n`` ranks that the
+benchmark starts itself (``repro_torch.distributed.spawn``, a gloo
+group); as in the JAX benchmark ``--lanes`` are the whole batch, and a lane count that ``n``
+does not divide gives a nan row (a null record).  The first rank writes
+the record.
 
 Run from the repository root, e.g.::
 
     python -m benchmarks.torch_serve_bench --device cpu --lanes 2,4
     python -m benchmarks.torch_serve_bench --device cpu --arrivals poisson --lanes 4
     python -m benchmarks.torch_serve_bench --device cpu --chaos --lanes 2,4 --rate 32
+    python -m benchmarks.torch_serve_bench --device cpu --lanes 2,3 --mesh 2
     python -m benchmarks.torch_serve_bench --full --arrivals poisson --lanes 64 \\
         --num-requests 128 --max-new 64 --prompt-len 64 --rate 40
 """
@@ -59,7 +66,7 @@ from repro_torch.serve.engine import (COMPLETION_STATUSES, EngineConfig, Generat
                                       Request)
 
 from .common import Table, write_json
-from .torch_fig5 import device_record
+from .torch_fig5 import device_record, lead_rank, on_ranks
 
 ARCH = "smollm-135m"
 
@@ -79,19 +86,29 @@ def _sync(device) -> None:
 
 def _engine(model, params, lanes: int, *, max_new: int, prompt_len: int,
             requests_per_lane: int, segment_steps: int = 64, metrics=None,
-            max_context=None, **fault_knobs):
+            max_context=None, mesh=None, **fault_knobs):
     ecfg = EngineConfig(
         lanes=lanes, max_context=max_context or prompt_len + max_new + 2,
         max_prompt_len=prompt_len, max_new_tokens=max_new,
         requests_per_lane=requests_per_lane, eos_id=0, segment_steps=segment_steps,
-        **fault_knobs,
+        mesh=mesh, **fault_knobs,
     )
     return GenerationEngine(model, params, ecfg, metrics=metrics)
 
 
+def _indivisible(tab: Table, records: list, mode: str, lanes: int, mesh) -> bool:
+    """A lane count the mesh does not divide: a nan row and a null record."""
+    if not mesh or lanes % mesh == 0:
+        return False
+    tab.add(lanes, *[float("nan")] * (len(tab.columns) - 1))
+    records.append({"mode": mode, "lanes": lanes, "mesh": mesh, "tok_s": None,
+                    "skipped": "lanes do not divide across mesh"})
+    return True
+
+
 def closed_sweep(model_triple, lane_counts: list[int], *, device, max_new: int,
                  prompt_len: int, requests_per_lane: int = 2, oracle: bool = True,
-                 seed: int = 0) -> tuple[Table, list[dict]]:
+                 seed: int = 0, mesh=None) -> tuple[Table, list[dict]]:
     cfg, model, params = model_triple
     tab = Table("Serve engine (port), closed loop — generated tokens/s",
                 ["lanes", "tok_s", "seq_tok_s", "dispatches", "ms_per_dispatch",
@@ -99,11 +116,13 @@ def closed_sweep(model_triple, lane_counts: list[int], *, device, max_new: int,
     rng = np.random.default_rng(seed)
     records = []
     for lanes in lane_counts:
-        eng = _engine(model, params, lanes, max_new=max_new, prompt_len=prompt_len,
-                      requests_per_lane=requests_per_lane)
         prompts = rng.integers(1, cfg.vocab_size,
                                (lanes, requests_per_lane, prompt_len)).astype(np.int32)
         plens = rng.integers(2, prompt_len + 1, (lanes, requests_per_lane)).astype(np.int32)
+        if _indivisible(tab, records, "closed", lanes, mesh):
+            continue
+        eng = _engine(model, params, lanes, max_new=max_new, prompt_len=prompt_len,
+                      requests_per_lane=requests_per_lane, mesh=mesh)
         eng.generate(prompts, plens)  # warm-up (type inference, kernel builds)
         _sync(device)
         t0 = time.perf_counter()
@@ -113,14 +132,15 @@ def closed_sweep(model_triple, lane_counts: list[int], *, device, max_new: int,
         n_tok = int(res["lengths"].sum())
         steps = eng.batched.last_result.steps
         seq = float("nan")
-        if oracle:
+        if oracle and lead_rank():
             t0 = time.perf_counter()
             eng.reference_generate(prompts, plens)
             _sync(device)
             seq = n_tok / (time.perf_counter() - t0)
         tab.add(lanes, n_tok / wall, seq, steps, wall / steps * 1e3, res["utilization"])
-        records.append({"mode": "closed", "lanes": lanes, "tok_s": n_tok / wall,
-                        "seq_tok_s": seq if oracle else None, "wall_s": wall,
+        records.append({"mode": "closed", "lanes": lanes, "mesh": mesh or 1,
+                        "tok_s": n_tok / wall,
+                        "seq_tok_s": None if seq != seq else seq, "wall_s": wall,
                         "tokens": n_tok, "dispatches": steps,
                         "utilization": res["utilization"]})
     return tab, records
@@ -140,7 +160,7 @@ def poisson_requests(num: int, rate: float, prompt_len: int, vocab: int,
 def open_loop_sweep(model_triple, lane_counts: list[int], *, device, rate: float,
                     num_requests: int, segment_steps: int, max_new: int,
                     prompt_len: int, seed: int = 0, metrics=None,
-                    max_context=None) -> tuple[Table, list[dict]]:
+                    max_context=None, mesh=None) -> tuple[Table, list[dict]]:
     """Poisson arrivals against all-at-once arrivals, retire-and-refill in both."""
     cfg, model, params = model_triple
     tab = Table(f"Serve engine (port), open loop — Poisson arrivals at {rate} req/s vs "
@@ -149,9 +169,11 @@ def open_loop_sweep(model_triple, lane_counts: list[int], *, device, rate: float
                  "dispatches"])
     records = []
     for lanes in lane_counts:
+        if _indivisible(tab, records, "poisson", lanes, mesh):
+            continue
         eng = _engine(model, params, lanes, max_new=max_new, prompt_len=prompt_len,
                       requests_per_lane=1, segment_steps=segment_steps, metrics=metrics,
-                      max_context=max_context)
+                      max_context=max_context, mesh=mesh)
         reqs = poisson_requests(num_requests, rate, prompt_len, cfg.vocab_size, seed=seed)
         eng.serve([Request(rid=0, prompt=np.array([1], np.int32))])  # warm-up
         for mode in ("poisson", "batch"):
@@ -163,7 +185,8 @@ def open_loop_sweep(model_triple, lane_counts: list[int], *, device, rate: float
             tab.add(lanes, mode, tok_s, stats.p50_latency, stats.p99_latency,
                     round(stats.occupancy, 3), stats.segments, stats.vm_steps)
             records.append({
-                "mode": mode, "lanes": lanes, "rate": rate if mode == "poisson" else None,
+                "mode": mode, "lanes": lanes, "mesh": mesh or 1,
+                "rate": rate if mode == "poisson" else None,
                 "seed": seed, "num_requests": num_requests, "segment_steps": segment_steps,
                 "tok_s": tok_s, "wall_s": stats.wall_time,
                 "generated_tokens": stats.generated_tokens,
@@ -205,7 +228,7 @@ def chaos_requests(num: int, rate: float, chaos_rate: float, prompt_len: int, vo
 def chaos_sweep(model_triple, lane_counts: list[int], *, device, rate: float,
                 chaos_rate: float, num_requests: int, segment_steps: int,
                 max_new: int = 64, prompt_len: int = 6, seed: int = 0,
-                metrics=None) -> tuple[Table, list[dict]]:
+                metrics=None, mesh=None) -> tuple[Table, list[dict]]:
     """Fault-injected open-loop serving under quarantine.
 
     A chaos-free serve of the healthy subset first (same rids, same
@@ -240,12 +263,14 @@ def chaos_sweep(model_triple, lane_counts: list[int], *, device, rate: float,
                    "decode_executions": cal.last_serve_result.tag_stats["decode"][0]}
 
     for lanes in lane_counts:
+        if _indivisible(tab, records, "chaos", lanes, mesh):
+            continue
         reqs, injected = chaos_requests(num_requests, rate, chaos_rate, prompt_len,
                                         cfg.vocab_size, seed)
         healthy = [r for r in reqs if r.rid not in injected]
         eng = _engine(cmodel, params, lanes, max_new=max_new, prompt_len=prompt_len,
                       requests_per_lane=1, segment_steps=segment_steps, metrics=metrics,
-                      **knobs)
+                      mesh=mesh, **knobs)
         base, _ = eng.serve(healthy)
         base_execs = eng.last_serve_result.tag_stats["decode"][0]
         base_tokens = {c.rid: c.tokens for c in base}
@@ -275,7 +300,8 @@ def chaos_sweep(model_triple, lane_counts: list[int], *, device, rate: float,
                 tok_s, stats.p50_latency, stats.p99_latency, round(stats.occupancy, 3),
                 bitexact)
         records.append({
-            "mode": "chaos", "lanes": lanes, "device": device_record(device),
+            "mode": "chaos", "lanes": lanes, "mesh": mesh or 1,
+            "device": device_record(device),
             "seed": seed, "rate": rate, "chaos_rate": chaos_rate,
             "num_requests": n, "segment_steps": segment_steps,
             "max_new": max_new, "prompt_len": prompt_len,
@@ -302,6 +328,34 @@ def chaos_sweep(model_triple, lane_counts: list[int], *, device, rate: float,
     return tab, records
 
 
+def _run(rank: int, device, args, lanes: list[int], mesh):
+    """The sweep that ``args`` asks for, on ``device`` (in each rank under a
+    mesh; the first writes ``--metrics-out``)."""
+    model_triple = load_model(args.full, device, args.seed)
+    metrics = MetricsRegistry() if args.metrics_out else None
+    if args.chaos:
+        out = chaos_sweep(
+            model_triple, lanes, device=device, rate=args.rate, chaos_rate=args.chaos_rate,
+            num_requests=args.num_requests, segment_steps=args.segment_steps,
+            max_new=args.max_new, prompt_len=args.prompt_len, seed=args.seed,
+            metrics=metrics, mesh=mesh)
+    elif args.arrivals == "poisson":
+        out = open_loop_sweep(
+            model_triple, lanes, device=device, rate=args.rate,
+            num_requests=args.num_requests, segment_steps=args.segment_steps,
+            max_new=args.max_new, prompt_len=args.prompt_len, seed=args.seed,
+            metrics=metrics, max_context=args.max_context, mesh=mesh)
+    else:
+        out = closed_sweep(model_triple, lanes, device=device, max_new=args.max_new,
+                           prompt_len=args.prompt_len, oracle=not args.full,
+                           seed=args.seed, mesh=mesh)
+    if args.metrics_out and rank == 0:
+        with open(args.metrics_out, "w") as f:
+            f.write(metrics.render_prometheus())
+        print(f"[wrote {args.metrics_out}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -322,7 +376,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for a CPU run)")
-    ap.add_argument("--mesh", default="none", help="not ported (refused unless 'none')")
+    ap.add_argument("--mesh", default="none",
+                    help="ranks to shard every engine's lanes over ('none' = unsharded)")
     ap.add_argument("--chaos", action="store_true",
                     help="fault-injection sweep: Poisson arrivals where --chaos-rate of the "
                          "requests NaN-poison or livelock their lane (quarantine + watchdog)")
@@ -331,39 +386,20 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default="BENCH_serve_torch.json", metavar="PATH")
     ap.add_argument("--metrics-out", default=None, metavar="PATH")
     args = ap.parse_args(argv)
-    if args.mesh.lower() not in ("none", "0", "1"):
-        raise SystemExit("--mesh is not ported yet: ROADMAP.md queue 1, item 14")
+    mesh = None if args.mesh.lower() in ("none", "0") else int(args.mesh)
     if args.json == "BENCH_serve.json":
         raise SystemExit("BENCH_serve.json is the JAX package's record; pick another path")
     device = resolve_device(args.device)
     lanes = [int(x) for x in args.lanes.split(",")]
-    model_triple = load_model(args.full, device, args.seed)
-    metrics = MetricsRegistry() if args.metrics_out else None
     if args.max_new is None:
         args.max_new = 64 if args.chaos else 16
     if args.prompt_len is None:
         args.prompt_len = 6 if args.chaos else 8
-    if args.chaos:
-        tab, records = chaos_sweep(
-            model_triple, lanes, device=device, rate=args.rate, chaos_rate=args.chaos_rate,
-            num_requests=args.num_requests, segment_steps=args.segment_steps,
-            max_new=args.max_new, prompt_len=args.prompt_len, seed=args.seed,
-            metrics=metrics)
-    elif args.arrivals == "poisson":
-        tab, records = open_loop_sweep(
-            model_triple, lanes, device=device, rate=args.rate,
-            num_requests=args.num_requests, segment_steps=args.segment_steps,
-            max_new=args.max_new, prompt_len=args.prompt_len, seed=args.seed,
-            metrics=metrics, max_context=args.max_context)
+    if mesh:
+        tab, records = on_ranks(_run, mesh, args.device, args, lanes, mesh)
     else:
-        tab, records = closed_sweep(model_triple, lanes, device=device, max_new=args.max_new,
-                                    prompt_len=args.prompt_len, oracle=not args.full,
-                                    seed=args.seed)
+        tab, records = _run(0, device, args, lanes, None)
     print(tab.render())
-    if args.metrics_out:
-        with open(args.metrics_out, "w") as f:
-            f.write((metrics or MetricsRegistry()).render_prometheus())
-        print(f"[wrote {args.metrics_out}]")
     write_json(args.json, {
         "benchmark": "serve_bench_torch",
         "device": device_record(device),
@@ -372,7 +408,8 @@ def main(argv=None) -> int:
                    "chaos_rate": args.chaos_rate if args.chaos else None,
                    "num_requests": args.num_requests,
                    "segment_steps": args.segment_steps, "max_new": args.max_new,
-                   "prompt_len": args.prompt_len, "max_context": args.max_context},
+                   "prompt_len": args.prompt_len, "max_context": args.max_context,
+                   "mesh": mesh or 1},
         "records": records,
     })
     print(f"[wrote {args.json}: {len(records)} records]")

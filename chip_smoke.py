@@ -53,10 +53,11 @@ non-zero (nothing is caught):
    requests, 16-token prompts and completions) equal token for token to
    the sequential oracle on the card, then bf16 with 64 lanes x 2
    requests (prompts of 2 to 64 tokens, 64 new tokens, a 512-token
-   cache), once to warm up and once measured (generated tokens/s,
+   cache), warmed up on one short request and measured (generated tokens/s,
    dispatches, decode utilization, K4 launches held to 30 x decode
-   executions), and a profiled run for the device's busy share and K4's
-   device total;
+   executions), the first request a lane alone, timed (phase 19's
+   closed-loop workload), and a profiled run of it for the device's busy
+   share and K4's device total;
 10. the paper's evaluation: Fig. 5's arms on the 10,000 x 100 logistic
     regression (``num_steps=2`` as in phase 6) — the pc VM under every
     schedule (earliest, popular, lookahead, sweep) and earliest with lane
@@ -67,7 +68,8 @@ non-zero (nothing is caught):
     occupancy; the pc arms bit-identical to each other with K1/K2 launches
     held to block_exec x groups (iterations x all groups for sweep),
     ``local`` equal to ``local_eager``; then Fig. 6 at its ``--full``
-    setting with batch 64 (pc and local gradient utilization, their ratio);
+    setting with batch 64 and 5 of its 10 steps (cut for the time limit;
+    pc and local gradient utilization, their ratio);
 11. segments and faults: phase 6's NUTS through a ``Stepper`` in segments
     of 7 dispatches, bit-identical to phase 6's single run (outputs,
     dispatches, ``block_exec``, K1/K2 launches); ``tools/torch_chaos.py``'s
@@ -79,13 +81,17 @@ non-zero (nothing is caught):
     width: a float32 check (4 lanes, 8 requests arriving on a virtual
     clock and a hog request under a lane step budget: the hog faulted by
     the watchdog, every other completion equal to the sequential oracle),
-    then bf16 with 64 lanes and 128 requests (prompts of 2
-    to 64 tokens, 64 new tokens, a 512-token cache, 16 dispatches a
-    segment): a warm-up, a burst at t=0 and Poisson arrivals at half the
-    burst's completion rate (tokens/s, completions by status, p50/p99
-    latency, segments, dispatches, lane occupancy, K4 launches held to 30
-    x decode executions), and a profiled burst of the first 64 requests
-    for the device's busy share;
+    then bf16 with 64 lanes (prompts of 2 to 64 tokens, 64 new tokens,
+    a 512-token cache, 16 dispatches a segment): a warm-up on 8 requests, a
+    burst of 64 requests at t=0, then the burst again with the first 32
+    prompts arriving behind it as new requests, Poisson at half the
+    burst's completion rate: they queue while the burst holds every lane
+    and go to the lanes it retires, each with the tokens of its prompt's
+    first serving (tokens/s, completions by status, p50/p99 latency of
+    the run's own completions, segments, dispatches, lane occupancy, lanes
+    refilled, K4 launches held to 30 x decode executions), and a profiled
+    burst of 16 for the busy share (the request counts cut for the time
+    limit);
 13. verify, trace, PGO: ``verify=True`` lowering of phase 6's NUTS and of
     the engine's program on the card (fake typing, K4 through its shape
     rule: no launch); phase 6's NUTS with ``trace=True``, bit-identical to
@@ -111,10 +117,10 @@ non-zero (nothing is caught):
     ``fib(10)`` on the four backends (1024 lanes, 8 for ``reference``);
 15. training: SmolLM-135M at full width (bf16 compute, f32 masters, AdamW)
     through ``launch.train.build_trainer`` at 2,048 x 8 tokens (cut from
-    ``train_4k``'s 4,096 x 256), 2 microbatches, ``remat="dots"``: 40
+    ``train_4k``'s 4,096 x 256), 2 microbatches, ``remat="dots"``: 15
     steps of ``ResilientLoop`` on the deterministic stream (checkpoints
-    every 10 steps) with a failure injected at step 25, which restores step
-    20 and replays, the replayed steps' losses bit-exact with their first
+    every 5 steps; 40 steps cut for the time limit) with a failure
+    injected at step 12, which restores step 10 and replays, the replayed steps' losses bit-exact with their first
     pass (deterministic algorithms on); finite loss that falls by at least
     0.5, masters still float32, no K1-K4 launch; ms a step, tokens/s, the
     device busy share, peak memory and the step's FLOPs against the bf16
@@ -128,9 +134,9 @@ non-zero (nothing is caught):
     attention block) and xLSTM-350M (mLSTM and sLSTM), each at full width:
     the float32 engine at 4 lanes x 2 requests equal token for token to
     the sequential oracle at reduced depth (DeepSeek 3 layers, Zamba2 7,
-    xLSTM all 24); bf16 serving at full depth, 16 lanes x 2 requests a
-    lane (32 requests: 32 a lane would add about 10 minutes to the three
-    models' serving, past the smoke's time limit), prompts of 2 to 32
+    xLSTM all 24); bf16 serving at full depth, 16 lanes x 1 request a
+    lane (cut from 2 for the smoke's time limit; 32 a lane
+    would add about 10 minutes to the three models' serving), prompts of 2 to 32
     tokens, 32 new tokens, a 128-token cache (DeepSeek's weights in bf16,
     the others cast once from float32): warm-up, measured (generated
     tokens/s, dispatches, ms a dispatch, K4 launches held to attention
@@ -145,8 +151,8 @@ non-zero (nothing is caught):
 17. multimodal and int8: Qwen2-VL-2B (M-RoPE) at full width: the float32
     engine at 4 of its 28 layers (4 lanes x 2 requests) equal token for
     token to the sequential oracle with the compute-dtype and with the
-    int8 KV cache; bf16 serving at full depth as in phase 16 (16 lanes x 2
-    requests a lane, the same reduction), once with each cache (K4
+    int8 KV cache; bf16 serving at full depth as in phase 16 (16 lanes x 1
+    request a lane, the same reduction), once with each cache (K4
     launches held to 28 x decode executions in both), the two runs'
     token agreement printed; the multimodal prefill at 2 x 2,048 (256
     patch embeddings on a 16 x 16 grid at t = 0, 1,792 text tokens after
@@ -181,9 +187,33 @@ non-zero (nothing is caught):
     --serve-arrivals poisson --serve-requests 16`` with its records in
     ``chiprun_out/``, both strictly valid.
 
-The second-to-last line of output is a JSON object describing every
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA
-the script exits non-zero before printing any result.
+19. lanes over ranks: two processes share the card through
+    ``repro_torch.distributed.spawn`` with a gloo default group (NCCL
+    refuses two ranks on one card; the backend is printed), each holding
+    half the lanes and agreeing on every dispatch through one integer
+    all-reduce on the host: NUTS on phase 6's 10,000 x 100 logistic
+    regression at 1024 chains (512 a rank) under earliest, lookahead and
+    earliest with compaction every dispatch, K1/K2 on the card, outputs held
+    bit-exact to phase 6's run (or, where the target's product rounds
+    otherwise at 512 rows, the same control flow chain by chain and the
+    samples within phase 5's 1e-4; which held is printed), ``steps`` and
+    ``block_exec`` to the unsharded runs' and each rank's K1/K2 launches
+    to block_exec x the blocks' groups; then SmolLM-135M in bf16 at full
+    width with its 64 lanes over the ranks, on phase 9's first request a
+    lane (closed loop) and phase 12's burst with its 32 Poisson arrivals
+    behind it, at their times (open loop: admissions after t=0, queueing
+    and refills of retired lanes, decided on the first rank's clock; at
+    least one refill checked), tokens equal to those unsharded runs' (or,
+    where bf16 GEMMs at 32 rows round otherwise, each rank's lanes equal to
+    an unsharded 32-lane engine's, with the agreement printed) and each
+    rank's K4 launches held to 30 x its decode executions; grads/s,
+    tokens/s, dispatches and ms a dispatch printed beside those of the
+    same workloads unsharded in the same call.
+
+The output ends with three lines: a JSON object describing every kernel,
+``nvidia-smi``'s name and power limit of the card, and
+``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
+before printing any result.
 """
 from __future__ import annotations
 
@@ -873,9 +903,10 @@ def phase_prefill(torch) -> int:
 # ---------------------------------------------------------------------------
 
 
-def phase_engine(torch) -> int:
+def phase_engine(torch) -> tuple[int, dict]:
     """The closed-loop engine on SmolLM-135M; returns K4's launches in the
-    measured run."""
+    measured run, and the tokens, lengths and figures of a run of the
+    first request a lane (phase 19 holds the sharded engine to them)."""
     from dataclasses import replace
 
     from repro_torch import configs
@@ -908,10 +939,14 @@ def phase_engine(torch) -> int:
                         requests_per_lane=2, eos_id=0)
     eng = GenerationEngine(get_model(cfg, device="cuda"), params, ecfg)
     prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=12)
+    # Warm-up: the lowering and one short request on one lane.
+    one = np.zeros(ecfg.lanes, np.int32)
+    one[0] = 1
     t0 = time.perf_counter()
-    eng.generate(prompts, plens)
+    eng.generate(prompts, np.full_like(plens, 2), n_req=one)
     torch.cuda.synchronize()
-    print(f"engine: warm-up run {time.perf_counter() - t0:.2f} s (type inference included)")
+    print(f"engine: warm-up (type inference and one short request) "
+          f"{time.perf_counter() - t0:.2f} s")
     fd_ops.decode_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -934,11 +969,23 @@ def phase_engine(torch) -> int:
           f"(active lane-steps {active}), decode utilization {out['utilization']:.4f}, "
           f"K4 launches {launches}")
 
+    # The first request a lane, timed: phase 19 serves the same workload
+    # over two ranks.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = eng.generate(prompts, plens, n_req=np.ones(ecfg.lanes, np.int32))
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    first_tok, first_steps = int(first["lengths"].sum()), eng.batched.last_result.steps
+    print(f"engine: the first request a lane: wall {first_wall:.3f} s, {first_tok} tokens, "
+          f"{first_tok / first_wall:.1f} tokens/s, {first_steps} dispatches, "
+          f"{first_wall / first_steps * 1e3:.3f} ms/dispatch")
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, plens)
+        eng.generate(prompts, plens, n_req=np.ones(ecfg.lanes, np.int32))
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     kernels = _device_kernels(torch, prof)
@@ -946,14 +993,15 @@ def phase_engine(torch) -> int:
     n_kernels = sum(n for n, _ in kernels.values())
     print(f"engine: profiled run: device busy {dev_us / 1e3:.3f} ms of its own "
           f"{prof_wall * 1e3:.3f} ms wall ({dev_us / 1e6 / prof_wall:.4f} busy share); "
-          f"{n_kernels} device kernels ({n_kernels / res.steps:.1f} per dispatch)")
+          f"{n_kernels} device kernels ({n_kernels / first_steps:.1f} per dispatch)")
     for key, (n, ns) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  {ns / 1e6:9.3f} ms {n:7d}x  {key[:90]}")
     k4 = [v for key, v in kernels.items() if "decode_split" in key or "decode_combine" in key]
     print(f"engine: K4 device time {sum(ns for _, ns in k4) / 1e6:.3f} ms "
           f"in {sum(n for n, _ in k4)} kernel launches (split and combine) of the "
           f"profiled run")
-    return launches
+    return launches, dict(tokens=first["tokens"], lengths=first["lengths"],
+                          tok_s=first_tok / first_wall, steps=first_steps, wall=first_wall)
 
 
 # ---------------------------------------------------------------------------
@@ -1135,7 +1183,8 @@ def phase_paper(torch, settings) -> None:
           f"{active * gpl / wall:12.1f} grads/s, wall {wall:.3f} s; max |diff| from the pc "
           f"VM on the same chain {err:.3g}")
 
-    full6 = dict(dim=100, num_steps=10, max_tree_depth=10)  # fig6_utilization --full
+    # fig6_utilization --full, its num_steps 10 cut to 5 for the time limit.
+    full6 = dict(dim=100, num_steps=5, max_tree_depth=10)
     t0 = time.perf_counter()
     _, (rec,) = torch_fig6.utilization_sweep([64], device="cuda", **full6)
     check(0 < rec["local"] <= rec["pc"]["pc"] <= 1, f"Fig. 6 utilizations {rec}")
@@ -1216,12 +1265,39 @@ def phase_segments(torch, run6: dict, launches6: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: Phase 12's burst, the first requests of this seeded draw, the Poisson
+#: arrivals behind it (phase 19's too) and its profiled run's (cut from
+#: 128 each for the smoke's time limit).
+SERVE_BURST, SERVE_POISSON, SERVE_PROFILED = 64, 32, 16
+
+
 def _requests(engine_mod, n: int, lo: int, hi: int, vocab: int, seed: int, arrivals=None):
     rng = np.random.default_rng(seed)
     return [engine_mod.Request(rid=i, prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
                                .astype(np.int32),
                                arrival=0.0 if arrivals is None else float(arrivals[i]))
             for i in range(n)]
+
+
+def _overload(engine_mod, vocab: int, arrivals) -> list:
+    """Phase 12's burst at t=0 and, behind it, its first prompts again as
+    new requests arriving at ``arrivals``: they queue while the burst holds
+    every lane and go to the lanes it retires."""
+    burst = _requests(engine_mod, SERVE_BURST, 2, 64, vocab, seed=14)
+    return burst + [engine_mod.Request(rid=SERVE_BURST + i, prompt=r.prompt, arrival=float(a))
+                    for i, (r, a) in enumerate(zip(burst, arrivals))]
+
+
+def _refills(comps) -> int:
+    """Completions served on a lane that an earlier request had retired."""
+    return len(comps) - len({c.lane for c in comps})
+
+
+def _latency(comps) -> tuple[float, float]:
+    """p50 and p99 latency of one ``serve()`` call's ok completions (the
+    engine's own figures aggregate every call made on its registry)."""
+    p50, p99 = np.percentile([c.latency for c in comps if c.status == "ok"], (50, 99))
+    return float(p50), float(p99)
 
 
 def _clock(tick: float):
@@ -1234,9 +1310,10 @@ def _clock(tick: float):
     return now
 
 
-def phase_serve(torch) -> int:
+def phase_serve(torch) -> tuple[int, dict]:
     """Open-loop serving of SmolLM-135M; returns K4's launches in the
-    measured burst run."""
+    measured burst run and the Poisson run's arrivals, tokens by request
+    and figures (phase 19 holds the sharded engine to them)."""
     from dataclasses import replace
 
     from repro_torch import configs
@@ -1292,15 +1369,15 @@ def phase_serve(torch) -> int:
           f"dispatches, lanes {sorted({c.lane for c in comps})}; serving {t_serve:.1f} s, "
           f"oracle {time.perf_counter() - t0 - t_serve:.1f} s)")
 
-    # Measure: bf16, 64 lanes, 128 requests.
+    # Measure: bf16, 64 lanes, 64 requests (cut from 128).
     ecfg = E.EngineConfig(lanes=64, max_context=512, max_prompt_len=64, max_new_tokens=64,
                           requests_per_lane=1, eos_id=0, segment_steps=16)
     eng = E.GenerationEngine(get_model(cfg, device="cuda"), params, ecfg)
-    burst = _requests(E, 128, 2, 64, cfg.vocab_size, seed=14)
+    burst = _requests(E, SERVE_BURST, 2, 64, cfg.vocab_size, seed=14)
     t0 = time.perf_counter()
-    eng.serve(burst[:64])
+    eng.serve(burst[:8])
     torch.cuda.synchronize()
-    print(f"serve: warm-up (64 requests, type inference included) "
+    print(f"serve: warm-up (8 requests, type inference included) "
           f"{time.perf_counter() - t0:.2f} s")
 
     def measured(what, reqs):
@@ -1316,34 +1393,45 @@ def phase_serve(torch) -> int:
         statuses = {s: getattr(st, s) for s in E.COMPLETION_STATUSES}
         check(statuses["ok"] == len(reqs), f"{what}: statuses {statuses}")
         check(all(0 < c.tokens.size <= 64 for c in comps), f"{what}: token counts")
+        p50, p99 = _latency(comps)
         print(f"serve: {ARCH} full width bf16, 64 lanes, {what}: wall {st.wall_time:.3f} s, "
               f"{st.generated_tokens} tokens, {st.generated_tokens / st.wall_time:.1f} "
               f"tokens/s, {len(reqs) / st.wall_time:.2f} completions/s {statuses}, latency "
-              f"p50 {st.p50_latency:.3f} s p99 {st.p99_latency:.3f} s, {st.segments} "
+              f"p50 {p50:.3f} s p99 {p99:.3f} s, {st.segments} "
               f"segments, {st.vm_steps} dispatches, {st.wall_time / st.vm_steps * 1e3:.3f} "
               f"ms/dispatch, lane occupancy {st.occupancy:.4f} a segment "
               f"({res.sched.mean_lane_occupancy:.4f} a dispatch), decode executions "
-              f"{execs}, K4 launches {launches}")
-        return st, launches
+              f"{execs}, K4 launches {launches}, lanes refilled {_refills(comps)}")
+        record = dict(tokens={c.rid: c.tokens for c in comps},
+                      tok_s=st.generated_tokens / st.wall_time, steps=st.vm_steps,
+                      wall=st.wall_time, refills=_refills(comps))
+        return st, launches, record
 
-    bstats, launches = measured("128 requests at t=0", burst)
+    bstats, launches, _ = measured(f"{len(burst)} requests at t=0", burst)
     rate = 0.5 * len(burst) / bstats.wall_time
-    gaps = np.random.default_rng(15).exponential(1.0 / rate, len(burst))
-    poisson = [E.Request(rid=r.rid, prompt=r.prompt, arrival=float(t))
-               for r, t in zip(burst, np.cumsum(gaps))]
-    measured(f"128 Poisson arrivals at {rate:.2f}/s", poisson)
+    arrivals = np.cumsum(np.random.default_rng(15).exponential(1.0 / rate, SERVE_POISSON))
+    _, _, overload = measured(
+        f"the burst and {SERVE_POISSON} Poisson arrivals at {rate:.2f}/s behind it",
+        _overload(E, cfg.vocab_size, arrivals))
+    tokens = overload["tokens"]
+    check(overload["refills"] > 0 and all(
+        np.array_equal(tokens[SERVE_BURST + i], tokens[i]) for i in range(SERVE_POISSON)),
+          f"the overload run refilled {overload['refills']} lanes, or a prompt served again on "
+          "a refilled lane gave other tokens")
+    overload["arrivals"] = arrivals.tolist()
+    first = burst[:SERVE_PROFILED]
 
-    # The profiled burst is the first 64 requests (one a lane): processing
-    # the profile of all 128 (~595k kernels) took about 100 s.
+    # The profiled burst: the first 16 requests (processing the profile of
+    # 128, ~595k kernels, took about 100 s).
     t0 = time.perf_counter()
-    dev_ms, kernels, wall = _busy(torch, lambda: eng.serve(burst[:64]))
+    dev_ms, kernels, wall = _busy(torch, lambda: eng.serve(first))
     steps = eng.last_serve_result.steps
-    print(f"serve: profiled burst of 64 requests: device busy {dev_ms:.3f} ms of "
+    print(f"serve: profiled burst of {len(first)} requests: device busy {dev_ms:.3f} ms of "
           f"{wall * 1e3:.3f} ms wall ({dev_ms / 1e3 / wall:.4f} busy share), {kernels} "
           f"kernels ({kernels / steps:.1f} per dispatch); with the profile's processing "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"serve: phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, overload
 
 
 # ---------------------------------------------------------------------------
@@ -1655,7 +1743,8 @@ def phase_frontend(torch, run6: dict, smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 2048, 8, 2  # cut from train_4k's 4,096 x 256
-TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 40, 10, 25
+# Cut from 40 steps (a failure at 25) for the smoke's time limit.
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 15, 5, 12
 TRAIN_TIMED = 5  # steps in the timed window
 
 
@@ -1912,6 +2001,7 @@ def phase_train(torch, smi: str) -> None:
 FAMILIES = (("deepseek-moe-16b", 3, "bfloat16"), ("zamba2-7b", 7, "float32"),
             ("xlstm-350m", 24, "float32"))
 FAMILY_PREFILL = (2, 2048)  # batch x tokens of the prefill forward
+FAMILY_REQUESTS = 1  # bf16 requests a lane (cut from 2 for the time limit)
 
 
 def _family_oracle(torch, arch: str, depth: int, kv_cache_dtype: str = "compute") -> None:
@@ -1949,7 +2039,7 @@ def _family_oracle(torch, arch: str, depth: int, kv_cache_dtype: str = "compute"
 
 def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: str = "compute",
                   params=None):
-    """bf16 at full depth: 16 lanes x 2 requests a lane measured and profiled
+    """bf16 at full depth: 16 lanes x 1 request a lane measured and profiled
     (on ``params`` if given, else on seeded weights); returns the model, its
     compute weights and the measured run's output."""
     from dataclasses import replace
@@ -1975,7 +2065,7 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: 
     weight_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
     init_peak = torch.cuda.max_memory_allocated()
     ecfg = EngineConfig(lanes=16, max_context=128, max_prompt_len=32, max_new_tokens=32,
-                        requests_per_lane=2, eos_id=0)
+                        requests_per_lane=FAMILY_REQUESTS, eos_id=0)
     eng = GenerationEngine(model, params, ecfg)
     prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=22)
     # Warm-up: the lowering and one short request, on one lane.
@@ -2003,7 +2093,7 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: 
             if cfg.family == "moe" else "")
     print(f"families: {arch} full width bf16 ({n_params / 1e9:.3f} B params, {weight_gb:.2f} GB "
           f"of compute weights, {cfg.param_dtype} params, {kv_cache_dtype} KV cache), 16 lanes x "
-          f"2 requests a lane, prompts "
+          f"{FAMILY_REQUESTS} request(s) a lane, prompts "
           f"2-32, 32 new tokens, cache 128: wall {wall:.3f} s (warm-up on one lane "
           f"{warm:.2f} s), "
           f"{n_tok} tokens, {n_tok / wall:.1f} tokens/s, {res.steps} dispatches, "
@@ -2432,6 +2522,295 @@ def phase_chaos(torch) -> None:
                 proc.wait()
     print(f"chaos: phase took {time.perf_counter() - t_phase:.1f} s")
 
+# ---------------------------------------------------------------------------
+# 19. lanes over ranks
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+#: (schedule, compact_every) of the sharded NUTS runs.
+MESH_NUTS = (("earliest", None), ("lookahead", None), ("earliest", 1))
+MESH_BACKEND = "gloo"  # NCCL refuses two ranks on one card
+
+
+def _sync_all(torch) -> None:
+    """Wait for this rank's card, then for every rank (the host group)."""
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def _mesh_rank(rank: int, device, work: str) -> dict:
+    """One rank of phase 19: NUTS at 1024 chains and SmolLM-135M's engine
+    with their lanes over the ranks, each held to its unsharded run of the
+    same call (written to ``work`` by the parent).  Checks raise; the
+    figures come back."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import ir
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.stack_ops import ops
+    from repro_torch.mcmc import nuts, targets
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine as E
+    from repro_torch.testing import engine_inputs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(Path(work) / "unsharded.pt", weights_only=False)
+    half = slice(rank * CHAINS // MESH_RANKS, (rank + 1) * CHAINS // MESH_RANKS)
+    out: dict = {"rank": rank, "device": str(device), "nuts": {}, "held": {}}
+
+    # (a) NUTS on the 10,000 x 100 logistic regression, 1024 chains.
+    settings = nuts.NutsSettings(**ref["settings"])
+    target = targets.logistic_regression(num_data=10_000, dim=100, device=device)
+    args = nuts.initial_state(target, CHAINS, eps=0.01, seed=0, device=device)
+    # One lowering (type inference) for the three: with_options shares it.
+    base = nuts.make_nuts_kernel(target, settings, batch_size=CHAINS, mesh=MESH_RANKS,
+                                 device=device)
+    for schedule, ce in MESH_NUTS:
+        kern = base.with_options(schedule=schedule, compact_every=ce)
+        kern(*args)  # warm-up: the executor
+        ops.masked_push.launches = ops.masked_peek.launches = 0
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        got = kern(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        push, peek = ops.masked_push.launches, ops.masked_peek.launches
+        res = kern.last_result
+        want = ref["nuts"][(schedule, ce)]
+        check(res.converged and res.sched.num_devices == MESH_RANKS,
+              f"rank {rank} {schedule}/{ce}: converged {res.converged}, "
+              f"{res.sched.num_devices} devices")
+        check(res.steps == want["steps"] and np.array_equal(res.block_exec, want["block_exec"]),
+              f"rank {rank} {schedule}/{ce}: steps {res.steps} / block_exec differ from the "
+              f"unsharded run's {want['steps']}")
+        blocks = kern.lowered.blocks
+        want_push = sum(int(n) * _group_launches(b, ir.LPush, ir.LPushJump)
+                        for n, b in zip(res.block_exec, blocks))
+        want_peek = sum(int(n) * _group_launches(b, ir.LPop, ir.LReturn)
+                        for n, b in zip(res.block_exec, blocks))
+        check((push, peek) == (want_push, want_peek),
+              f"rank {rank} {schedule}/{ce}: K1/K2 launches {push}/{peek}, the dispatched "
+              f"blocks imply {want_push}/{want_peek}")
+        mine = {k: got[k].to_local().cpu() for k in ref["nuts_out"]}
+        differ = [k for k in mine if not torch.equal(mine[k], ref["nuts_out"][k][half])]
+        lane_steps = res.lane_steps.to_local().cpu()
+        held = "bit-exact"
+        if differ:
+            # The target's [512, 100] x [100, 10000] product may reduce in
+            # another order than at 1024 rows: hold the control flow chain
+            # by chain and the samples to phase 5's tolerance instead.
+            check(torch.equal(lane_steps, ref["lane_steps"][half]),
+                  f"rank {rank} {schedule}/{ce}: chains took other paths than unsharded")
+            for k in mine:
+                torch.testing.assert_close(mine[k], ref["nuts_out"][k][half], rtol=1e-4,
+                                           atol=1e-5)
+            diff = max(float((mine[k] - ref["nuts_out"][k][half]).abs().max()) for k in mine)
+            held = (f"the same control flow chain by chain, samples within 1e-4 ({differ} "
+                    f"not bit-exact, largest difference {diff:.3g})")
+        _, active = res.tag_stats["grad"]
+        out["held"][f"nuts {schedule}/{ce}"] = held
+        out["nuts"][(schedule, ce)] = dict(wall=wall, grads=active * settings.grads_per_leaf,
+                                           steps=res.steps, push=push, peek=peek)
+
+    # (b) SmolLM-135M, bf16, full width, 64 lanes: phase 9's first request
+    # a lane and phase 12's burst with Poisson arrivals behind it.
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(1)
+    params = get_model(cfg, device=device).init(gen)
+    ecfg = E.EngineConfig(lanes=64, max_context=512, max_prompt_len=64, max_new_tokens=64,
+                          requests_per_lane=2, eos_id=0, mesh=MESH_RANKS)
+    eng = E.GenerationEngine(get_model(cfg, device=device), params, ecfg)
+    prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=12)
+    eng.batched.lowered  # type inference before the clock
+    fd_ops.decode_attention.launches = 0
+    _sync_all(torch)
+    t0 = time.perf_counter()
+    # The first of phase 9's two requests a lane (a request's tokens do not
+    # depend on the lane's others: each starts from a reset cache).
+    res9 = eng.generate(prompts, plens, n_req=np.ones(ecfg.lanes, np.int32))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4 = fd_ops.decode_attention.launches
+    execs, _ = eng.batched.tag_stats["decode"]
+    check(k4 == cfg.num_layers * execs,
+          f"rank {rank} engine: K4 launched {k4} times, want {cfg.num_layers} x {execs}")
+    n_tok = int(res9["lengths"].sum())
+    out["closed"] = dict(tokens=res9["tokens"], lengths=res9["lengths"], wall=wall,
+                         tokens_total=n_tok, steps=eng.batched.last_result.steps, k4=k4,
+                         execs=execs)
+
+    ecfg = E.EngineConfig(lanes=64, max_context=512, max_prompt_len=64, max_new_tokens=64,
+                          requests_per_lane=1, eos_id=0, segment_steps=16, mesh=MESH_RANKS)
+    eng = E.GenerationEngine(get_model(cfg, device=device), params, ecfg)
+    eng.serve_batched.lowered
+    overload = _overload(E, cfg.vocab_size, ref["arrivals"])
+    fd_ops.decode_attention.launches = 0
+    _sync_all(torch)
+    comps, st = eng.serve(overload)
+    torch.cuda.synchronize()
+    k4 = fd_ops.decode_attention.launches
+    execs, _ = eng.last_serve_result.tag_stats["decode"]
+    check(k4 == cfg.num_layers * execs,
+          f"rank {rank} serve: K4 launched {k4} times, want {cfg.num_layers} x {execs}")
+    check(st.ok == len(overload), f"rank {rank} serve: {st.ok} of {len(overload)} ok")
+    out["open"] = dict(tokens={c.rid: c.tokens for c in comps}, wall=st.wall_time,
+                       tokens_total=st.generated_tokens, steps=st.vm_steps, k4=k4,
+                       execs=execs, **dict(zip(("p50", "p99"), _latency(comps))),
+                       refills=_refills(comps), admitted=sorted(c.admitted for c in comps))
+    return out
+
+
+def _agreement(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a == b).mean())
+
+
+def phase_mesh(torch, settings, run6: dict, run9: dict, run12: dict, smi: str) -> None:
+    """Two ranks share the card, each serving half the lanes, through
+    ``repro_torch.distributed.spawn`` with a gloo default group."""
+    from dataclasses import asdict
+
+    from repro_torch import configs, distributed
+    from repro_torch.models import get_model
+    from repro_torch.serve import engine as E
+    from repro_torch.testing import engine_inputs
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "phase19"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # The unsharded runs the ranks are held to: phase 6's NUTS (earliest),
+    # the other configurations' own runs (all timed beside the sharded
+    # ones), phases 9's and 12's tokens.
+    res6 = run6["res"]
+    nuts_ref, plain = {}, {}
+    for schedule, ce in MESH_NUTS:
+        kern = run6["kern"].with_options(schedule=schedule, compact_every=ce)
+        kern(*run6["args"])  # warm-up: the executor
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern(*run6["args"])
+        torch.cuda.synchronize()
+        res = kern.last_result
+        plain[(schedule, ce)] = (time.perf_counter() - t0, res.steps,
+                                 res.tag_stats["grad"][1] * settings.grads_per_leaf)
+        nuts_ref[(schedule, ce)] = dict(steps=res.steps,
+                                        block_exec=np.asarray(res.block_exec))
+    check(nuts_ref[("earliest", None)]["steps"] == res6.steps, "phase 6's NUTS did not repeat")
+    torch.save({"settings": asdict(settings), "nuts": nuts_ref, "arrivals": run12["arrivals"],
+                "nuts_out": {k: v.cpu() for k, v in run6["out"].items()},
+                "lane_steps": res6.lane_steps.cpu()}, work / "unsharded.pt")
+    del kern
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"mesh: {MESH_RANKS} ranks on {torch.cuda.device_count()} card(s) "
+          f"({smi}), default process group backend {MESH_BACKEND}; the VM's per-dispatch "
+          f"reduction runs on a gloo group of the host")
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(_mesh_rank, MESH_RANKS, rendezvous_dir=work,
+                              backend=MESH_BACKEND, args=(str(work),), timeout=600)
+    t_ranks = time.perf_counter() - t0
+    for r in ranks:
+        print(f"mesh: rank {r['rank']} on {r['device']}: " + ", ".join(
+            f"{k} held {v}" for k, v in r["held"].items()))
+    # Whether the target's gradient over half the chains rounds as the
+    # same rows of it over all of them (cuBLAS may pick its reduction by
+    # the GEMM's shape).
+    from repro_torch.mcmc import targets
+
+    grad = torch.func.vmap(targets.logistic_regression(num_data=10_000, dim=100,
+                                                       device="cuda").grad())
+    theta = run6["args"][0]
+    half = CHAINS // MESH_RANKS
+    g_all, g_half = grad(theta)[:half], grad(theta[:half].contiguous())
+    print(f"mesh: the target's gradient of the first {half} chains computed over {half} rows "
+          f"{'equals' if torch.equal(g_all, g_half) else 'differs from'} the same rows over "
+          f"{CHAINS} (largest difference {float((g_all - g_half).abs().max()):.3g})")
+
+    # NUTS figures: rank 0's wall around the whole batch's gradients.
+    _, active6 = res6.tag_stats["grad"]
+    print(f"mesh: phase 6 in this call: {active6 * settings.grads_per_leaf / run6['wall']:.1f} "
+          f"grads/s, {run6['wall'] / res6.steps * 1e3:.3f} ms/dispatch")
+    for (schedule, ce), f in ranks[0]["nuts"].items():
+        push, peek = (ranks[1]["nuts"][(schedule, ce)][k] for k in ("push", "peek"))
+        wall, steps, grads = plain[(schedule, ce)]
+        print(f"mesh: NUTS 10,000 x 100, {CHAINS} chains over {MESH_RANKS} ranks "
+              f"({CHAINS // MESH_RANKS} a rank), {schedule}"
+              f"{'' if ce is None else f' + compaction every {ce}'}: wall {f['wall']:.3f} s, "
+              f"{f['steps']} dispatches, {f['wall'] / f['steps'] * 1e3:.3f} ms/dispatch, "
+              f"{f['grads'] / f['wall']:.1f} grads/s; K1/K2 launches a rank "
+              f"{f['push']}/{f['peek']} and {push}/{peek} (= block_exec x groups); unsharded "
+              f"just before: wall {wall:.3f} s, {wall / steps * 1e3:.3f} ms/dispatch, "
+              f"{grads / wall:.1f} grads/s")
+
+    # The engine: every rank returns every lane's tokens.
+    for r in ranks[1:]:
+        check(np.array_equal(r["closed"]["tokens"], ranks[0]["closed"]["tokens"]) and all(
+            np.array_equal(r["open"]["tokens"][rid], t)
+            for rid, t in ranks[0]["open"]["tokens"].items()), "the ranks' tokens differ")
+    closed, opened = ranks[0]["closed"], ranks[0]["open"]
+    same_closed = (np.array_equal(closed["tokens"], run9["tokens"])
+                   and np.array_equal(closed["lengths"], run9["lengths"]))
+    same_open = opened["tokens"].keys() == run12["tokens"].keys() and all(
+        np.array_equal(t, run12["tokens"][rid]) for rid, t in opened["tokens"].items())
+    print(f"mesh: engine tokens equal to the unsharded 64-lane engine's: closed loop "
+          f"{same_closed} (agreement "
+          f"{_agreement(closed['tokens'], run9['tokens']):.4f}), "
+          f"open loop {same_open}")
+    if not (same_closed and same_open):
+        # bf16 GEMMs at 32 rows may round otherwise than at 64: hold each
+        # rank's lanes to an unsharded 32-lane engine given the same
+        # requests (the same GEMM shapes).
+        cfg = configs.get_config(ARCH)
+        params = get_model(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(1))
+        half = 64 // MESH_RANKS
+        ecfg = E.EngineConfig(lanes=64, max_context=512, max_prompt_len=64,
+                              max_new_tokens=64, requests_per_lane=2, eos_id=0)
+        prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=12)
+        eng = E.GenerationEngine(get_model(cfg, device="cuda"), params,
+                                 E.EngineConfig(**dict(asdict(ecfg), lanes=half)))
+        for q in range(MESH_RANKS):
+            lanes = slice(q * half, (q + 1) * half)
+            want = eng.generate(prompts[lanes], plens[lanes], n_req=np.ones(half, np.int32))
+            check(np.array_equal(closed["tokens"][lanes, :1], want["tokens"][:, :1]),
+                  f"closed loop: rank {q}'s lanes differ from a {half}-lane engine's")
+        eng = E.GenerationEngine(get_model(cfg, device="cuda"), params, E.EngineConfig(
+            lanes=half, max_context=512, max_prompt_len=64, max_new_tokens=64,
+            requests_per_lane=1, eos_id=0, segment_steps=16))
+        comps, _ = eng.serve(_overload(E, cfg.vocab_size, run12["arrivals"]))
+        check(all(np.array_equal(opened["tokens"][c.rid], c.tokens) for c in comps),
+              f"open loop: tokens differ from a {half}-lane engine's")
+        print(f"mesh: held instead: each rank's lanes equal to an unsharded {half}-lane "
+              f"engine's, closed and open loop")
+    for what, f, base in (("closed loop, phase 9's first request a lane", closed, run9),
+                          (f"open loop, phase 12's burst of {SERVE_BURST} and "
+                           f"{len(run12['arrivals'])} Poisson arrivals behind it", opened, run12)):
+        print(f"mesh: SmolLM-135M bf16 full width, 64 lanes over {MESH_RANKS} ranks, "
+              f"{what}: wall {f['wall']:.3f} s, {f['tokens_total']} tokens, "
+              f"{f['tokens_total'] / f['wall']:.1f} tokens/s, {f['steps']} dispatches, "
+              f"{f['wall'] / f['steps'] * 1e3:.3f} ms/dispatch; the same workload unsharded "
+              f"in this call: wall {base['wall']:.3f} s, {base['tok_s']:.1f} tokens/s, "
+              f"{base['steps']} dispatches, {base['wall'] / base['steps'] * 1e3:.3f} "
+              f"ms/dispatch")
+    admitted = opened["admitted"]
+    late = sum(a > admitted[0] for a in admitted)
+    print(f"mesh: open loop on the first rank's clock: {late} of {len(admitted)} requests "
+          f"admitted after the first admission, {opened['refills']} on a lane an earlier "
+          f"request had retired (unsharded: {run12['refills']})")
+    check(late > 0 and opened["refills"] > 0,
+          "phase 19's open loop admitted every request at once or refilled no lane")
+    layers = configs.get_config(ARCH).num_layers
+    for r in ranks:
+        print(f"mesh: rank {r['rank']} K4 launches closed {r['closed']['k4']} = "
+              f"{layers} x {r['closed']['execs']}, open {r['open']['k4']} = {layers} x "
+              f"{r['open']['execs']} decode executions (open loop p50 "
+              f"{r['open']['p50']:.3f} s, p99 {r['open']['p99']:.3f} s)")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"mesh: phase took {time.perf_counter() - t_phase:.1f} s (ranks {t_ranks:.1f} s)")
+
+
 
 def main() -> int:
     # cuBLAS picks its workspace when it makes a handle, so the setting
@@ -2454,10 +2833,11 @@ def main() -> int:
     launches, run6 = phase_full(torch, CHAINS, settings)
     kernels.update(phase_attention_kernels(torch))
     launches["flash_attention"] = phase_prefill(torch)
-    print(f"engine: K4 launches {phase_engine(torch)} on the closed-loop path")
+    k4_closed, run9 = phase_engine(torch)
+    print(f"engine: K4 launches {k4_closed} on the closed-loop path")
     phase_paper(torch, settings)
     phase_segments(torch, run6, launches)
-    launches["decode_attention"] = phase_serve(torch)
+    launches["decode_attention"], run12 = phase_serve(torch)
     phase_pgo(torch, run6, launches, settings, smi)
     phase_frontend(torch, run6, smi)
     phase_train(torch, smi)
@@ -2466,6 +2846,7 @@ def main() -> int:
     for name, err in phase_multimodal(torch, smi).items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     phase_chaos(torch)
+    phase_mesh(torch, settings, run6, run9, run12, smi)
 
     kdir = "src/repro_torch/kernels"
     where = {

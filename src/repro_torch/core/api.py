@@ -31,7 +31,9 @@ Backends
 ``reference``    Unbatched oracle (per-member Python recursion).
 
 Everything runs on ``device``: the CUDA card unless the caller passes
-another device (``device="cpu"``); no CUDA and no device raises.
+another device (``device="cpu"``); no CUDA and no device raises.  ``mesh``
+shards the pc backend's lanes over ranks (``pc_vm.VMConfig.mesh``; under a
+mesh the default device is this rank's card).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Any, Optional
 
 import torch
 
+from .. import distributed
 from ..device import resolve_device
 from . import fusion, ir, local_static, lowering, pc_vm, reference
 
@@ -59,6 +62,7 @@ class BatchedProgram:
         fuse: bool = False,  # the legacy shim keeps the unfused lowering
         verify: bool = False,  # run the lowered-IR verifier between passes
         compact_every: Optional[int] = None,  # lane compaction cadence
+        mesh=None,  # lane sharding: None | rank count | 1-D DeviceMesh
         device=None,
     ):
         if backend not in BACKENDS:
@@ -66,7 +70,8 @@ class BatchedProgram:
         self.program = program
         self.backend = backend
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if mesh is None
+                       else distributed.rank_device(device))
         self.main = program.functions[program.main]
         self.last_result: Optional[pc_vm.VMResult] = None
         if backend == "pc":
@@ -82,6 +87,7 @@ class BatchedProgram:
                     collect_block_stats=collect_stats,
                     schedule=schedule,
                     compact_every=compact_every,
+                    mesh=mesh,
                 ),
                 self.device,
             )

@@ -62,7 +62,7 @@ Backends, as in the JAX package:
 The frontend traces once per function and the pc lowering happens once,
 shared by every batch size; executors are cached under ``(backend, device,
 batch size, input avals, schedule, fuse, verify, compact_every, trace
-capacity, profile digest, fault options)``, and :meth:`AutobatchedFunction.
+capacity, profile digest, mesh, fault options)``, and :meth:`AutobatchedFunction.
 cache_info` counts hits, misses, entries, lowerings and traces.
 :meth:`AutobatchedFunction.with_options` makes a clone with other knobs
 that shares the traced program, and the lowering while ``fuse``,
@@ -77,6 +77,13 @@ card is resolved at the first call or lowering, so a module-level
 ``@autobatch`` imports on a machine with no card, where the first call
 raises.  The JAX package's ``lower()`` (an
 XLA ahead-of-time handle) is not ported.
+
+``mesh=`` (pc backend) shards the lanes over the ranks of a
+``torch.distributed`` process group (``pc_vm.VMConfig.mesh``): every rank
+calls the function with the whole batch, runs its share of the lanes on
+its own device (by default ``cuda:{local_rank % device_count}``) and gets
+lane-sharded ``DTensor`` outputs; ``repro_torch.distributed.host_lanes``
+gathers one to the host.
 """
 from __future__ import annotations
 
@@ -89,6 +96,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import distributed
 from ..device import resolve_device
 from ..obs import blockprof, trace as obs_trace
 from . import (analysis, ast_frontend, frontend, ir, local_static, lowering, passes, pc_vm,
@@ -224,14 +232,15 @@ class _PcExecutor:
 
     def check(self, depth_exceeded: torch.Tensor, fault_code: torch.Tensor) -> None:
         """Under ``on_fault="raise"``, raise on the faults of a finished run
-        (caller lane order): overflow, then the enabled detectors."""
+        (caller lane order, the whole batch under a mesh, so every rank
+        raises alike): overflow, then the enabled detectors."""
         cfg = self.vm.config
         if cfg.on_fault != "raise":
             return
-        _raise_if_overflowed(depth_exceeded.cpu().numpy(), self.batch_size,
+        _raise_if_overflowed(distributed.host_lanes(depth_exceeded).numpy(), self.batch_size,
                              cfg.max_depth, self.overflow_hint)
         if cfg.detect_nonfinite or cfg.lane_step_budget is not None:
-            _raise_if_faulted(fault_code.cpu().numpy(), self.batch_size)
+            _raise_if_faulted(distributed.host_lanes(fault_code).numpy(), self.batch_size)
 
     def run(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         res = self.vm.run(self.qualify(inputs))
@@ -340,9 +349,10 @@ class Stepper:
         return self.vm.lane_faulted(state)
 
     def lane_status(self, state: dict) -> tuple[np.ndarray, np.ndarray]:
-        """The halt flags (bool) and fault codes (int32) as host arrays,
-        read in one transfer."""
-        status = self.vm.lane_status(state).cpu().numpy()
+        """The halt flags (bool) and fault codes (int32) of the whole batch
+        as host arrays, read in one transfer (under a mesh, one all-gather:
+        every rank gets every lane's)."""
+        status = distributed.host_lanes(self.vm.lane_status(state)).numpy()
         return status[0].astype(bool), status[1]
 
     def done(self, state: dict) -> bool:
@@ -387,7 +397,7 @@ class Stepper:
         iface, main = self._fn._iface, self._ex.main
         # read_top slices a packed output (pgo=) out of its group.
         return tree.tree_unflatten(iface.out_treedef, [
-            self.vm.unpermute(state, self.vm.read_top(state, ir.qualify(main, name)))
+            self.vm.lanes_of(state, self.vm.read_top(state, ir.qualify(main, name)))
             for name in iface.out_leaves])
 
     def result(self, state: dict) -> Any:
@@ -444,10 +454,14 @@ class AutobatchedFunction:
         verify: bool = False,
         trace: Any = None,
         pgo: Any = None,
+        mesh: Any = None,
         device: Any = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if mesh is not None and backend != "pc":
+            raise ValueError(f"mesh= shards the pc backend's lanes; backend={backend!r} "
+                             "runs on one device")
         if schedule not in pc_vm.SCHEDULES:
             raise ValueError(
                 f"schedule must be one of {pc_vm.SCHEDULES}, got {schedule!r}"
@@ -468,6 +482,7 @@ class AutobatchedFunction:
         self.verify = verify
         self.trace = trace
         self.pgo = _as_profile(pgo)
+        self.mesh = mesh  # resolved with the executor (it needs the ranks)
         self._device_arg = device  # resolved at the first call or lowering
         self._device: Optional[torch.device] = None
         self._program = program
@@ -482,7 +497,7 @@ class AutobatchedFunction:
             max_steps=max_steps, collect_stats=collect_stats, schedule=schedule,
             fuse=fuse, compact_every=compact_every, on_fault=on_fault,
             detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
-            verify=verify, trace=trace, pgo=self.pgo, device=device,
+            verify=verify, trace=trace, pgo=self.pgo, mesh=mesh, device=device,
         )
         self._lowered: Optional[ir.LoweredProgram] = None
         self._depth_report: Optional[analysis.StackDepthReport] = None
@@ -503,9 +518,11 @@ class AutobatchedFunction:
     @property
     def device(self) -> torch.device:
         """Where everything runs: resolved at first use (the CUDA card
-        unless ``device=`` named another; no CUDA and no device raises)."""
+        unless ``device=`` named another; under a mesh, this rank's card;
+        no CUDA and no device raises)."""
         if self._device is None:
-            self._device = resolve_device(self._device_arg)
+            self._device = (resolve_device(self._device_arg) if self.mesh is None
+                            else distributed.rank_device(self._device_arg))
         return self._device
 
     @property
@@ -715,6 +732,7 @@ class AutobatchedFunction:
             self.compact_every,
             obs_trace.resolve_capacity(self.trace),
             self._pgo_digest(),
+            pc_vm.mesh_cache_key(self.mesh),
             self.on_fault,
             self.detect_nonfinite,
             self.lane_step_budget,
@@ -734,6 +752,7 @@ class AutobatchedFunction:
                     schedule=self.schedule, compact_every=self.compact_every,
                     on_fault=self.on_fault, detect_nonfinite=self.detect_nonfinite,
                     lane_step_budget=self.lane_step_budget, trace=self.trace,
+                    mesh=self.mesh,
                 ),
                 self.device, self._overflow_hint(),
             )
@@ -977,8 +996,10 @@ def autobatch(
     :class:`repro_torch.obs.BlockProfile` or a path to one: re-lower
     through the profile-guided passes; see :meth:`AutobatchedFunction.
     optimize`).  ``device`` is where everything runs (default: the CUDA
-    card, resolved at the first call or lowering).  ``mesh`` is not ported
-    and raises when set.
+    card, resolved at the first call or lowering).  ``mesh`` (pc backend:
+    ``None``, a rank count or a 1-D ``DeviceMesh``) shards the lanes over
+    the ranks of the process group (``pc_vm.VMConfig.mesh``); it is
+    resolved at the first call, where ``n`` ranks must be running.
     """
     if target is None:
         return functools.partial(
@@ -991,9 +1012,6 @@ def autobatch(
             device=device,
         )
     obs_trace.resolve_capacity(trace)  # raises on a bad value
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (lane sharding over devices) is not ported yet (ROADMAP item 14)")
     if on_fault not in pc_vm.ON_FAULT:
         raise ValueError(f"on_fault must be one of {pc_vm.ON_FAULT}, got {on_fault!r}")
     if registry is not None:
@@ -1010,7 +1028,7 @@ def autobatch(
         max_steps=max_steps, collect_stats=collect_stats, schedule=schedule,
         fuse=fuse, compact_every=compact_every, on_fault=on_fault,
         detect_nonfinite=detect_nonfinite, lane_step_budget=lane_step_budget,
-        verify=verify, trace=trace, pgo=pgo, device=device,
+        verify=verify, trace=trace, pgo=pgo, mesh=mesh, device=device,
     )
 
     program: Optional[ir.Program] = None

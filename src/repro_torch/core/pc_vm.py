@@ -108,6 +108,32 @@ Stepper's outputs — reads and writes a member as ``tops[packed][:, slot]``
 (:meth:`ProgramCounterVM.read_top`).  Packing touches state variables
 only, so no stack group addresses a member.
 
+Lane sharding (``VMConfig.mesh``): the JAX VM is one SPMD program over a
+single-controller ``Mesh``.  Here each rank of a ``torch.distributed``
+process group runs this host loop over its own slice of the lanes
+(:mod:`repro_torch.distributed`): with ``mesh=n`` (or a 1-D
+``DeviceMesh``) and a batch ``z`` that ``n`` divides, rank ``r`` keeps
+lanes ``[r*z/n, (r+1)*z/n)`` on its own device; every caller-facing
+argument (inputs, ``inject``/``park`` masks) is the whole batch, as the
+JAX caller passes it.  Each dispatch, the ranks sum their live lanes'
+per-block counts and the fail-fast flag in one int64 all-reduce on a CPU
+``gloo`` group, and every schedule picks from the global counts
+(``earliest``: the first block with a count, ``popular``/``lookahead``:
+the first maximum, ``sweep``: liveness from the sum), so every rank runs
+the same dispatch sequence as the unsharded VM, bit for bit.  Block bodies
+and their stack groups touch only the rank's lanes; compaction permutes
+within a rank.  ``block_exec`` and ``steps`` are the same on every rank;
+``block_active``, the tile counter, ``converged`` and the trace ring's
+counts are summed once, when
+:meth:`ProgramCounterVM.result` or :meth:`~ProgramCounterVM.get_trace`
+reads them (a collective: every rank calls them), and a sweep's
+``block_exec`` rides on the next liveness reduction.  The tile occupancy
+equals the unsharded run's when ``z/n`` is a multiple of
+:data:`OCCUPANCY_TILE` (a tile never spans two ranks) and lanes are not
+compacted (compaction packs tiles within a rank only).  Per-lane results
+are ``DTensor``s sharded on :data:`LANE_AXIS`
+(:func:`repro_torch.distributed.host_lanes` gathers one to the host).
+
 The VM exposes one loop iteration at a time (:meth:`ProgramCounterVM.pick`
 / :meth:`ProgramCounterVM.dispatch`, :meth:`ProgramCounterVM.sweep`) as
 well as :meth:`ProgramCounterVM.run`, so tests can replay the dispatch
@@ -121,7 +147,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import distributed
+from ..distributed import LANE_AXIS
 from ..kernels.stack_ops import ops as stack_ops
+from ..launch.sharding import lane_shardings
 from ..obs import trace as obs_trace
 from . import ir
 
@@ -195,6 +224,68 @@ OCCUPANCY_TILE = 8
 TRACE_COLUMNS = ("block", "active", "live", "quarantined", "tile",
                  "compacted", "faults")
 _FAULTS_COL = TRACE_COLUMNS.index("faults")
+# Columns that are the same on every rank (the rest are lane counts).
+_RANK_INVARIANT_COLS = (TRACE_COLUMNS.index("block"), TRACE_COLUMNS.index("compacted"))
+
+
+def _is_device_mesh(mesh: Any) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(mesh, DeviceMesh)
+
+
+def _rank_count(n: Any) -> int:
+    """An int mesh spec's rank count, checked against the process group."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"mesh rank count must be >= 1, got {n}")
+    world = distributed.world_size()
+    if n > world:
+        have = (f"the process group has {world}" if world
+                else "no torch.distributed process group is initialized")
+        raise ValueError(
+            f"mesh={n} needs {n} ranks but {have}; start one process per rank "
+            f"(torchrun --nproc-per-node {n}, or repro_torch.distributed.spawn) "
+            "and call torch.distributed.init_process_group in each")
+    return n
+
+
+def mesh_size(mesh: Any) -> int:
+    """Ranks of a mesh spec (None: 1), without touching the process group."""
+    if mesh is None:
+        return 1
+    return mesh.size() if _is_device_mesh(mesh) else int(mesh)
+
+
+def resolve_mesh(mesh: Any, device_type: str = "cuda"):
+    """Normalize a ``VMConfig.mesh`` value to a 1-D ``DeviceMesh``.
+
+    Accepts ``None`` (no sharding), an int rank count ``n`` (the mesh over
+    ranks ``0..n-1`` of the default process group, its dim named
+    :data:`LANE_AXIS`, on ``device_type``), or an explicit 1-D
+    ``DeviceMesh``.  A 2-D mesh, ``n < 1`` and ``n`` beyond the process
+    group (or no group) raise ``ValueError``."""
+    if mesh is None:
+        return None
+    if _is_device_mesh(mesh):
+        if mesh.ndim != 1:
+            raise ValueError(
+                "pc VM lane sharding needs a 1-D mesh (one dim over the batch "
+                f"lanes); got dims {mesh.mesh_dim_names or mesh.ndim}")
+        return mesh
+    return distributed.rank_mesh(_rank_count(mesh), device_type)
+
+
+def mesh_cache_key(mesh: Any) -> Optional[tuple]:
+    """A hashable identity of a mesh spec, for executor cache keys:
+    ``None`` stays ``None``; a mesh is ``(dim names, ranks)``, so an int
+    spec and the equal explicit mesh share executors."""
+    if mesh is None:
+        return None
+    if _is_device_mesh(mesh):
+        resolve_mesh(mesh)  # raises on a 2-D mesh
+        return (mesh.mesh_dim_names or (LANE_AXIS,), distributed.mesh_ranks(mesh))
+    return ((LANE_AXIS,), tuple(range(_rank_count(mesh))))
 
 
 @dataclass(frozen=True)
@@ -218,6 +309,9 @@ class VMConfig:
     # Dispatch tracing: None/False off, True the default ring capacity
     # (obs.trace.DEFAULT_TRACE_CAPACITY events), an int that capacity.
     trace: Any = None
+    # Lane sharding: None (one device), a rank count, or a 1-D DeviceMesh;
+    # batch_size must divide across it (see the module docstring).
+    mesh: Any = None
 
     def __post_init__(self):
         if self.on_fault not in ON_FAULT:
@@ -256,6 +350,8 @@ class SchedulerStats:
     # tiles that held an active lane: what compaction raises.
     mean_occupancy: float
     fused_from: Optional[dict[int, tuple[int, ...]]]
+    # Ranks the lane axis was sharded over (1 = unsharded).
+    num_devices: int = 1
     # Active lanes per dispatch over the whole batch.
     mean_lane_occupancy: float = float("nan")
     compact_every: Optional[int] = None
@@ -366,12 +462,36 @@ def _masked(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.T
 
 
 class ProgramCounterVM:
-    """Host-driven batched executor for a :class:`ir.LoweredProgram`."""
+    """Host-driven batched executor for a :class:`ir.LoweredProgram`.
+
+    Under a mesh, ``lanes`` is this rank's share of ``config.batch_size``
+    and ``lane_offset`` its first lane."""
 
     def __init__(self, lowered: ir.LoweredProgram, config: VMConfig, device):
         self.lowered = lowered
         self.config = config
         self.device = torch.device(device)
+        n = mesh_size(config.mesh)
+        if config.batch_size % n:
+            raise ValueError(
+                f"batch_size={config.batch_size} does not divide across the {n}-rank "
+                f"mesh; pick a batch that is a multiple of {n}")
+        self.mesh = resolve_mesh(config.mesh, self.device.type)
+        self.num_devices, self.lanes, self.lane_offset = 1, config.batch_size, 0
+        if self.mesh is not None:
+            if self.mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh is on {self.mesh.device_type}, the VM on "
+                                 f"{self.device}; give them one device type")
+            # Every rank of the default group makes the host group, together,
+            # before a rank outside the mesh raises (new_group waits for all).
+            distributed.host_group(self.mesh)
+            coord = self.mesh.get_coordinate()
+            if coord is None:
+                raise ValueError(f"rank {torch.distributed.get_rank()} is not in the mesh "
+                                 f"{distributed.mesh_ranks(self.mesh)}")
+            self.num_devices = n
+            self.lanes = config.batch_size // n
+            self.lane_offset = coord[0] * self.lanes
         if config.verify:
             from . import verifier
 
@@ -418,7 +538,7 @@ class ProgramCounterVM:
             for blk in lowered.blocks
         ]
         nb, dev = self.num_blocks, self.device
-        self._tile_caps = tile_widths(config.batch_size, dev)
+        self._tile_caps = tile_widths(self.lanes, dev)
         self._block_ids = torch.arange(nb, dtype=_I32, device=dev).unsqueeze(1)
         # "lookahead": the [B, B] 0/1 successor matrix (LPushJump: the
         # callee entry only; LReturn: none), int64 for the product.
@@ -430,6 +550,7 @@ class ProgramCounterVM:
             for b in targets:
                 if 0 <= b < nb:
                     succ[i, b] = 1
+        self._succ_host = succ
         self._succ = torch.from_numpy(succ).to(dev)
         # The trace ring's constant cells: each block id as a [1] view
         # (the exit index selects SWEEP_BLOCK) and the compaction flags.
@@ -461,8 +582,31 @@ class ProgramCounterVM:
     # State
     # ------------------------------------------------------------------
 
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's lanes of a whole-batch ``[batch, ...]`` tensor."""
+        if self.mesh is None:
+            return x
+        return x[self.lane_offset:self.lane_offset + self.lanes]
+
+    def _sharded(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """A per-lane tensor of this rank as the whole batch: a ``DTensor``
+        sharded on :data:`LANE_AXIS` along ``dim`` (unsharded: ``x``)."""
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor
+
+        lane, stack, _ = lane_shardings(self.mesh)
+        return DTensor.from_local(x, self.mesh, lane if dim == 0 else stack, run_check=False)
+
+    def _all_reduce(self, x: torch.Tensor) -> np.ndarray:
+        """A rank's int64 counts summed over the mesh (one host read and one
+        gloo all-reduce)."""
+        return distributed.all_reduce_sum(self.mesh, x.cpu()).numpy()
+
     def init_state(self, inputs: dict[str, torch.Tensor]) -> dict[str, Any]:
-        z, d = self.config.batch_size, self.config.max_depth
+        """A fresh state of whole-batch ``inputs`` (under a mesh, this rank
+        keeps its lanes)."""
+        z, d = self.lanes, self.config.max_depth
         lp, dev = self.lowered, self.device
         tops: dict[str, torch.Tensor] = {}
         stacks: dict[str, torch.Tensor] = {}
@@ -478,12 +622,12 @@ class ProgramCounterVM:
         for p in lp.main_params:
             spec = lp.var_specs[p]
             x = torch.as_tensor(inputs[p])
-            if tuple(x.shape) != (z,) + spec.shape:
+            if tuple(x.shape) != (self.config.batch_size,) + spec.shape:
                 raise ValueError(
                     f"input {p!r}: expected batched shape "
-                    f"{(z,) + spec.shape}, got {tuple(x.shape)}"
+                    f"{(self.config.batch_size,) + spec.shape}, got {tuple(x.shape)}"
                 )
-            x = x.to(device=dev, dtype=spec.dtype)
+            x = self._local(x).to(device=dev, dtype=spec.dtype)
             slot = self._layout_slot(p)
             if slot is None:
                 # A copy of its own: inject writes the tops in place.
@@ -510,14 +654,17 @@ class ProgramCounterVM:
         }
         if self.config.compact_every is not None:
             # Which caller lane each row holds (compaction permutes rows).
-            state["lane_ids"] = torch.arange(z, dtype=_I32, device=dev)
+            state["lane_ids"] = torch.arange(self.lane_offset, self.lane_offset + z,
+                                             dtype=_I32, device=dev)
         if self.config.collect_block_stats:
             nb = self.num_blocks
             # The switch schedules bump block_exec from the host, which
-            # knows the block; a sweep counts on the device.
+            # knows the block; an unsharded sweep counts on the device, a
+            # sharded one from the summed counts.
             state["block_exec"] = (
                 torch.zeros((nb,), dtype=_I32, device=dev)
-                if self.config.schedule == "sweep" else np.zeros((nb,), np.int32)
+                if self.config.schedule == "sweep" and self.mesh is None
+                else np.zeros((nb,), np.int32)
             )
             state["block_active"] = torch.zeros((nb,), dtype=_I32, device=dev)
             # Occupied-tile capacity summed over dispatches.
@@ -555,11 +702,11 @@ class ProgramCounterVM:
         if layout is not None:
             packed = layout.members() & {op.var for op in ops}
             assert not packed, f"a stack group addresses packed members {sorted(packed)}"
+        # Under a mesh, over this rank's lanes only.
         if kind == "push":
-            call = stack_ops.PushGroup(specs, [True] * len(ops) + [False] * pc,
-                                       cfg.batch_size)
+            call = stack_ops.PushGroup(specs, [True] * len(ops) + [False] * pc, self.lanes)
         else:
-            call = stack_ops.PopGroup(specs, cfg.batch_size)
+            call = stack_ops.PopGroup(specs, self.lanes)
         return StackGroup(kind, tuple(op.var for op in ops), tuple(srcs), pc, call)
 
     def _make_block_fn(self, bidx: int, blk: ir.LBlock) -> Callable:
@@ -584,8 +731,7 @@ class ProgramCounterVM:
             )
         elif isinstance(t, ir.LPushJump):
             # The return address, the pc push's old top.
-            ret_top = torch.full((self.config.batch_size,), t.ret, dtype=_I32,
-                                 device=self.device)
+            ret_top = torch.full((self.lanes,), t.ret, dtype=_I32, device=self.device)
 
         def run(state: dict[str, Any], mask: torch.Tensor) -> None:
             imask = mask.to(_I32)
@@ -728,9 +874,22 @@ class ProgramCounterVM:
         and the per-block counts of the others see only live lanes.  When a
         fault stops the loop (:meth:`_fail_fast`) the same read returns
         ``exit_index``.  ``argmax`` takes the first maximum, as
-        ``jnp.argmax`` does."""
+        ``jnp.argmax`` does.  Under a mesh the same choice is made on the
+        host from the counts summed over the ranks (:meth:`_global_counts`)."""
         schedule, pc = self.config.schedule, self._pc_live(state)
         exit_idx = self.lowered.exit_index
+        if schedule not in ("earliest", "popular", "lookahead"):
+            raise ValueError(f"schedule {schedule!r} picks no block")
+        if self.mesh is not None:
+            counts, stop = self._global_counts(state)
+            if stop or not counts.any():
+                return exit_idx
+            if schedule == "earliest":
+                return int(np.flatnonzero(counts)[0])
+            score = counts
+            if schedule == "lookahead":
+                score = np.where(counts > 0, 2 * counts + self._succ_host @ counts, -1)
+            return int(np.argmax(score))
         if schedule == "earliest":
             b = pc.min()
         elif schedule in ("popular", "lookahead"):
@@ -740,15 +899,34 @@ class ProgramCounterVM:
                 score = 2 * counts + (self._succ * counts).sum(dim=1)
                 score = torch.where(counts > 0, score, -1)
             b = torch.where(counts.sum() > 0, score.argmax(), exit_idx)
-        else:
-            raise ValueError(f"schedule {schedule!r} picks no block")
         if self._fail_fast():
             b = torch.where((state["fault_code"] >= FAULT_NONFINITE).any(), exit_idx, b)
         return int(b)
 
+    def _global_counts(self, state: dict[str, Any]) -> tuple[np.ndarray, bool]:
+        """Under a mesh: the live lanes resting at each block, summed over
+        the ranks, and whether a fault stops the loop anywhere — one int64
+        all-reduce.  The residents of each block in this rank's last sweep
+        ride along and bump the host's ``block_exec`` where any rank had
+        some."""
+        nb = self.num_blocks
+        parts = [(self._pc_live(state).unsqueeze(0) == self._block_ids).sum(dim=1)]
+        if self._fail_fast():
+            parts.append((state["fault_code"] >= FAULT_NONFINITE).sum().view(1))
+        pending = state.pop("sweep_active", None)
+        if pending is not None:
+            parts.append(pending.to(torch.int64))
+        total = self._all_reduce(torch.cat(parts))
+        if pending is not None:
+            state["block_exec"] += (total[-nb:] > 0).astype(np.int32)
+        return total[:nb], self._fail_fast() and bool(total[nb])
+
     def live(self, state: dict[str, Any]) -> bool:
         """Whether any lane still dispatches (one host read); False once a
         fault stops the loop."""
+        if self.mesh is not None:
+            counts, stop = self._global_counts(state)
+            return bool(counts.any()) and not stop
         alive = (self._pc_live(state) < self.lowered.exit_index).any()
         if self._fail_fast():
             alive = alive & ~(state["fault_code"] >= FAULT_NONFINITE).any()
@@ -791,7 +969,11 @@ class ProgramCounterVM:
         if collect:
             active = torch.stack(active)
             state["block_active"] += active
-            state["block_exec"] += (active > 0).to(_I32)
+            if self.mesh is None:
+                state["block_exec"] += (active > 0).to(_I32)
+            else:
+                # Counted from the ranks' sum at the next reduction.
+                state["sweep_active"] = active
         self._end_iteration(state)
 
     def _trace_event(self, state: dict[str, Any], b: int, mask: torch.Tensor,
@@ -850,11 +1032,12 @@ class ProgramCounterVM:
         return x.index_select(0, torch.argsort(state["lane_ids"]))
 
     def _rows(self, state: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        """A caller-order ``[batch, ...]`` tensor (a mask, fresh inputs) in
-        the state's row order."""
+        """A whole-batch caller-order ``[batch, ...]`` tensor (a mask, fresh
+        inputs) as this rank's lanes in the state's row order."""
+        x = self._local(x)
         if self.config.compact_every is None:
             return x
-        return x.index_select(0, state["lane_ids"])
+        return x.index_select(0, state["lane_ids"] - self.lane_offset)
 
     def _loop(self, state: dict[str, Any], limit: int) -> None:
         """The host loop: iterate until no lane dispatches or ``steps``
@@ -891,31 +1074,40 @@ class ProgramCounterVM:
         self._loop(state, min(state["steps"] + int(num_steps), self.config.max_steps))
         return state
 
+    def lanes_of(self, state: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        """A row-order per-lane tensor of the state as the caller's
+        ``[batch, ...]`` (:meth:`unpermute`; a lane-sharded ``DTensor``
+        under a mesh)."""
+        return self._sharded(self.unpermute(state, x))
+
     def lane_done(self, state: dict[str, Any]) -> torch.Tensor:
         """``[batch]`` bool, caller order: lanes at the exit block."""
-        return self.unpermute(state, state["pc_top"] >= self.lowered.exit_index)
+        return self.lanes_of(state, state["pc_top"] >= self.lowered.exit_index)
 
     def lane_fault(self, state: dict[str, Any]) -> torch.Tensor:
         """``[batch]`` int32 fault codes, caller order (:data:`FAULT_NAMES`)."""
-        return self.unpermute(state, state["fault_code"])
+        return self.lanes_of(state, state["fault_code"])
 
     def lane_faulted(self, state: dict[str, Any]) -> torch.Tensor:
         """``[batch]`` bool, caller order: lanes that faulted."""
-        return self.unpermute(state, state["fault_code"] != FAULT_OK)
+        return self.lanes_of(state, state["fault_code"] != FAULT_OK)
 
     def lane_depth_exceeded(self, state: dict[str, Any]) -> torch.Tensor:
         """``[batch]`` bool, caller order: lanes whose stacks overflowed."""
-        return self.unpermute(state, state["depth_exceeded"])
+        return self.lanes_of(state, state["depth_exceeded"])
 
     def lane_status(self, state: dict[str, Any]) -> torch.Tensor:
         """``[2, batch]`` int32, caller order: the halt flags and the fault
-        codes in one tensor, so a host loop reads both in one transfer."""
+        codes in one tensor, so a host loop reads both in one transfer
+        (under a mesh, sharded along dim 1)."""
         done = (state["pc_top"] >= self.lowered.exit_index).to(_I32)
-        return self.unpermute(state, torch.stack([done, state["fault_code"]], dim=1)).T
+        both = self.unpermute(state, torch.stack([done, state["fault_code"]], dim=1)).T
+        return self._sharded(both.contiguous(), dim=1)
 
     def park(self, state: dict[str, Any], mask) -> dict[str, Any]:
-        """Send the masked lanes (``[batch]`` bool, caller order) to the
-        exit block, in place: they idle until :meth:`inject` refills them."""
+        """Send the masked lanes (``[batch]`` bool, caller order, the whole
+        batch) to the exit block, in place: they idle until :meth:`inject`
+        refills them."""
         mask = self._rows(state, torch.as_tensor(mask, dtype=torch.bool).to(self.device))
         state["pc_top"].masked_fill_(mask, self.lowered.exit_index)
         return state
@@ -928,7 +1120,7 @@ class ProgramCounterVM:
         :meth:`init_state` gives it — pc, pc stack and pointer, variable
         stacks, pointers and tops, overflow flag, fault code and step count.
         Unmasked lanes and the global counters are untouched."""
-        lp, z = self.lowered, self.config.batch_size
+        lp, z = self.lowered, self.config.batch_size  # whole-batch arguments
         fresh = {}
         for p in lp.main_params:
             spec = lp.var_specs[p]
@@ -960,16 +1152,42 @@ class ProgramCounterVM:
     def result(self, state: dict[str, Any]) -> VMResult:
         """A :class:`VMResult` of any state (per-lane tensors in caller
         order); ``converged`` says whether every lane halted (or, under
-        ``"quarantine"``, halted or faulted)."""
+        ``"quarantine"``, halted or faulted).  Under a mesh the counters
+        are summed over the ranks here (a collective) and the per-lane
+        tensors are lane-sharded ``DTensor``s."""
         lp, cfg = self.lowered, self.config
         be = ba = None
         tag_stats: dict[str, tuple[int, int]] = {}
         steps = masked_updates = None
         occ = lane_occ = float("nan")
+        done = state["pc_top"] >= lp.exit_index
+        if cfg.on_fault == "quarantine":
+            done = done | (state["fault_code"] != FAULT_OK)
+        undone = (~done).sum(dtype=torch.int64).view(1)
+        if self.mesh is not None:
+            # One reduction: [block_active, tile_acc, a last sweep's
+            # residents] when collected, then the lanes not done.
+            parts = []
+            if cfg.collect_block_stats:
+                parts = [state["block_active"].to(torch.int64),
+                         state["tile_acc"].to(torch.int64).view(1)]
+                pending = state.pop("sweep_active", None)
+                if pending is not None:
+                    parts.append(pending.to(torch.int64))
+            total = self._all_reduce(torch.cat(parts + [undone]))
+            converged = not total[-1]
+            if cfg.collect_block_stats:
+                nb = self.num_blocks
+                if pending is not None:
+                    state["block_exec"] += (total[nb + 1:2 * nb + 1] > 0).astype(np.int32)
+                ba, tile = total[:nb].astype(np.int32), int(total[nb])
+        else:
+            converged = not bool(undone)
+            if cfg.collect_block_stats:
+                ba, tile = state["block_active"].cpu().numpy(), int(state["tile_acc"])
         if cfg.collect_block_stats:
             be = state["block_exec"]
             be = be.cpu().numpy() if isinstance(be, torch.Tensor) else be.copy()
-            ba = state["block_active"].cpu().numpy()
             tag_stats = {
                 tag: (
                     sum(int(be[b]) * m for b, m in entries),
@@ -978,7 +1196,6 @@ class ProgramCounterVM:
                 for tag, entries in self._tag_blocks.items()
             }
             dispatches, active = int(be.sum()), float(ba.sum())
-            tile = int(state["tile_acc"])
             if dispatches:
                 lane_occ = active / (dispatches * cfg.batch_size)
             if tile:
@@ -988,21 +1205,19 @@ class ProgramCounterVM:
         sched = SchedulerStats(
             schedule=cfg.schedule, fused=lp.fused_from is not None,
             num_blocks=self.num_blocks, steps=steps, mean_occupancy=occ,
-            fused_from=lp.fused_from, mean_lane_occupancy=lane_occ,
-            compact_every=cfg.compact_every, masked_updates=masked_updates,
+            fused_from=lp.fused_from, num_devices=self.num_devices,
+            mean_lane_occupancy=lane_occ, compact_every=cfg.compact_every,
+            masked_updates=masked_updates,
         )
-        done = state["pc_top"] >= lp.exit_index
-        if cfg.on_fault == "quarantine":
-            done = done | (state["fault_code"] != FAULT_OK)
         return VMResult(
-            outputs={o: self.unpermute(state, self.read_top(state, o)) for o in lp.main_outputs},
+            outputs={o: self.lanes_of(state, self.read_top(state, o)) for o in lp.main_outputs},
             steps=state["steps"],
-            converged=bool(done.all()),
+            converged=converged,
             block_exec=be,
             block_active=ba,
             tag_stats=tag_stats,
             depth_exceeded=self.lane_depth_exceeded(state),
-            lane_steps=self.unpermute(state, state["lane_steps"]),
+            lane_steps=self.lanes_of(state, state["lane_steps"]),
             sched=sched,
             fault_code=self.lane_fault(state),
             trace=self.get_trace(state),
@@ -1012,10 +1227,18 @@ class ProgramCounterVM:
         """Drain the dispatch-trace ring of any state into a
         :class:`repro_torch.obs.trace.DispatchTrace` (oldest surviving
         event first; one host read), or None without ``trace``.  The ring
-        is not consumed: a later drain sees these events and newer ones."""
+        is not consumed: a later drain sees these events and newer ones.
+        Under a mesh the lane counts are summed over the ranks (a
+        collective); the block and compaction columns are every rank's."""
         if self.trace_capacity is None:
             return None
-        ring = state["trace"].cpu().numpy()
+        ring = state["trace"].cpu()
+        if self.mesh is not None:
+            total = distributed.all_reduce_sum(self.mesh, ring.clone())
+            for col in _RANK_INVARIANT_COLS:
+                total[:, col] = ring[:, col]
+            ring = total
+        ring = ring.numpy()
         buffers = {name: ring[:, i] for i, name in enumerate(TRACE_COLUMNS)}
         buffers["resident"] = ring[:, len(TRACE_COLUMNS):]
         return obs_trace.drain(

@@ -29,9 +29,15 @@ tensors (a top may be aliased by a temp of the VM).
 ``masked_push.launches`` counts every launch of the push kernel and
 ``masked_peek.launches`` every launch of the pop kernel, grouped or not
 (CPU calls do not count); callers reset them by assigning 0.
+
+:func:`shard_local` gives ``masked_push``/``masked_peek`` over one rank's
+lanes of a lane-sharded batch (``DTensor``s): the kernels run on the
+rank's local ``[depth, lanes/n, ...]`` stacks, with no traffic between
+ranks.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -303,3 +309,53 @@ def pop_group(entries, mask: torch.Tensor) -> tuple[list[torch.Tensor], list[tor
     if any(top.device != mask.device for _, _, top in entries):
         raise ValueError("a group's tensors must share one device")
     return PopGroup(specs, mask.shape[0])(entries, mask)
+
+
+# ---------------------------------------------------------------------------
+# Shard-local entry points
+# ---------------------------------------------------------------------------
+
+
+def _local(mesh, x, dim: int) -> torch.Tensor:
+    """``x``'s shard on this rank: ``x`` must be a ``DTensor`` sharded on
+    ``dim`` over ``mesh``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor) or x.device_mesh != mesh \
+            or tuple(x.placements) != (Shard(dim),):
+        raise ValueError(f"expected a DTensor sharded on dim {dim} over the lane mesh, got "
+                         f"{type(x).__name__} {getattr(x, 'placements', None)}")
+    return x.to_local()
+
+
+@functools.lru_cache(maxsize=None)
+def shard_local(mesh):
+    """Shard-local ``(masked_push, masked_peek)`` for a 1-D lane mesh.
+
+    Each returned callable has the signature and semantics of the
+    module-level function it wraps, but runs the kernel (on the CPU, the
+    plain version) on this rank's lanes only, with no traffic between
+    ranks: its arguments are ``DTensor``s laid out as
+    :func:`repro_torch.launch.sharding.lane_shardings` says (stacks sharded
+    on dim 1, pointers, masks and values on dim 0), and so are its results.
+    Cached per mesh.  The VM needs no wrapper: it makes its
+    :class:`PushGroup`/:class:`PopGroup` over its rank's lanes.
+    """
+    from torch.distributed.tensor import DTensor
+
+    from ...launch.sharding import lane_shardings
+
+    if mesh.ndim != 1:
+        raise ValueError(f"shard_local needs a 1-D mesh, got {mesh.ndim} dims")
+    lane, _, _ = lane_shardings(mesh)
+
+    def push(stack, ptr, val, mask):
+        masked_push(_local(mesh, stack, 1), _local(mesh, ptr, 0), _local(mesh, val, 0),
+                    _local(mesh, mask, 0))
+        return stack
+
+    def peek(stack, ptr):
+        out = masked_peek(_local(mesh, stack, 1), _local(mesh, ptr, 0))
+        return DTensor.from_local(out, mesh, lane, run_check=False)
+
+    return push, peek

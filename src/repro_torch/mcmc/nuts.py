@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import distributed
 from ..core import batching, frontend, ir
 from ..core.batching import Batched, Shared
 from ..core.frontend import spec
@@ -313,6 +314,7 @@ def make_nuts_kernel(
     compact_every: Optional[int] = None,
     verify: bool = False,
     pgo=None,
+    mesh=None,
     device=None,
 ) -> batching.AutobatchedFunction:
     """The public NUTS entry point: ``kernel(theta0, eps, key) -> state``.
@@ -334,9 +336,12 @@ def make_nuts_kernel(
     bit-exact, with fewer dispatches.  On the card the pc backend's
     stack traffic always goes through K1/K2.  It runs on ``device``
     (default: the CUDA card; no CUDA and no device raises), which must be
-    where the target's data lives.
+    where the target's data lives.  ``mesh`` (``None``, a rank count or a
+    1-D ``DeviceMesh``) shards the chains over the ranks of a
+    ``torch.distributed`` process group (``batching.autobatch(mesh=)``;
+    by default each rank runs on its own card), bit-exact with one device.
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else distributed.rank_device(device)
     program = build_nuts_program(target, settings)
     vec = spec((target.dim,), torch.float32)
     return batching.autobatch(
@@ -352,6 +357,7 @@ def make_nuts_kernel(
         compact_every=compact_every,
         verify=verify,
         pgo=pgo,
+        mesh=mesh,
         device=device,
     )
 

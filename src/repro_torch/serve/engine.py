@@ -43,8 +43,17 @@ never changes what is served.  With ``EngineConfig.checkpoint_dir`` the
 open-loop loop snapshots its state through ``train.checkpoint`` and
 ``serve(resume=True)`` continues after a crash of the host loop.
 
-Not ported yet: lane sharding (``mesh``, ROADMAP item 14), which raises
-when asked for.
+Lane sharding (``EngineConfig.mesh``, pc backend): the lanes are
+independent request queues, so each rank of a ``torch.distributed``
+process group serves ``lanes/n`` of them on its own device
+(``pc_vm.VMConfig.mesh``), and the VM's per-dispatch reduction is the only
+traffic between ranks.  Every rank builds the same engine (the same model
+and parameters) and makes the same calls with the same requests; results
+come back whole on every rank.  In ``serve()`` every decision that reads
+the clock is taken from the first rank's clock, broadcast at each read,
+and the lane statuses are all-gathered each segment, so every rank admits,
+retires and parks alike.  Snapshots (``checkpoint_dir``, ``resume``) are
+not sharded yet (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .. import distributed
 from ..core import batching, frontend, ir, pc_vm
 from ..core.frontend import spec
 from ..mcmc import prng
@@ -78,7 +88,8 @@ class EngineConfig:
     eos_id: int = 0
     temperature: float = 0.0  # 0: greedy
     backend: str = "pc"  # pc | local | local_eager (serve(): pc only)
-    # Not ported (ROADMAP item 14); must stay None.
+    # Lane sharding (pc backend): None, a rank count or a 1-D DeviceMesh;
+    # lanes must divide across it.  Each rank serves lanes/n queues.
     mesh: Any = None
     # serve(): VM loop iterations per segment between host checks.
     segment_steps: int = 64
@@ -247,6 +258,9 @@ class GenerationEngine:
         self.model = model
         self.params = params
         self.cfg = cfg
+        n = pc_vm.mesh_size(cfg.mesh)
+        if cfg.lanes % n:
+            raise ValueError(f"lanes={cfg.lanes} does not divide across the {n}-rank mesh")
         #: The serving loop's instruments; pass one registry to several
         #: engines to aggregate them.
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -436,6 +450,7 @@ class GenerationEngine:
                 max_depth=4,
                 max_steps=2**31 - 2,  # a server's step count is unbounded
                 trace=self.cfg.trace,
+                mesh=self.cfg.mesh,
                 device=self.model.device,
                 **self._pc_options(),
             )
@@ -488,6 +503,12 @@ class GenerationEngine:
         windows restart at the resume).  Delivery is at least once: a
         request finished after the last snapshot is served again.  A resume
         after completion serves nothing.
+
+        Under ``cfg.mesh`` every rank calls ``serve`` with the same
+        requests; the clock is the first rank's (``now_fn``'s or the wall
+        clock's reading there, broadcast at each read), so every rank takes
+        the same decisions, and every rank returns every completion.
+        Snapshots under a mesh raise ``NotImplementedError``.
         """
         cfg = self.cfg
         z = cfg.lanes
@@ -502,6 +523,10 @@ class GenerationEngine:
                     f"request {r.rid}: prompt length {len(r.prompt)} "
                     f"exceeds max_prompt_len={cfg.max_prompt_len}"
                 )
+        if cfg.mesh is not None and (resume or cfg.checkpoint_dir is not None):
+            raise NotImplementedError(
+                "serve() snapshots under a mesh (checkpoint_dir, resume=True) need "
+                "resharded checkpoints, which are not ported yet (ROADMAP item 14)")
         if resume and cfg.checkpoint_dir is None:
             raise ValueError("serve(resume=True) needs cfg.checkpoint_dir")
 
@@ -515,7 +540,9 @@ class GenerationEngine:
         state = st.park(state, np.ones((z,), bool))
 
         t0 = time.perf_counter()
-        now = now_fn if now_fn is not None else (lambda: time.perf_counter() - t0)
+        clock = now_fn if now_fn is not None else (lambda: time.perf_counter() - t0)
+        mesh = st.vm.mesh
+        now = clock if mesh is None else (lambda: distributed.broadcast_float(mesh, clock()))
         pol = straggler if straggler is not None else StragglerPolicy()
         completions: list[Completion] = []
         stats = ServeStats()
@@ -707,8 +734,8 @@ class GenerationEngine:
                 _retry_or_terminal(e, "timeout", lane, t_now)
             if finished:
                 outs = st.outputs(state)
-                tokens = outs["tokens"].cpu().numpy()
-                lengths = outs["lengths"].cpu().numpy()
+                tokens = distributed.host_lanes(outs["tokens"]).numpy()
+                lengths = distributed.host_lanes(outs["lengths"]).numpy()
                 for lane in finished:
                     e = active.pop(lane)
                     toks = tokens[lane, : int(lengths[lane])].copy()
@@ -749,7 +776,9 @@ class GenerationEngine:
 
     def generate(self, prompts: np.ndarray, prompt_lens: np.ndarray,
                  n_req: Optional[np.ndarray] = None, seed: int = 0) -> dict:
-        """prompts: [lanes, R, P] i32; prompt_lens: [lanes, R] i32."""
+        """prompts: [lanes, R, P] i32; prompt_lens: [lanes, R] i32 (the
+        whole batch on every rank under a mesh; every rank gets every
+        lane's tokens)."""
         cfg = self.cfg
         z = cfg.lanes
         if n_req is None:
@@ -762,8 +791,8 @@ class GenerationEngine:
             keys,
         )
         return {
-            "tokens": out["tokens"].cpu().numpy(),
-            "lengths": out["lengths"].cpu().numpy(),
+            "tokens": distributed.host_lanes(out["tokens"]).numpy(),
+            "lengths": distributed.host_lanes(out["lengths"]).numpy(),
             "utilization": self.batched.utilization.get("decode", None),
         }
 

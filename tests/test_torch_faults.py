@@ -140,13 +140,18 @@ class TestValidation:
         with pytest.raises(ValueError, match="lane_step_budget"):
             t_pc_vm.VMConfig(batch_size=2, lane_step_budget=0)
 
-    def test_trace_and_mesh_are_not_ported(self):
-        """Tracing is ported now (a capacity below 1 is refused); lane
-        sharding is not and names its ROADMAP item."""
+    def test_trace_capacity_and_mesh_are_checked(self):
+        """A trace capacity below 1 is refused.  Lane sharding is ported
+        (the quarantine cell over two ranks: tests/test_torch_mesh.py): a
+        mesh with the local backends is refused, and mesh=2 with no ranks
+        running raises at the call instead of running on one device."""
         with pytest.raises(ValueError, match="capacity >= 1"):
             t_batching.autobatch(_sqrt_program(), trace=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            t_batching.autobatch(_sqrt_program(), mesh=2, device="cpu")
+        with pytest.raises(ValueError, match="pc backend"):
+            t_batching.autobatch(_sqrt_program(), mesh=2, backend="local", device="cpu")
+        fn = t_batching.autobatch(_sqrt_program(), mesh=2, device="cpu")
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            fn(_t([-1.0, 4.0], np.float32))
 
 
 class TestCacheKey:

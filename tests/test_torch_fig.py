@@ -4,8 +4,8 @@ every pc variant gives a complete record, the JSON files are strict, and
 Fig. 6's pc and local utilizations equal the JAX benchmark's on the same
 inputs.  ``torch_fig5 --pgo on,off`` runs, and its pgo arms strictly cut
 dispatches and masked updates; Fig. 6 has no ``--pgo``, as the JAX
-benchmark has none.  ``--mesh``, which the port lacks, is refused with the
-ROADMAP item that tracks it.
+benchmark has none.  ``--mesh 2`` starts two gloo ranks and records
+``mesh2`` pc arms (Fig. 5: a batch a rank; Fig. 6: the whole batch).
 """
 import json
 
@@ -71,11 +71,31 @@ def test_fig6_cli_writes_strict_json(tmp_path):
     assert 0 < rec["local"] <= 1 and 0 < rec["pc"]["pc"] <= 1
 
 
-@pytest.mark.parametrize("main", [torch_fig5.main, torch_fig6.main])
-@pytest.mark.parametrize("flag, item", [(["--mesh", "2"], "item 14")])
-def test_unported_knobs_are_refused(main, flag, item):
-    with pytest.raises(SystemExit, match=item):
-        main(["--device", "cpu", *flag])
+def test_fig5_mesh_arms_run_over_ranks(tmp_path):
+    path = tmp_path / "fig5.json"
+    torch_fig5.main(["--device", "cpu", "--batches", "2", "--repeats", "1", "--arms", "pc",
+                     "--mesh", "none,2", "--json", str(path)])
+    validate_bench_json([str(path)])
+    payload = json.loads(path.read_text())
+    assert payload["config"]["ranks"] == 2
+    plain, sharded = payload["records"]
+    assert (plain["arm"], sharded["arm"]) == ("pc[earliest,fuse]", "pc[earliest,fuse,mesh2]")
+    assert (plain["batch"], plain["mesh"], plain["num_devices"]) == (2, 1, 1)
+    assert (sharded["batch"], sharded["per_device_batch"], sharded["mesh"],
+            sharded["num_devices"]) == (4, 2, 2, 2)
+    assert sharded["grads_per_sec"] > 0 and sharded["vm_steps"] > 0
+
+
+def test_fig6_mesh_arms_run_over_ranks(tmp_path):
+    """A mesh arm's utilization is the unsharded arm's at the same batch;
+    a batch the mesh does not divide is a null cell."""
+    path = tmp_path / "fig6.json"
+    torch_fig6.main(["--device", "cpu", "--batches", "1,2", "--mesh", "none,2",
+                     "--json", str(path)])
+    validate_bench_json([str(path)])
+    odd, even = json.loads(path.read_text())["records"]
+    assert even["pc"]["pc[earliest,fuse,mesh2]"] == even["pc"]["pc[earliest,fuse]"] > 0
+    assert odd["pc"]["pc[earliest,fuse,mesh2]"] is None and odd["pc"]["pc[earliest,fuse]"] > 0
 
 
 def test_fig5_pgo_arms_cut_dispatches_and_masked_updates(tmp_path):

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 loads neither JAX nor the JAX package, and no source of the port (nor
-``chip_smoke.py``, the card's tests, the port's Fig. 5 / Fig. 6 and
-serving benchmarks, their driver, its chaos harness and its examples)
-imports either."""
+``chip_smoke.py``, the card's tests, what the lane-sharding tests' ranks
+run, the port's Fig. 5 / Fig. 6 and serving benchmarks, their driver, its
+chaos harness and its examples) imports either."""
 import ast
 import json
 import os
@@ -56,6 +56,7 @@ def _imports(path: Path) -> list[str]:
 # benchmark helpers they import) run where there is no JAX.
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "tests" / "torch_mesh_workers.py",
     REPO / "tools" / "torch_nuts_ab.py", REPO / "tools" / "torch_chaos.py",
     REPO / "tools" / "torch_vmtrace.py", REPO / "tools" / "torch_pgo.py",
     REPO / "tools" / "torch_irlint.py", REPO / "tools" / "torch_verify_cost.py",

@@ -1,9 +1,10 @@
 """The port's benchmark driver (``benchmarks/torch_run.py``, the
 counterpart of ``benchmarks/run.py``) on the CPU: its arguments reach each
 sub-benchmark (their mains replaced by recorders), one real tiny run
-writes records that parse as strict JSON, and what the port lacks or must
-never do is refused — ``--mesh`` and the roofline (item 14), ``--use-kernel
-off`` (a fallback on the card) and the JAX package's record paths."""
+writes records that parse as strict JSON, ``--mesh`` reaches fig5 and
+serve as in the JAX driver, and what the port lacks or must never do is
+refused — the roofline (item 14), ``--use-kernel off`` (a fallback on the
+card) and the JAX package's record paths."""
 import json
 from pathlib import Path
 
@@ -79,9 +80,21 @@ def test_a_tiny_cpu_run_writes_strict_records(tmp_path):
     assert all(r["num_requests"] == 4 for r in sv["records"])
 
 
+@pytest.mark.parametrize("mesh, serve_mesh", [("8", "8"), ("none,8", "8")])
+def test_mesh_reaches_fig5_and_serve(recorded, tmp_path, mesh, serve_mesh):
+    """As the JAX driver: fig5's pc arms take the rank counts, serve the
+    largest, fig6 none (each benchmark starts its own ranks)."""
+    paths = {k: str(tmp_path / f"{k}.json") for k in ("fig5", "fig6", "serve")}
+    assert torch_run.main(["--mesh", mesh, "--device", "cpu", "--json-out", paths["fig5"],
+                           "--fig6-json-out", paths["fig6"],
+                           "--serve-json-out", paths["serve"]]) == 0
+    fig5, serve = recorded["torch_fig5"], recorded["torch_serve_bench"]
+    assert fig5[fig5.index("--mesh") + 1] == mesh
+    assert serve[serve.index("--mesh") + 1] == serve_mesh
+    assert "--mesh" not in recorded["torch_fig6"]
+
+
 @pytest.mark.parametrize("argv, says", [
-    (["--mesh", "8"], "item 14"),
-    (["--mesh", "none,8"], "item 14"),
     (["--only", "roofline"], "item 14"),
     (["--only", "fig5,roofline"], "item 14"),
     (["--use-kernel", "off"], "fallback"),

@@ -21,10 +21,11 @@ from repro import configs as j_configs  # noqa: E402
 from repro.models import get_model as j_get_model  # noqa: E402
 from repro.serve.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro.serve.engine import GenerationEngine as JGenerationEngine  # noqa: E402
-from repro_torch import configs, interop  # noqa: E402
+from repro_torch import configs, distributed, interop  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, GenerationEngine, _cache_layout  # noqa: E402
 from repro_torch.testing import engine_inputs  # noqa: E402
+from tests import torch_mesh_workers as workers  # noqa: E402
 
 ARCH = "smollm-135m"
 
@@ -133,17 +134,51 @@ def test_cache_layout_rejects_an_ambiguous_leaf():
         _cache_layout(BadModel(), 8)
 
 
-def test_unported_options_raise(lm, tmp_path):
-    """Lane sharding is not ported and names its ROADMAP item.  (Crash-resume
-    is ported: an engine takes a checkpoint directory, and
-    tests/test_torch_serve_open.py resumes through it.  Tracing is ported
-    and reaches the VM; the local backends and temperature sampling are
-    ported: tests/test_torch_serve_open.py.)"""
+def test_engine_options_reach_the_vm(lm, tmp_path):
+    """Checkpoints, tracing and lane sharding reach the engine's VM.  A mesh
+    is resolved at the first call: lanes that do not divide across it are
+    refused at once, and mesh=2 with no ranks running raises rather than
+    serving on one device.  (Crash-resume: tests/test_torch_serve_open.py;
+    the sharded engine: test_sharded_generate_matches_unsharded_and_jax.)"""
     _, _, model, params = lm
     kw = dict(lanes=2, max_context=16, max_prompt_len=4, max_new_tokens=4,
               requests_per_lane=1)
     eng = GenerationEngine(model, params, EngineConfig(**kw, checkpoint_dir=str(tmp_path)))
     assert eng.cfg.checkpoint_dir == str(tmp_path) and eng.cfg.checkpoint_every_segments == 8
     assert GenerationEngine(model, params, EngineConfig(**kw, trace=64)).batched.trace == 64
-    with pytest.raises(NotImplementedError, match="item 14"):
-        GenerationEngine(model, params, EngineConfig(**kw, mesh=2))
+    eng = GenerationEngine(model, params, EngineConfig(**kw, mesh=2))
+    assert eng.batched.mesh == 2
+    with pytest.raises(ValueError, match="no torch.distributed process group"):
+        eng.generate(np.ones((2, 1, 4), np.int32), np.ones((2, 1), np.int32))
+    with pytest.raises(ValueError, match="divide"):
+        GenerationEngine(model, params, EngineConfig(**dict(kw, lanes=3), mesh=2))
+    with pytest.raises(ValueError, match="pc backend"):
+        GenerationEngine(model, params, EngineConfig(**kw, mesh=2, backend="local"))
+
+
+@pytest.fixture(scope="module")
+def sharded_generate(lm, tmp_path_factory):
+    """The divergent-queues case with its four lanes over two gloo ranks."""
+    _, params, _, _ = lm
+    kw, prompts, plens, (n_req,) = CASES["divergent_queues"]
+    return distributed.spawn(
+        workers.engine_generate, 2, backend="gloo", devices=["cpu"] * 2, timeout=300,
+        args=(jax.tree.map(np.asarray, params), kw, prompts, plens, n_req),
+        rendezvous_dir=tmp_path_factory.mktemp("ranks"))
+
+
+def test_sharded_generate_matches_unsharded_and_jax(lm, jax_runs, sharded_generate):
+    """Lanes as independent request queues over two ranks: every rank gets
+    the JAX engine's tokens, lengths and decode utilization, the unsharded
+    port's too, with two lanes a rank."""
+    _, _, model, params = lm
+    kw, prompts, plens, (n_req,) = CASES["divergent_queues"]
+    ((tokens, lengths, util, _),) = jax_runs["divergent_queues"]
+    plain = GenerationEngine(model, params, EngineConfig(**kw)).generate(prompts, plens,
+                                                                         n_req=n_req)
+    for r in sharded_generate:
+        np.testing.assert_array_equal(r["tokens"], tokens)
+        np.testing.assert_array_equal(r["lengths"], lengths)
+        np.testing.assert_array_equal(r["tokens"], plain["tokens"])
+        assert r["utilization"] == pytest.approx(util, rel=1e-12) == plain["utilization"]
+        assert (r["num_devices"], r["local_lanes"]) == (2, 2)

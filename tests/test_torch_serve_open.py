@@ -7,7 +7,8 @@ same virtual clock: the completions are equal in ``rid``, ``tokens``,
 ``lane``, ``status``, ``attempts``, ``fault`` and their arrival, admission
 and finish times, and the stats' counters agree.  The cases are
 tests/test_serve.py's open-loop and resilience cases, crash-resume
-included (lane sharding is not ported, and raises).  ``generate`` runs on
+included, and lane sharding over two gloo ranks
+(``TestShardedServe``; snapshots under a mesh raise).  ``generate`` runs on
 ``local`` and ``local_eager`` with the JAX engine's tokens.  Temperature
 sampling draws the JAX package's tokens on fixed seeds; its Gumbel noise
 goes through PyTorch's ``log``, within an ulp of XLA's, so a token may
@@ -30,13 +31,14 @@ from repro.obs.metrics import MetricsRegistry as JMetricsRegistry  # noqa: E402
 from repro.serve import engine as j_engine  # noqa: E402
 from repro.serve import steps as j_steps  # noqa: E402
 from repro.train.fault_tolerance import StragglerPolicy as JStragglerPolicy  # noqa: E402
-from repro_torch import configs, interop  # noqa: E402
+from repro_torch import configs, distributed, interop  # noqa: E402
 from repro_torch.mcmc import prng  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.serve import engine as t_engine  # noqa: E402
 from repro_torch.serve import steps as t_steps  # noqa: E402
 from repro_torch.train.fault_tolerance import StragglerPolicy  # noqa: E402
+from tests import torch_mesh_workers as workers  # noqa: E402
 
 ARCH = "smollm-135m"
 BASE = dict(max_context=32, max_prompt_len=5, max_new_tokens=6, requests_per_lane=1,
@@ -234,6 +236,68 @@ class TestContinuousServe:
         want, _ = eng.serve(req)
         np.testing.assert_array_equal(comps[0].tokens, want[0].tokens)
         assert stats.checkpoints >= 1 and comps[0].status == "ok"
+
+
+class TestShardedServe:
+    """tests/test_serve.py's test_sharded_serve_matches_unsharded: two lanes
+    over two gloo ranks, four requests refilling them on a virtual clock."""
+
+    KW = dict(BASE, lanes=2)
+    TICK = 1.0
+
+    @staticmethod
+    def _reqs():
+        rng = np.random.default_rng(9)
+        return [(i, rng.integers(1, 256, (1 + i % 5,)).astype(np.int32), 0.0)
+                for i in range(4)]
+
+    @pytest.fixture(scope="class")
+    def sharded(self, lm, tmp_path_factory):
+        _, params, _, _ = lm
+        return distributed.spawn(
+            workers.engine_serve, 2, backend="gloo", devices=["cpu"] * 2, timeout=300,
+            args=(jax.tree.map(np.asarray, params), self.KW, self._reqs(), 8, self.TICK),
+            rendezvous_dir=tmp_path_factory.mktemp("ranks"))
+
+    def test_sharded_serve_matches_unsharded_and_jax(self, lm, sharded):
+        """Every rank returns every completion, equal to the JAX engine's
+        (sharded and not) and the unsharded port's in tokens, lane, status
+        and times: the first rank's clock decides, though the second
+        rank's own clock runs twice as fast."""
+        jm, params, tm, tparams = lm
+        reqs = self._reqs()
+        want = []
+        for mod, eng in ((j_engine, j_engine.GenerationEngine(
+                jm, params, j_engine.EngineConfig(**self.KW))),
+                         (j_engine, j_engine.GenerationEngine(
+                             jm, params, j_engine.EngineConfig(**self.KW, mesh=2))),
+                         (t_engine, t_engine.GenerationEngine(
+                             tm, tparams, t_engine.EngineConfig(**self.KW)))):
+            comps, stats = eng.serve([mod.Request(rid=r, prompt=p, arrival=a)
+                                      for r, p, a in reqs],
+                                     segment_steps=8, now_fn=_clock(self.TICK))
+            want.append((comps, stats))
+        for r in sharded:
+            assert r["num_devices"] == 2
+            for comps, stats in want:
+                assert len(r["comps"]) == len(comps) == 4
+                for (fields, tokens), c in zip(r["comps"], comps):
+                    assert fields == {f: getattr(c, f) for f in FIELDS}
+                    np.testing.assert_array_equal(tokens, c.tokens)
+                for f, v in r["stats"].items():
+                    assert v == pytest.approx(getattr(stats, f)), f
+
+    def test_snapshots_under_a_mesh_wait_for_item_14(self, lm, tmp_path):
+        """Resharded checkpoints come with model sharding: resume=True and
+        checkpoint_dir under a mesh raise, before any rank is needed."""
+        _, _, tm, tparams = lm
+        req = [t_engine.Request(rid=0, prompt=np.ones((2,), np.int32))]
+        for extra, kw in (({}, dict(resume=True)),
+                          (dict(checkpoint_dir=str(tmp_path)), {})):
+            eng = t_engine.GenerationEngine(tm, tparams, t_engine.EngineConfig(
+                **self.KW, mesh=2, **extra))
+            with pytest.raises(NotImplementedError, match="item 14"):
+                eng.serve(req, **kw)
 
 
 class TestServeResilience:

@@ -174,3 +174,57 @@ def test_device_tensor_raises_when_the_build_fails(monkeypatch):
         t_ops.masked_peek(stack, ptr)
     assert (t_ops.masked_push.launches, t_ops.masked_peek.launches) == before
 
+
+
+# ---------------------------------------------------------------------------
+# Shard-local entry points (the VM's mesh=): tests/test_kernels.py's
+# TestShardedStackOps, over two gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shard_ranks(tmp_path_factory):
+    from repro_torch import distributed
+    from tests import torch_mesh_workers
+
+    return distributed.spawn(torch_mesh_workers.shard_local_cases, 2, backend="gloo",
+                             devices=["cpu"] * 2, timeout=300,
+                             rendezvous_dir=tmp_path_factory.mktemp("ranks"))
+
+
+@pytest.mark.parametrize("feat", [(), (3,), (2, 5)])
+def test_shard_local_push_peek_match_the_whole_batch(shard_ranks, feat):
+    """Each rank pushes and peeks its lanes of DTensors laid out by
+    lane_shardings; gathered, they equal the plain versions of both
+    packages on the whole batch, and the stack stays sharded on dim 1."""
+    for r in shard_ranks:
+        got, plain, still_sharded = r[("push", feat)]
+        stack, ptr, val, mask = r[("inputs", feat)]
+        want = np.asarray(j_ref.masked_push(jnp.asarray(stack), jnp.asarray(ptr),
+                                            jnp.asarray(val), jnp.asarray(mask)))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(plain, want)
+        assert still_sharded
+        peeked, plain_peek = r[("peek", feat)]
+        np.testing.assert_array_equal(peeked, plain_peek)
+        np.testing.assert_array_equal(
+            peeked, np.asarray(j_ref.masked_peek(jnp.asarray(want), jnp.asarray(ptr))))
+
+
+def test_shard_local_drops_out_of_range_pointers_per_rank(shard_ranks):
+    for r in shard_ranks:
+        out = r["overflow"]
+        assert out[:, 1::2].sum() == 0.0  # the out-of-range lane of each rank
+        assert (out[0, 0::2] == 1.0).all()
+
+
+def test_shard_local_groups_equal_the_unsharded_group(shard_ranks):
+    """A rank's push and pop groups over its 16 of 32 lanes give the slice
+    of the unsharded group's pointers, tops and stacks; a VM over the mesh
+    makes every group over its 16 lanes and refuses 31; shard_local is
+    made once per mesh."""
+    for r in shard_ranks:
+        assert r["cached"]
+        assert r["push_group"] and r["pop_group"]
+        lanes, indivisible = r["group_lanes"]
+        assert lanes == {16} and "divide" in indivisible

@@ -25,8 +25,9 @@ and checks that
    any;
 3. the healthy lanes' outputs are bit-exact with the fault-free run.
 
-Lane sharding (``--mesh`` of the JAX harness) is not ported.  Exit status
-1 on any violation; ``--json`` writes a strict-JSON record per cell.
+:func:`run_cell` takes ``mesh=`` as the JAX harness's does (each rank of a
+``torch.distributed`` process group calls it; the command line runs one
+device).  Exit status 1 on any violation; ``--json`` writes a strict-JSON record per cell.
 
 :class:`ChaosModel` is the serving side of the same harness: a language
 model wrapper whose sentinel prompts NaN-poison or livelock their own lane
@@ -47,6 +48,7 @@ for _p in (_REPO, os.path.join(_REPO, "src")):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
+from repro_torch import distributed  # noqa: E402
 from repro_torch.core import batching, frontend, pc_vm  # noqa: E402
 from repro_torch.core.frontend import F32, I32  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
@@ -211,9 +213,11 @@ def chaos_fn(program=None, *, device, schedule: str = "earliest", fuse: bool = T
 
 
 def run_cell(program, *, batch: int, modes: np.ndarray, schedule: str, fuse: bool,
-             seed: int, device) -> dict:
-    """One matrix cell: a fault-free and a chaotic run through one executor."""
-    fn = chaos_fn(program, device=device, schedule=schedule, fuse=fuse)
+             seed: int, device, mesh=None) -> dict:
+    """One matrix cell: a fault-free and a chaotic run through one executor
+    (lanes sharded over ``mesh``'s ranks when given)."""
+    fn = chaos_fn(program, device=device, schedule=schedule, fuse=fuse, mesh=mesh)
+    host = distributed.host_lanes
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(0, 10_000, (batch,)).astype(np.int32)).to(device)
     record = {
@@ -222,18 +226,18 @@ def run_cell(program, *, batch: int, modes: np.ndarray, schedule: str, fuse: boo
                      for m in FAULT_MODES},
         "violations": [],
     }
-    clean = fn(x, torch.zeros(batch, dtype=torch.int32, device=device))["out"].cpu().numpy()
-    clean_codes = fn.last_result.fault_code.cpu().numpy()
+    clean = host(fn(x, torch.zeros(batch, dtype=torch.int32, device=device))["out"]).numpy()
+    clean_codes = host(fn.last_result.fault_code).numpy()
     if clean_codes.any():
         record["violations"].append(f"fault-free run reported faults: {clean_codes.tolist()}")
     try:
-        chaotic = fn(x, torch.from_numpy(modes).to(device))["out"].cpu().numpy()
+        chaotic = host(fn(x, torch.from_numpy(modes).to(device))["out"]).numpy()
     except Exception as e:  # criterion 1: must never abort
         record["violations"].append(f"chaotic run aborted: {type(e).__name__}: {e}")
         record["ok"] = False
         return record
     res = fn.last_result
-    codes = res.fault_code.cpu().numpy()
+    codes = host(res.fault_code).numpy()
     expect = np.array([EXPECT_CODE[int(m)] for m in modes], np.int32)
     if not np.array_equal(codes, expect):
         bad = np.flatnonzero(codes != expect)
