@@ -150,7 +150,7 @@ import torch
 from .. import distributed
 from ..distributed import LANE_AXIS
 from ..kernels.stack_ops import ops as stack_ops
-from ..launch.sharding import lane_shardings
+from ..launch import sharding as _sharding
 from ..obs import trace as obs_trace
 from . import ir
 
@@ -595,7 +595,7 @@ class ProgramCounterVM:
             return x
         from torch.distributed.tensor import DTensor
 
-        lane, stack, _ = lane_shardings(self.mesh)
+        lane, stack, _ = _sharding.lane_shardings(self.mesh)
         return DTensor.from_local(x, self.mesh, lane if dim == 0 else stack, run_check=False)
 
     def _all_reduce(self, x: torch.Tensor) -> np.ndarray:
@@ -1073,6 +1073,57 @@ class ProgramCounterVM:
         one run."""
         self._loop(state, min(state["steps"] + int(num_steps), self.config.max_steps))
         return state
+
+    # The state's per-lane tensors: [batch, ...] rows, and [depth, batch,
+    # ...] stacks with the lane on dim 1.
+    _LANE_ROWS = ("pc_top", "pc_ptr", "depth_exceeded", "lane_steps", "fault_code", "lane_ids")
+
+    def _map_lanes(self, state: dict[str, Any], fn) -> dict[str, Any]:
+        """A shallow copy of ``state`` with ``fn(x, lane_dim)`` applied to
+        each per-lane tensor; the other entries are kept."""
+        out = dict(state)
+        for k in self._LANE_ROWS:
+            if k in state:
+                out[k] = fn(state[k], 0)
+        out["pc_stack"] = fn(state["pc_stack"], 1)
+        for group, dim in (("tops", 0), ("ptrs", 0), ("stacks", 1)):
+            out[group] = {v: fn(x, dim) for v, x in state[group].items()}
+        return out
+
+    def _in_caller_order(self, state: dict[str, Any], first: int) -> dict[str, Any]:
+        """``state``'s rows in caller lane order, ``lane_ids`` from ``first``."""
+        if "lane_ids" not in state:
+            return state
+        perm = torch.argsort(state["lane_ids"].to(self.device))
+        out = self._map_lanes(state, lambda x, d: x.index_select(d, perm.to(x.device)))
+        out["lane_ids"] = torch.arange(first, first + len(perm), dtype=_I32, device=self.device)
+        return out
+
+    def gather_state(self, state: dict[str, Any]) -> dict[str, Any]:
+        """The whole batch's state in caller lane order: the layout an
+        unsharded VM holds, so it snapshots in the unsharded format.  Under
+        a mesh every rank calls it (the lanes gather over the host group)
+        and gets every lane on the host; the other entries are this rank's."""
+        state = self._in_caller_order(state, self.lane_offset)
+        if self.mesh is None:
+            return state
+        out = self._map_lanes(state, lambda x, d: distributed.host_lanes(self._sharded(x, d)))
+        if "lane_ids" in out:
+            out["lane_ids"] = torch.arange(self.config.batch_size, dtype=_I32)
+        return out
+
+    def shard_state(self, state: dict[str, Any]) -> dict[str, Any]:
+        """This rank's lanes of a whole-batch state (:meth:`gather_state`'s
+        layout, or an unsharded VM's in any row order), on the device."""
+        state = self._in_caller_order(state, 0)
+        lo, n = self.lane_offset, self.lanes
+        out = self._map_lanes(state, lambda x, d: x.narrow(d, lo, n).to(self.device).contiguous())
+        if "lane_ids" in out:
+            out["lane_ids"] = out["lane_ids"] + lo
+        for k, x in out.items():
+            if isinstance(x, torch.Tensor) and k not in self._LANE_ROWS and k != "pc_stack":
+                out[k] = x.to(self.device)
+        return out
 
     def lanes_of(self, state: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         """A row-order per-lane tensor of the state as the caller's

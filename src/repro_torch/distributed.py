@@ -17,6 +17,7 @@ Nothing here starts a process or opens a group at import.
 """
 from __future__ import annotations
 
+import faulthandler
 import functools
 import os
 import pickle
@@ -82,8 +83,17 @@ def rank_mesh(n: int, device_type: str):
 
 
 def mesh_ranks(mesh) -> tuple[int, ...]:
-    """The global ranks of a 1-D mesh, in lane order."""
+    """The global ranks of a mesh, in row-major (for a 1-D mesh, lane)
+    order."""
     return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+def mesh_barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` has reached this call: a barrier
+    on each of its dims' groups in turn, so ranks outside the mesh take no
+    part."""
+    for d in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(d))
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,6 +140,41 @@ def host_lanes(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# gloo for ranks that share a card
+# ---------------------------------------------------------------------------
+
+_ALL_GATHER_LIBS: dict = {}
+
+
+def route_gloo_all_gather(dispatch_key: str = "CUDA") -> None:
+    """Send the functional all-gathers (``_c10d_functional``'s, which
+    DTensor issues) of tensors of ``dispatch_key`` through the group's
+    single all-gather (``_allgather_base``), one tensor at a time.
+
+    The functional op calls the group's coalesced all-gather, and gloo's
+    crashes its rank with a segmentation fault on CUDA tensors (torch
+    2.11); its single all-gather takes them.  Ranks
+    that share a card run gloo, since NCCL refuses two ranks a device, so
+    :func:`spawn` calls this in each rank whose default group is gloo on a
+    card; a process that uses NCCL must not.  Idempotent."""
+    if dispatch_key in _ALL_GATHER_LIBS:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(x: torch.Tensor, group_size: int, group_name) -> torch.Tensor:
+        out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
+        _resolve_process_group(group_name)._allgather_base(out, x.contiguous()).wait()
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, dispatch_key)
+    lib.impl("all_gather_into_tensor_coalesced",
+             lambda xs, group_size, group_name: [gather(x, group_size, group_name) for x in xs],
+             dispatch_key)
+    _ALL_GATHER_LIBS[dispatch_key] = lib
+
+
+# ---------------------------------------------------------------------------
 # Starting ranks
 # ---------------------------------------------------------------------------
 
@@ -137,7 +182,9 @@ def host_lanes(x: torch.Tensor) -> torch.Tensor:
 def _rank_main(rank: int, n: int, init_file: str, backend: str, devices: list,
                out_dir: str, fn: Callable, args: tuple) -> None:
     """One rank: join the group, run ``fn(rank, device, *args)`` on one
-    CPU thread, write its result for the caller, leave the group."""
+    CPU thread, write its result for the caller, leave the group.  A rank
+    killed by a signal prints its Python stack to stderr first."""
+    faulthandler.enable()
     os.environ["LOCAL_RANK"] = str(rank)
     torch.set_num_threads(1)
     dev = torch.device(devices[rank])
@@ -146,6 +193,8 @@ def _rank_main(rank: int, n: int, init_file: str, backend: str, devices: list,
             raise ValueError(f"rank {rank} was given {dev}, which this host does not have "
                              f"({torch.cuda.device_count()} cards)")
         torch.cuda.set_device(dev)
+    if backend == "gloo" and dev.type == "cuda":
+        route_gloo_all_gather()
     dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
                             world_size=n)
     try:

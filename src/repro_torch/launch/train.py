@@ -1,11 +1,13 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch smollm-135m``
 (a port of the JAX package's ``launch/train.py``).
 
-Wires the training path on one device: config registry -> model -> train
-step -> deterministic data stream -> AdamW -> atomic checkpoints -> the
-resilient restart loop.  It runs on the CUDA card unless ``--device cpu``
-is given; without a card and without ``--device`` it raises.  The reduced
-config is the default; ``--full-size`` trains the published widths.
+Wires the training path: config registry -> model -> train step ->
+deterministic data stream -> AdamW -> atomic checkpoints -> the resilient
+restart loop.  It runs on the CUDA card unless ``--device cpu`` is given;
+without a card and without ``--device`` it raises.  The reduced config is
+the default; ``--full-size`` trains the published widths.  Under a mesh
+(``build_trainer(mesh=)``, one process a rank) the parameters, optimizer
+state and every batch are DTensors placed by ``launch.sharding``'s rules.
 """
 from __future__ import annotations
 
@@ -20,12 +22,15 @@ from .. import configs
 from ..configs.base import ShapeSpec
 from ..core.tree import tree_flatten
 from ..device import resolve_device
+from ..distributed import rank_device
 from ..models import get_model
 from ..train import checkpoint as ckpt_lib
 from ..train import data as data_lib
 from ..train import fault_tolerance as ft
 from ..train import optimizer as opt_lib
 from ..train import train_step as ts
+from . import sharding as sh
+from .mesh import axis_sizes, data_axes
 
 
 def build_trainer(arch: str, *, seq_len: int, global_batch: int, steps: int, lr: float,
@@ -33,12 +38,17 @@ def build_trainer(arch: str, *, seq_len: int, global_batch: int, steps: int, lr:
                   compress_grads: bool = False, device=None):
     """``(model, params, opt_state, step, stream)`` for ``arch`` on ``device``
     (default: the card).  The weights come from a seeded CPU generator, so
-    every device starts from the same ones."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded training over devices) is not ported yet (ROADMAP item 14)")
+    every device starts from the same ones.
+
+    With a ``DeviceMesh`` of dims ``("data", "model")`` or ``("pod",
+    "data", "model")`` (``launch.mesh.make_mesh``; every rank calls this),
+    the model gets the mesh's ``axis_rules``, the parameters and optimizer
+    state are placed by ``param_shardings`` / ``opt_state_shardings``, and
+    ``step`` places each batch by ``batch_shardings`` before it runs; the
+    default device is then the rank's card (``distributed.rank_device``)."""
     cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
-    model = get_model(cfg, device=resolve_device(device))
+    dev = resolve_device(device) if mesh is None else rank_device(device)
+    model = get_model(cfg, device=dev)
     shape = ShapeSpec("cli_train", seq_len, global_batch, "train")
     tcfg = ts.TrainConfig(
         microbatches=microbatches, remat=remat,
@@ -48,8 +58,27 @@ def build_trainer(arch: str, *, seq_len: int, global_batch: int, steps: int, lr:
     params = model.init(torch.Generator().manual_seed(0))
     opt_state = opt_lib.init_opt_state(params, tcfg.opt)
     step = ts.make_train_step(model, tcfg)
+    if mesh is not None:
+        params, opt_state, step = shard_trainer(model, params, opt_state, step, mesh)
     stream = data_lib.SyntheticStream(model, shape)
     return model, params, opt_state, step, stream
+
+
+def shard_trainer(model, params, opt_state, step, mesh):
+    """``(params, opt_state, step)`` on ``mesh``: the model gets the mesh's
+    ``axis_rules``, the parameters and optimizer state are placed by the
+    rules (every rank holds the same logical arrays), and the step places
+    each batch by ``batch_shardings`` before it runs."""
+    model.axis_rules = {"batch": data_axes(mesh), "tp": "model", "ep": "model",
+                        "sizes": axis_sizes(mesh), "mesh": mesh}
+    oshard = sh.opt_state_shardings(opt_state, params, mesh)
+    params = sh.distribute(params, sh.param_shardings(params, mesh))
+    opt_state = sh.distribute(opt_state, oshard)
+
+    def sharded_step(params, opt_state, batch):
+        return step(params, opt_state, sh.distribute(batch, sh.batch_shardings(batch, mesh)))
+
+    return params, opt_state, sharded_step
 
 
 def main(argv=None) -> int:

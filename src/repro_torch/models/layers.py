@@ -14,8 +14,8 @@ A port of the JAX package's ``models/layers.py`` with its conventions:
 * Positions are ``[B, S]``, or ``[B, 3, S]`` (t, h, w) under M-RoPE
   (``cfg.mrope_sections``, the vlm family).
 
-The sharding constraints of ``_project_qkv`` are left out: they do nothing
-without a mesh.  Prefill attention goes through K3 when ``use_flash`` is
+Under a mesh (``shard_ctx``), ``_project_qkv`` pins tensor parallelism to
+the head axis where the heads divide.  Prefill attention goes through K3 when ``use_flash`` is
 set on a causal layer with no ``seg_mask``, as in the reference; decode
 attention always goes through K4, on the dequantized cache when it is int8
 (the JAX package computes the same masked softmax in plain XLA there).
@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_decode import ops as decode_ops
+from . import shard_ctx
 
 Params = dict
 NEG_INF = -1e30
@@ -157,9 +158,18 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
         q = q + params["bq"].to(ct)
         k = k + params["bk"].to(ct)
         v = v + params["bv"].to(ct)
+    # Under a mesh whose tp axis does not divide the heads, the projection's
+    # columns gather first: DTensor's view cannot split a sharded dim.
+    q, k, v = (t if shard_ctx.divides("tp", n) else shard_ctx.constrain(t, ("batch", None, None))
+               for t, n in ((q, h), (k, hk), (v, hk)))
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hk, dh)
     v = v.reshape(b, s, hk, dh)
+    # Pin TP to the HEAD axis (when divisible), not Dh: a Dh-sharded
+    # contraction turns every score block into an all-reduce.
+    q = shard_ctx.constrain_strict(q, ("batch", None, "tp", None))
+    k = shard_ctx.constrain_strict(k, ("batch", None, "tp", None))
+    v = shard_ctx.constrain_strict(v, ("batch", None, "tp", None))
     if cfg.qk_norm:
         q = rms_norm_simple(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm_simple(k, params["k_norm"], cfg.norm_eps)
@@ -189,17 +199,28 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
     [B, 3, S] (M-RoPE).  Causality comes from ``cfg.causal``; ``seg_mask``
     ([B, S] bool, True where valid) masks padded keys.  With ``use_flash``
     a causal layer without ``seg_mask`` runs K3, the reference's rule."""
-    b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
-    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                           cfg.mrope_sections)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    if use_flash and cfg.causal and seg_mask is None:
-        out = flash_ops.flash_attention(q, k, v, causal=True).reshape(b, s, -1)
-    else:
-        out = _blocked_attention(q, k, v, causal=cfg.causal, seg_mask=seg_mask,
-                                 q_chunk=cfg.attn_q_chunk)
+
+    def core(q, k, v, positions, seg_mask):
+        b, s = q.shape[:2]
+        cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                               cfg.mrope_sections)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if use_flash and cfg.causal and seg_mask is None:
+            return flash_ops.flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+        return _blocked_attention(q, k, v, causal=cfg.causal, seg_mask=seg_mask,
+                                  q_chunk=cfg.attn_q_chunk)
+
+    # Under a mesh the core runs on each rank's batch rows and heads: the
+    # plain tensors it makes (RoPE tables, causal masks) have no DTensor form.
+    tp = "tp" if shard_ctx.divides("tp", cfg.num_heads, cfg.num_kv_heads) else None
+    heads = ("batch", None, tp, None)
+    rows = ("batch",) + (None,) * (positions.dim() - 1)
+    out = shard_ctx.local(core, [heads, heads, heads, rows, ("batch", None)],
+                          ("batch", None, tp), q, k, v,
+                          shard_ctx.replicate_like(positions, q),
+                          None if seg_mask is None else shard_ctx.replicate_like(seg_mask, q))
     return out @ params["wo"].to(x.dtype)
 
 
@@ -349,7 +370,7 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return params["embedding"].to(cdtype(cfg))[tokens.long()]
+    return shard_ctx.lookup(params["embedding"].to(cdtype(cfg)), tokens)
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from . import shard_ctx
 from .layers import Params, _normal, pdtype, rms_norm_simple
 
 
@@ -57,11 +58,18 @@ def _split_proj(params: Params, x: torch.Tensor, cfg: ArchConfig):
 
 def _causal_conv(xbc: torch.Tensor, params: Params, cfg: ArchConfig) -> torch.Tensor:
     """Depthwise causal conv over time. xbc: [B, S, C]."""
-    w = params["conv_w"].to(xbc.dtype)  # [W, C]
+    # F.pad has no DTensor strategy in torch 2.11: under a mesh each rank
+    # convolves its rows and channels.
+    ch = ("batch", None, "tp")
+    return shard_ctx.local(_causal_conv_local, [ch, (None, "tp"), ("tp",)], ch, xbc,
+                           params["conv_w"].to(xbc.dtype), params["conv_b"].to(xbc.dtype))
+
+
+def _causal_conv_local(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     width = w.shape[0]
     pad = F.pad(xbc, (0, 0, width - 1, 0))
     out = sum(pad[:, i:i + xbc.shape[1]] * w[i] for i in range(width))
-    return F.silu(out + params["conv_b"].to(xbc.dtype))
+    return F.silu(out + b)
 
 
 def _ssd_chunked(x: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
@@ -109,8 +117,14 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
     xs = xbc[..., :d_in].reshape(bsz, s, h, p)
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
     a = -torch.exp(params["a_log"].float())
-    y, _ = _ssd_chunked(xs, xbc[..., d_in:d_in + n], xbc[..., d_in + n:], dt, a,
-                        cfg.ssm_chunk)
+    # Under a mesh the scan runs on each rank's rows and heads: its causal
+    # mask and zero state are plain tensors with no DTensor form.
+    tp = "tp" if shard_ctx.divides("tp", h) else None
+    heads = ("batch", None, tp, None)
+    rows = ("batch", None, None)
+    y = shard_ctx.local(lambda *args: _ssd_chunked(*args, cfg.ssm_chunk)[0],
+                        [heads, rows, rows, ("batch", None, tp), (tp,)], heads,
+                        xs, xbc[..., d_in:d_in + n], xbc[..., d_in + n:], dt, a)
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xs
     y = rms_norm_simple(y.reshape(bsz, s, d_in) * F.silu(z), params["gate_norm"], cfg.norm_eps)
     return y @ params["w_out"].to(x.dtype)

@@ -65,6 +65,7 @@ from ..core.tree import tree_flatten_with_path, tree_unflatten
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
+from . import shard_ctx
 from . import xlstm as X
 
 Params = dict
@@ -87,13 +88,21 @@ def _remat(fn, mode: str):
     ``dots`` keeps only the weight products."""
     if mode == "none":
         return fn
-    if mode == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if mode == "dots":
-        return lambda *args: checkpoint(
-            fn, *args, use_reentrant=False,
-            context_fn=lambda: create_selective_checkpoint_contexts(_dots_policy))
-    raise ValueError(f"unknown remat mode {mode!r}")
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    kw = {} if mode == "full" else dict(
+        context_fn=lambda: create_selective_checkpoint_contexts(_dots_policy))
+
+    def call(*args):
+        rules = shard_ctx.current_rules()
+
+        def body(*a):  # the backward pass recomputes outside the caller's rules
+            with shard_ctx.use_rules(rules):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return call
 
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -198,6 +207,13 @@ class Model:
     cfg: ArchConfig
     use_flash: bool = False
     device: Optional[torch.device] = field(default=None)
+    # Activation sharding rules, set by the launcher under a mesh:
+    # {"batch": ("pod","data"), "tp": "model", "ep": "model",
+    #  "sizes": {axis: size}, "mesh": DeviceMesh}.  forward, loss and
+    # decode_step install them (shard_ctx), and the residual stream and
+    # logits are redistributed to keep the batch data-parallel.  None => no
+    # constraints (one device).
+    axis_rules: Optional[dict] = None
 
     def __post_init__(self):
         _check_family(self.cfg)
@@ -302,6 +318,9 @@ class Model:
             mask = torch.cat([torch.zeros((b, si), dtype=torch.float32, device=h.device),
                               torch.ones((b, st), dtype=torch.float32, device=h.device)], dim=1)
             labels = torch.cat([tokens.new_zeros((b, si)), tokens], dim=1)
+            # (the residual stream's constraint, before the text meets the
+            # patches: a vocab-sharded lookup's partial sum cannot be joined)
+            h = shard_ctx.constrain(h, ("batch", None, None))
             return torch.cat([patches, h], dim=1), batch["positions"], mask, labels
         mask = batch.get("loss_mask")
         if mask is None:
@@ -313,17 +332,20 @@ class Model:
         """Full-sequence logits ``[B, S, V]`` in the compute dtype, and the
         aux dict (``moe_aux_loss``, summed over the MoE layers; 0 for the
         other families)."""
-        h, positions, _, _ = self._embed_batch(params, batch)
-        return self._logits(params, h, positions, remat)
+        with shard_ctx.use_rules(self.axis_rules):
+            h, positions, _, _ = self._embed_batch(params, batch)
+            return self._logits(params, h, positions, remat)
 
     def _logits(self, params: Params, h: torch.Tensor, positions: torch.Tensor, remat: str):
         cfg = self.cfg
+        h = shard_ctx.constrain(h, ("batch", None, None))
         h, aux_loss = self.backbone(params, h, positions, remat)
         h = L.norm(params["final_norm"], h, cfg)
         if cfg.family == "audio":
             logits = h @ params["lm_head"].to(h.dtype)
         else:
             logits = L.unembed(params["embed"], h, cfg)
+        logits = shard_ctx.constrain(logits, ("batch", None, "tp"))
         return logits, {"moe_aux_loss": aux_loss}
 
     def backbone(self, params: Params, h: torch.Tensor, positions: torch.Tensor,
@@ -336,7 +358,7 @@ class Model:
 
         def block(h, lp):
             h, aux = attn_block(lp, h, cfg, positions, use_flash=self.use_flash)
-            return h, aux.get("moe_aux_loss")
+            return shard_ctx.constrain(h, ("batch", None, None)), aux.get("moe_aux_loss")
 
         if cfg.family in ("dense", "moe", "vlm", "audio"):
             dense_layers = params.get("dense_layers", [])
@@ -355,7 +377,7 @@ class Model:
                 if "slstm" in gp:
                     sp = gp["slstm"]
                     h = h + X.slstm_forward(sp["cell"], L.norm(sp["ln"], h, cfg), cfg)
-                return h
+                return shard_ctx.constrain(h, ("batch", None, None))
 
             body = _remat(group, remat)
             for g in range(self._n_groups):
@@ -364,13 +386,14 @@ class Model:
             every, layers = cfg.shared_attn_every, params["layers"]
 
             def mamba(h, lp):
-                return h + M.mamba2_forward(lp["mamba"], L.norm(lp["ln"], h, cfg), cfg)
+                h = h + M.mamba2_forward(lp["mamba"], L.norm(lp["ln"], h, cfg), cfg)
+                return shard_ctx.constrain(h, ("batch", None, None))
 
             def group(h, first):
                 for i in range(first, first + every):
                     h = mamba(h, _index(layers, i))
-                return attn_block(params["shared"], h, cfg, positions,
-                                  use_flash=self.use_flash)[0]
+                h = attn_block(params["shared"], h, cfg, positions, use_flash=self.use_flash)[0]
+                return shard_ctx.constrain(h, ("batch", None, None))
 
             group, mamba = _remat(group, remat), _remat(mamba, remat)
             for g in range(self._n_groups):
@@ -388,18 +411,28 @@ class Model:
         and any position whose successor is masked drop out), of each
         position's own label for an encoder.  Returns (loss, {"ce",
         "moe_aux_loss"})."""
+        with shard_ctx.use_rules(self.axis_rules):
+            return self._loss(params, batch, remat)
+
+    def _loss(self, params: Params, batch: dict, remat: str) -> tuple[torch.Tensor, dict]:
         h, positions, mask, labels = self._embed_batch(params, batch)
         logits, aux = self._logits(params, h, positions, remat)
-        if self.cfg.is_encoder:
-            tgt, m = labels.long(), mask
-        else:
-            tgt = torch.roll(labels, -1, dims=1).long()
-            m = mask * torch.roll(mask, -1, dims=1)
+        encoder = self.cfg.is_encoder
+
+        def targets(labels, mask):
+            if encoder:
+                return labels.long(), mask
+            tgt, m = torch.roll(labels, -1, dims=1).long(), mask * torch.roll(mask, -1, dims=1)
             m[:, -1] = 0.0
-        logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, tgt[..., None], dim=-1)[..., 0]
-        ce = ((logz - gold) * m).sum() / torch.clamp(m.sum(), min=1.0)
+            return tgt, m
+
+        # roll has no DTensor strategy: each rank shifts its batch rows.
+        rows = ("batch", None)
+        tgt, m = shard_ctx.local(targets, [rows, rows], [rows, rows],
+                                 shard_ctx.replicate_like(labels, logits),
+                                 shard_ctx.replicate_like(mask, logits))
+        nll = shard_ctx.token_nll(logits, tgt) * m
+        ce = nll.sum() / torch.clamp(m.sum(), min=1.0)
         return ce + 0.01 * aux["moe_aux_loss"], {"ce": ce, **aux}
 
     # ------------------------------------------------------------- serve
@@ -440,10 +473,16 @@ class Model:
                     pos: torch.Tensor) -> tuple[torch.Tensor, Params]:
         """One token per sequence. tokens [B] int32, pos [B] int32.
         Returns (logits [B, V] float32, new cache); ``cache`` is not written."""
+        with shard_ctx.use_rules(self.axis_rules):
+            return self._decode_step(params, cache, tokens, pos)
+
+    def _decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
+                     pos: torch.Tensor) -> tuple[torch.Tensor, Params]:
         cfg = self.cfg
         if cfg.family == "audio":
             raise _no_decode(cfg)
         h = L.embed(params["embed"], tokens[:, None], cfg)  # [B,1,d]
+        h = shard_ctx.constrain(h, ("batch", None, None))
         if cfg.family in ("dense", "moe", "vlm"):
             new = {}
             if cfg.family == "moe":
@@ -494,6 +533,7 @@ class Model:
             new = {"mamba": _stack(mamba), "shared_kv": _stack(sites)}
         h = L.norm(params["final_norm"], h, cfg)
         logits = L.unembed(params["embed"], h, cfg)[:, 0]
+        logits = shard_ctx.constrain(logits, ("batch", "tp"))
         return logits.float(), new
 
     # ------------------------------------------------------------- specs

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from . import shard_ctx
 from .layers import Params, _normal, pdtype, rms_norm_simple
 
 M_FLOOR = -1e30  # the stabilizer's value before any input
@@ -36,6 +37,14 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, then SiLU.  x: [B, S, C]."""
+    # F.pad has no DTensor strategy in torch 2.11: under a mesh each rank
+    # convolves its rows and channels.
+    ch = ("batch", None, "tp")
+    return shard_ctx.local(_causal_conv_local, [ch, (None, "tp"), ("tp",)], ch, x, w, b)
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     return F.silu(sum(pad[:, i:i + x.shape[1]] * w[i] for i in range(width)) + b)
@@ -141,7 +150,14 @@ def mlstm_forward(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Ten
     d_in, _, _ = mlstm_dims(cfg)
     bsz, s, _ = x.shape
     q, k, v, z_part, log_i, log_f, _ = _mlstm_qkv_gates(params, x, cfg)
-    h_out, _ = _mlstm_chunked(q, k, v, log_i, log_f, cfg.ssm_chunk)
+    # Under a mesh the scan runs on each rank's rows and heads: its causal
+    # mask and initial state are plain tensors with no DTensor form.
+    h = q.shape[2]
+    tp = "tp" if shard_ctx.divides("tp", h) else None
+    heads, gates = ("batch", None, tp, None), ("batch", None, tp)
+    h_out = shard_ctx.local(lambda *args: _mlstm_chunked(*args, cfg.ssm_chunk)[0],
+                            [heads, heads, heads, gates, gates], heads,
+                            q, k, v, log_i, log_f)
     y = rms_norm_simple(h_out.reshape(bsz, s, d_in), params["head_norm"], cfg.norm_eps)
     return (y * F.silu(z_part)) @ params["w_down"].to(x.dtype)
 
@@ -255,12 +271,22 @@ def _slstm_out(params: Params, hid: torch.Tensor, cfg: ArchConfig, dtype) -> tor
 def slstm_forward(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     bsz, s, _ = x.shape
     x_conv = _causal_conv(x, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
-    state = init_slstm_state(cfg, bsz, x.device)
-    hs = []
-    for t in range(s):
-        state, hid = _slstm_cell(params, cfg, x[:, t], x_conv[:, t], state)
-        hs.append(hid)
-    return _slstm_out(params, torch.stack(hs, dim=1), cfg, x.dtype)
+
+    def scan(x, x_conv, w_gates, b_gates, r_gates):
+        cell = {"w_gates": w_gates, "b_gates": b_gates, "r_gates": r_gates}
+        state = init_slstm_state(cfg, x.shape[0], x.device)
+        hs = []
+        for t in range(s):
+            state, hid = _slstm_cell(cell, cfg, x[:, t], x_conv[:, t], state)
+            hs.append(hid)
+        return torch.stack(hs, dim=1)
+
+    # Under a mesh the recurrence runs on each rank's rows with whole
+    # weights: its state starts as plain tensors with no DTensor form.
+    rows = ("batch", None, None)
+    hid = shard_ctx.local(scan, [rows, rows, (None, None), (None,), (None,) * 4], rows,
+                          x, x_conv, params["w_gates"], params["b_gates"], params["r_gates"])
+    return _slstm_out(params, hid, cfg, x.dtype)
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, device):

@@ -52,8 +52,8 @@ and parameters) and makes the same calls with the same requests; results
 come back whole on every rank.  In ``serve()`` every decision that reads
 the clock is taken from the first rank's clock, broadcast at each read,
 and the lane statuses are all-gathered each segment, so every rank admits,
-retires and parks alike.  Snapshots (``checkpoint_dir``, ``resume``) are
-not sharded yet (ROADMAP item 14).
+retires and parks alike.  Snapshots gather the lanes to the unsharded
+layout, so a snapshot resumes on any mesh size or on one device.
 """
 from __future__ import annotations
 
@@ -63,6 +63,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from .. import distributed
@@ -508,7 +509,10 @@ class GenerationEngine:
         requests; the clock is the first rank's (``now_fn``'s or the wall
         clock's reading there, broadcast at each read), so every rank takes
         the same decisions, and every rank returns every completion.
-        Snapshots under a mesh raise ``NotImplementedError``.
+        Snapshots under a mesh gather the lanes to the unsharded layout
+        (``ProgramCounterVM.gather_state``) and the first rank writes them,
+        so a snapshot resumes on any mesh size or on one device; on resume
+        each rank takes its lanes.
         """
         cfg = self.cfg
         z = cfg.lanes
@@ -523,10 +527,6 @@ class GenerationEngine:
                     f"request {r.rid}: prompt length {len(r.prompt)} "
                     f"exceeds max_prompt_len={cfg.max_prompt_len}"
                 )
-        if cfg.mesh is not None and (resume or cfg.checkpoint_dir is not None):
-            raise NotImplementedError(
-                "serve() snapshots under a mesh (checkpoint_dir, resume=True) need "
-                "resharded checkpoints, which are not ported yet (ROADMAP item 14)")
         if resume and cfg.checkpoint_dir is None:
             raise ValueError("serve(resume=True) needs cfg.checkpoint_dir")
 
@@ -575,7 +575,11 @@ class GenerationEngine:
         latest = ckpt.latest_step() if resume else None
         if latest is not None:
             ckpt_step = latest
-            state = ckpt.restore(latest, like=state)
+            if mesh is None:
+                state = ckpt.restore(latest, like=state)
+            else:
+                whole = ckpt.restore(latest, like=st.vm.gather_state(state))
+                state = st.vm.shard_state(whole)
             meta = ckpt.manifest(latest).get("extra", {})
             done_rids = set(meta.get("done_rids", []))
             by_rid = {r.rid: r for r in requests}
@@ -649,11 +653,19 @@ class GenerationEngine:
         def _save_checkpoint() -> None:
             nonlocal ckpt_step
             ckpt_step += 1
-            ckpt.save(ckpt_step, state, extra={
+            extra = {
                 "done_rids": sorted(done_rids),
                 "active": {str(lane): {"rid": e["req"].rid, "attempt": e["attempt"]}
                            for lane, e in active.items()},
-            })
+            }
+            if mesh is None:
+                ckpt.save(ckpt_step, state, extra=extra)
+            else:
+                # Every rank gathers; the first writes; none reads it early.
+                whole = st.vm.gather_state(state)
+                if dist.get_rank() == distributed.mesh_ranks(mesh)[0]:
+                    ckpt.save(ckpt_step, whole, extra=extra)
+                dist.barrier(group=distributed.host_group(mesh))
             stats.checkpoints += 1
 
         while pend or waiting or active:

@@ -21,8 +21,12 @@ Layout::
 * **Async**: ``save`` copies the tree to the host before it returns and
   writes it in a background thread; the next save joins the previous.
 * Restore places each leaf on the device of the matching leaf of
-  ``like`` (card or CPU): the single-device counterpart of the
-  reference's resharding restore.
+  ``like`` (card or CPU), or as a DTensor by ``shardings`` (or by a DTensor
+  ``like`` leaf's placements): the reference's resharding restore, so a
+  checkpoint moves between meshes and one device.
+* **Sharded trees**: a tree of DTensors saves its logical arrays in the
+  same format, unsharded: every rank of their mesh gathers, the mesh's
+  first rank writes, and a barrier over the mesh follows the rename.
 """
 from __future__ import annotations
 
@@ -35,8 +39,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..core.tree import tree_flatten_with_path, tree_unflatten
+from .. import distributed
+from ..core.tree import tree_flatten, tree_flatten_with_path, tree_unflatten
 
 PyTree = Any
 _SEP = "/"
@@ -47,7 +53,15 @@ def _key(path: tuple) -> str:
     return _SEP.join(path)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()  # a collective: every rank gathers
     if isinstance(leaf, torch.Tensor):
         # A copy even on the CPU: the caller may write the tensor in place
         # (the serving VM's state) while an async save is writing it.
@@ -87,10 +101,21 @@ def _as_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _restore_leaf(key: str, arr: np.ndarray, like):
+def _restore_leaf(key: str, arr: np.ndarray, like, sharding=None):
     shape = tuple(like.shape) if hasattr(like, "shape") else ()
     if arr.shape != shape:
         raise ValueError(f"{key}: checkpoint shape {arr.shape} != {shape}")
+    mesh = None
+    if sharding is not None:
+        mesh, placements = sharding.mesh, sharding.placements
+    elif _is_dtensor(like):
+        mesh, placements = like.device_mesh, like.placements
+    if mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        # Every rank reads the same file, so each keeps its own shard.
+        return distribute_tensor(_as_tensor(arr).to(dtype=like.dtype), mesh, placements,
+                                 src_data_rank=None)
     if isinstance(like, torch.Tensor):
         return _as_tensor(arr).to(dtype=like.dtype).to(like.device)
     if isinstance(like, np.ndarray):
@@ -109,9 +134,21 @@ class Checkpointer:
     # ------------------------------------------------------------- save
 
     def save(self, step: int, tree: PyTree, extra: Optional[dict] = None) -> None:
+        """Write ``tree`` as the checkpoint of ``step``.  A tree with DTensor
+        leaves is a collective over their one mesh: every rank of it calls
+        ``save``, its first rank writes synchronously, and every rank
+        returns once it is published."""
+        meshes = {x.device_mesh for x in tree_flatten(tree)[0] if _is_dtensor(x)}
+        if len(meshes) > 1:
+            raise ValueError(f"a saved tree's DTensors lie on one mesh, got {len(meshes)}")
         flat = flatten_with_paths(tree)  # the host copy happens here, synchronously
         self.wait()  # join any in-flight save
-        if self.async_save:
+        if meshes:
+            (mesh,) = meshes
+            if dist.get_rank() == distributed.mesh_ranks(mesh)[0]:
+                self._write(step, flat, extra or {})
+            distributed.mesh_barrier(mesh)
+        elif self.async_save:
             self._thread = threading.Thread(target=self._write, args=(step, flat, extra or {}))
             self._thread.start()
         else:
@@ -184,21 +221,24 @@ class Checkpointer:
 
     def restore(self, step: int, like: PyTree, shardings: Optional[PyTree] = None) -> PyTree:
         """The checkpoint of ``step`` in the structure of ``like``: each leaf
-        in the dtype of ``like``'s and on its device."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) (resharding onto a device mesh) is not ported yet "
-                "(ROADMAP item 14); restore places each leaf on like's device")
+        in the dtype of ``like``'s, placed by the matching
+        ``launch.sharding.NamedSharding`` of ``shardings`` (a tree like
+        ``like``'s) as a DTensor, else as its ``like`` leaf is (a DTensor's
+        placements, or a tensor's device): an elastic restart onto another
+        mesh, or onto one device."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with np.load(os.path.join(path, "arrays.npz")) as npz:
             flat = dict(npz)
         leaves, treedef = tree_flatten_with_path(like)
+        shards = [None] * len(leaves) if shardings is None else tree_flatten(shardings)[0]
+        if len(shards) != len(leaves):
+            raise ValueError(f"{len(shards)} shardings for {len(leaves)} leaves")
         out = []
-        for pth, leaf in leaves:
+        for (pth, leaf), sharding in zip(leaves, shards):
             key = _key(pth)
             if key not in flat:
                 raise KeyError(f"checkpoint missing {key!r}")
-            out.append(_restore_leaf(key, flat[key], leaf))
+            out.append(_restore_leaf(key, flat[key], leaf, sharding))
         return tree_unflatten(treedef, out)
 
     def manifest(self, step: int) -> dict:

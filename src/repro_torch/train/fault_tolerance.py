@@ -6,8 +6,8 @@ detection and moving state between devices (a port of the JAX package's
 failure of a step and replays from there; the deterministic data stream
 makes the replay exact.  :class:`StragglerPolicy` flags slow steps; the
 open-loop serving loop feeds it each segment's latency too
-(``GenerationEngine.serve(straggler=)``).  :func:`reshard` moves a tree to
-one device; sharding over a device mesh waits for ROADMAP item 14.
+(``GenerationEngine.serve(straggler=)``).  :func:`reshard` moves a tree
+onto a mesh's shardings or onto one device (an elastic restart).
 """
 from __future__ import annotations
 
@@ -61,10 +61,24 @@ class StragglerPolicy:
 # ---------------------------------------------------------------------------
 
 
-def reshard(tree: PyTree, device) -> PyTree:
-    """Every tensor leaf of ``tree`` on ``device`` (a restart on another
-    device; values unchanged)."""
-    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)
+def reshard(tree: PyTree, shardings) -> PyTree:
+    """``tree`` moved onto new shardings (a mesh change on restart; values
+    unchanged): ``shardings`` is a tree of ``launch.sharding.NamedSharding``
+    like ``tree``'s, each leaf placed (or redistributed) as a DTensor by
+    its own, or one device, where every leaf goes whole (a DTensor is
+    gathered: every rank of its mesh calls this)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.sharding import distribute
+
+    if isinstance(shardings, (str, torch.device)):
+        def whole(x):
+            if isinstance(x, DTensor):
+                x = x.full_tensor()
+            return x.to(shardings) if isinstance(x, torch.Tensor) else x
+
+        return tree_map(whole, tree)
+    return distribute(tree, shardings)
 
 
 # ---------------------------------------------------------------------------

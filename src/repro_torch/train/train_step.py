@@ -9,6 +9,11 @@ gradient of a cast is a cast, so the two agree.  Microbatches run one
 after another with one live activation set, and their gradients sum in
 float32.  Metrics come back as tensors on the device: the caller decides
 when to read them.
+
+Under a mesh (``launch.train.build_trainer(mesh=)``) the parameters,
+optimizer state and batch are DTensors: the same code runs on them, each
+gradient is placed as its parameter is, and the metrics come back as the
+plain replicated values.
 """
 from __future__ import annotations
 
@@ -58,7 +63,25 @@ def _value_and_grad(loss_fn: Callable, params: PyTree, batch: dict):
         loss, aux = loss_fn(tree_unflatten(treedef, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
     aux = {k: v.detach() for k, v in aux.items()}
-    return (loss.detach(), aux), tree_unflatten(treedef, list(grads))
+    return (loss.detach(), aux), tree_unflatten(treedef, [
+        _placed_as(g, x) for g, x in zip(grads, leaves)])
+
+
+def _placed_as(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient on its parameter's placements (a partial sum is
+    reduced there); a plain one as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(x.placements):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
+
+
+def _plain(x):
+    """A replicated DTensor metric as the plain tensor every rank holds."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def make_train_step(model: Model, cfg: TrainConfig) -> Callable:
@@ -83,7 +106,8 @@ def make_train_step(model: Model, cfg: TrainConfig) -> Callable:
             (loss, aux), grads = _value_and_grad(loss_fn, params, batch)
         new_params, opt_state, metrics = opt.apply_updates(params_master, grads, opt_state,
                                                            cfg.opt)
-        return new_params, opt_state, dict(metrics, loss=loss, **aux)
+        metrics = dict(metrics, loss=loss, **aux)
+        return new_params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
     return step
 

@@ -8,7 +8,7 @@ same virtual clock: the completions are equal in ``rid``, ``tokens``,
 and finish times, and the stats' counters agree.  The cases are
 tests/test_serve.py's open-loop and resilience cases, crash-resume
 included, and lane sharding over two gloo ranks
-(``TestShardedServe``; snapshots under a mesh raise).  ``generate`` runs on
+(``TestShardedServe``, snapshots and resumes under the lane mesh included).  ``generate`` runs on
 ``local`` and ``local_eager`` with the JAX engine's tokens.  Temperature
 sampling draws the JAX package's tokens on fixed seeds; its Gumbel noise
 goes through PyTorch's ``log``, within an ulp of XLA's, so a token may
@@ -287,17 +287,52 @@ class TestShardedServe:
                 for f, v in r["stats"].items():
                     assert v == pytest.approx(getattr(stats, f)), f
 
-    def test_snapshots_under_a_mesh_wait_for_item_14(self, lm, tmp_path):
-        """Resharded checkpoints come with model sharding: resume=True and
-        checkpoint_dir under a mesh raise, before any rank is needed."""
-        _, _, tm, tparams = lm
-        req = [t_engine.Request(rid=0, prompt=np.ones((2,), np.int32))]
-        for extra, kw in (({}, dict(resume=True)),
-                          (dict(checkpoint_dir=str(tmp_path)), {})):
-            eng = t_engine.GenerationEngine(tm, tparams, t_engine.EngineConfig(
-                **self.KW, mesh=2, **extra))
-            with pytest.raises(NotImplementedError, match="item 14"):
-                eng.serve(req, **kw)
+    def test_snapshots_under_a_mesh_wait_for_item_14(self, lm, tmp_path_factory):
+        """Snapshots under the lane mesh: a serve over two ranks killed at
+        its next-to-last completion (after a snapshot every segment) resumes
+        on the mesh with the JAX engine's ``mesh=2`` resume, token for
+        token, and a resume after completion serves nothing.  The snapshot
+        is in the unsharded format: it resumes on one device, and one
+        device's snapshot resumes on the mesh, each with the tokens of an
+        uninterrupted run."""
+        jm, params, _, _ = lm
+        reqs = _reqs(5, seed=7)
+        ranks = distributed.spawn(
+            workers.engine_resume, 2, backend="gloo", devices=["cpu"] * 2, timeout=300,
+            args=(jax.tree.map(np.asarray, params), self.KW, reqs,
+                  str(tmp_path_factory.mktemp("snapshots"))),
+            rendezvous_dir=tmp_path_factory.mktemp("ranks"))
+
+        def jax_engine(d=None):
+            return j_engine.GenerationEngine(jm, params, j_engine.EngineConfig(
+                **self.KW, mesh=2, segment_steps=4, checkpoint_every_segments=1,
+                checkpoint_dir=None if d is None else str(d)))
+
+        jreqs = [j_engine.Request(rid=r, prompt=p, arrival=a) for r, p, a in reqs]
+        clean = {c.rid: c.tokens for c in jax_engine().serve(jreqs)[0]}
+        seen = []
+
+        def boom(c):
+            seen.append(c.rid)
+            if len(seen) == len(reqs) - 1:
+                raise RuntimeError("crash")
+
+        d = tmp_path_factory.mktemp("jax_snapshots")
+        with pytest.raises(RuntimeError, match="crash"):
+            jax_engine(d).serve(jreqs, on_finish=boom)
+        want = {c.rid: c.tokens for c in jax_engine(d).serve(jreqs, resume=True)[0]}
+        assert want and len(want) < len(reqs)
+        for r in ranks:
+            assert r["seen"] == seen and r["ok"] and r["checkpoints"] >= 1
+            assert r["mesh"].keys() == want.keys() and r["again"] == 0
+            for rid, t in want.items():
+                np.testing.assert_array_equal(r["mesh"][rid], t)
+            assert set(r["seen"]) | set(r["mesh"]) == set(clean)
+            for rid, t in r["from_one_device"].items():
+                np.testing.assert_array_equal(t, clean[rid])
+        for rid, t in ranks[0]["to_one_device"].items():
+            np.testing.assert_array_equal(t, clean[rid])
+        assert ranks[0]["to_one_device"].keys() == want.keys()
 
 
 class TestServeResilience:

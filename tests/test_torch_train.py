@@ -594,15 +594,43 @@ def test_bf16_and_key_leaves_round_trip_across_packages(tmp_path):
     assert back["n"] == 7 and back["host"].tolist() == [0, 1, 2]
 
 
-def test_restore_checks_shapes_and_refuses_shardings(tmp_path):
-    c = ckpt_lib.Checkpointer(str(tmp_path), async_save=False)
-    c.save(1, {"w": torch.zeros(3)})
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A ``(data 1, model 1)`` DeviceMesh in a one-rank gloo group of this
+    process, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        yield mesh_lib.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    finally:
+        mesh_lib._make_mesh.cache_clear()
+        dist.destroy_process_group()
+
+
+def test_restore_checks_shapes_and_refuses_shardings(tmp_path, one_rank_mesh):
+    """Shapes and keys are checked; ``shardings=`` places each leaf as a
+    DTensor by its NamedSharding (sharded saving and restoring over ranks:
+    tests/test_torch_model_sharding.py)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as sh
+
+    c = ckpt_lib.Checkpointer(str(tmp_path / "ck"), async_save=False)
+    w = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    c.save(1, {"w": w})
     with pytest.raises(ValueError, match="shape"):
         c.restore(1, like={"w": torch.zeros(4)})
     with pytest.raises(KeyError, match="missing"):
         c.restore(1, like={"v": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        c.restore(1, like={"w": torch.zeros(3)}, shardings={"w": None})
+    got = c.restore(1, like={"w": torch.zeros(2, 3)},
+                    shardings={"w": sh.NamedSharding(one_rank_mesh, ("data", "model"))})
+    assert isinstance(got["w"], DTensor) and torch.equal(got["w"].full_tensor(), w)
+    c.save(2, got)  # a DTensor tree saves its logical arrays
+    assert torch.equal(c.restore(2, like={"w": torch.zeros(2, 3)})["w"], w)
 
 
 # ---------------------------------------------------------------------------
@@ -728,8 +756,36 @@ def test_launcher_matches_the_jax_launcher(tmp_path):
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), **LOSS_TOL)
     np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
     assert model.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        launch_train.build_trainer(ARCH, mesh=object(), device="cpu", **kw)
+
+
+def test_launcher_trains_on_a_mesh(one_rank_mesh):
+    """``build_trainer(mesh=)`` places the parameters and optimizer state
+    as DTensors by the rules and each batch by ``batch_shardings``; on a
+    one-rank mesh its step (two microbatches, full remat) is the unsharded
+    step's (four ranks: tests/test_torch_model_sharding.py)."""
+    from torch.distributed.tensor import DTensor
+
+    kw = dict(seq_len=32, global_batch=4, steps=40, lr=3e-3, microbatches=2, remat="full",
+              smoke=True, device="cpu")
+    model, p, o, step, stream = launch_train.build_trainer(ARCH, **kw)
+    smodel, sp, so, sstep, _ = launch_train.build_trainer(ARCH, mesh=one_rank_mesh, **kw)
+    assert smodel.axis_rules["mesh"] is one_rank_mesh and model.axis_rules is None
+    assert all(isinstance(x, DTensor) for x in tree_flatten((sp, so))[0])
+    _, _, m = step(p, o, stream.batch(0))
+    new_p, _, sm = sstep(sp, so, stream.batch(0))
+    np.testing.assert_allclose(float(sm["loss"]), float(m["loss"]), **LOSS_TOL)
+    assert isinstance(new_p["layers"]["attn"]["wq"], DTensor)
+    # int8 gradient compression with error feedback runs on DTensor trees too
+    kw.update(microbatches=1, remat="none", compress_grads=True)
+    _, p, o, step, _ = launch_train.build_trainer(ARCH, **kw)
+    _, sp, so, sstep, _ = launch_train.build_trainer(ARCH, mesh=one_rank_mesh, **kw)
+    new_p, new_o, m = step(p, o, stream.batch(0))
+    snew_p, snew_o, sm = sstep(sp, so, stream.batch(0))
+    for k in ("loss", "compress_error_norm"):
+        np.testing.assert_allclose(float(sm[k]), float(m[k]), rtol=1e-5)
+    np.testing.assert_allclose(snew_o["error"]["embed"]["embedding"].full_tensor().numpy(),
+                               new_o["error"]["embed"]["embedding"].numpy(), rtol=1e-5,
+                               atol=1e-7)
 
 
 def test_launcher_defaults_to_the_card(monkeypatch, tmp_path):

@@ -387,3 +387,60 @@ def engine_serve(rank: int, device: torch.device, np_params, kw, reqs, segment_s
         stats={f: getattr(stats, f) for f in ("segments", "vm_steps", "completions",
                                               "generated_tokens", "ok", "occupancy")},
         num_devices=eng.last_serve_result.sched.num_devices)
+
+
+class _Crash(Exception):
+    pass
+
+
+def engine_resume(rank: int, device: torch.device, np_params, kw, reqs, ckpt_dir: str) -> dict:
+    """Snapshots under the lane mesh: a ``serve`` stopped at its
+    next-to-last completion resumes on the mesh; its snapshot resumes on one
+    device too (the first rank), and a snapshot of one device resumes on
+    the mesh.  Returns each resume's tokens by request id."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.serve.engine import Request
+
+    base = dict(kw, segment_steps=4, checkpoint_every_segments=1)
+
+    def engine(name, mesh):
+        return _smoke_engine(device, np_params,
+                             dict(base, mesh=mesh, checkpoint_dir=f"{ckpt_dir}/{name}"))
+
+    requests = [Request(rid=r, prompt=p, arrival=a) for r, p, a in reqs]
+
+    def crash(eng) -> list:
+        seen = []
+
+        def boom(c):
+            seen.append(c.rid)
+            if len(seen) == len(requests) - 1:
+                raise _Crash
+
+        try:
+            eng.serve(requests, on_finish=boom)
+        except _Crash:
+            return seen
+        raise AssertionError("the serve did not crash")
+
+    def tokens(comps) -> dict:
+        return {c.rid: c.tokens for c in comps}
+
+    out = dict(rank=rank, seen=crash(engine("mesh", 2)))
+    if rank == 0:
+        shutil.copytree(f"{ckpt_dir}/mesh", f"{ckpt_dir}/mesh_copy")
+    dist.barrier()
+    comps, stats = engine("mesh", 2).serve(requests, resume=True)
+    out.update(mesh=tokens(comps), checkpoints=stats.checkpoints,
+               ok=all(c.status == "ok" for c in comps))
+    again, _ = engine("mesh", 2).serve(requests, resume=True)
+    out["again"] = len(again)
+    if rank == 0:
+        out["to_one_device"] = tokens(engine("mesh_copy", None).serve(requests, resume=True)[0])
+        out["one_device_seen"] = crash(engine("one", None))
+    dist.barrier()
+    out["from_one_device"] = tokens(engine("one", 2).serve(requests, resume=True)[0])
+    return out
