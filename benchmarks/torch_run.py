@@ -9,6 +9,10 @@ cpu`` for a CPU run) and strictly validates every record it wrote.
   fig6   batch utilization across recursion (paper Fig. 6;
          ``benchmarks/torch_fig6.py``)
   serve  the VM-scheduled generation engine (``benchmarks/torch_serve_bench.py``)
+  roofline  per-(arch x shape) terms on both production meshes (32x8 and
+         2x32x8) from the dry-run's records (``benchmarks/torch_roofline.py``;
+         ``--dryrun-dir``, default ``build/dryrun``, where
+         ``tools/torch_run_matrix.py`` writes them); it renders what is there
 
 Records go to ``BENCH_fig5_torch.json``, ``BENCH_fig6_torch.json`` and
 ``BENCH_serve_torch.json`` at the repository root unless ``--json-out``,
@@ -16,9 +20,8 @@ Records go to ``BENCH_fig5_torch.json``, ``BENCH_fig6_torch.json`` and
 package's records, ``BENCH_fig5.json`` and ``BENCH_serve.json``, are
 refused.  ``--mesh`` goes to fig5 (its pc arms, a batch a rank) and to
 serve (the largest rank count), as in the JAX driver; each starts its own
-ranks.  Refused as well: ``--only roofline`` (the dry-run artifacts the
-roofline reads come with ROADMAP item 14), and ``--use-kernel off`` (the
-port runs the K1/K2 stack kernels on the card always).
+ranks.  Refused as well: ``--use-kernel off`` (the port runs the K1/K2
+stack kernels on the card always).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import sys
 import time
 from pathlib import Path
 
-from . import torch_fig5, torch_fig6, torch_serve_bench
+from . import torch_fig5, torch_fig6, torch_roofline, torch_serve_bench
 from .common import validate_bench_json
 
 #: Default records land at the repository root whatever the working
@@ -35,14 +38,11 @@ from .common import validate_bench_json
 REPO_ROOT = Path(__file__).resolve().parent.parent
 #: The JAX package's records, which this driver never writes.
 JAX_RECORDS = ("BENCH_fig5.json", "BENCH_serve.json")
-BENCHES = ("fig5", "fig6", "serve")
+BENCHES = ("fig5", "fig6", "serve", "roofline")
 
 
 def _refuse(args) -> None:
     only = set(args.only.split(",")) if args.only else set(BENCHES)
-    if "roofline" in only:
-        raise SystemExit("--only roofline is not ported yet: it reads dry-run artifacts, "
-                         "which come with ROADMAP.md queue 1, item 14")
     unknown = only - set(BENCHES)
     if unknown:
         raise SystemExit(f"unknown benchmarks {sorted(unknown)}; have {list(BENCHES)}")
@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--full", action="store_true")
-    ap.add_argument("--only", default=None, help="comma list: fig5,fig6,serve")
+    ap.add_argument("--only", default=None, help="comma list: fig5,fig6,serve,roofline")
     ap.add_argument("--batches", default=None,
                     help="comma-separated batch sizes for fig5/fig6")
     ap.add_argument("--mesh", default=None,
@@ -87,6 +87,8 @@ def main(argv=None) -> int:
                     help="path of the serve record")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for a CPU run)")
+    ap.add_argument("--dryrun-dir", default=torch_roofline.ARTIFACT_DIR,
+                    help="directory of the dry-run records the roofline reads")
     args = ap.parse_args(argv)
     _refuse(args)
     only = set(args.only.split(",")) if args.only else set(BENCHES)
@@ -125,6 +127,10 @@ def main(argv=None) -> int:
             serve_args += ["--mesh", max(counts, key=int)]
         torch_serve_bench.main(serve_args + ["--json", args.serve_json_out])
         emitted.append(args.serve_json_out)
+    if "roofline" in only:
+        for mesh in torch_roofline.MESHES:
+            print()
+            torch_roofline.main(["--dir", args.dryrun_dir, "--mesh", mesh])
     # Every record this run wrote must parse as strict JSON (no bare NaN or
     # Infinity); a stale record from another run is not read.
     if emitted:

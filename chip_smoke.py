@@ -93,7 +93,7 @@ non-zero (nothing is caught):
     first serving (tokens/s, completions by status, p50/p99 latency of
     the run's own completions, segments, dispatches, lane occupancy, lanes
     refilled, K4 launches held to 30 x decode executions), and a profiled
-    burst of 16 for the busy share (the request counts cut for the time
+    burst of 8 for the busy share (the request counts cut for the time
     limit);
 13. verify, trace, PGO: ``verify=True`` lowering of phase 6's NUTS and of
     the engine's program on the card (fake typing, K4 through its shape
@@ -140,12 +140,12 @@ non-zero (nothing is caught):
     xLSTM all 24); bf16 serving at full depth, 16 lanes x 1 request a
     lane (cut from 2 for the smoke's time limit; 32 a lane
     would add about 10 minutes to the three models' serving), prompts of 2 to 32
-    tokens, 32 new tokens, a 128-token cache (DeepSeek's weights in bf16,
+    tokens, 16 new tokens (cut from 32), a 128-token cache (DeepSeek's weights in bf16,
     the others cast once from float32): warm-up, measured (generated
     tokens/s, dispatches, ms a dispatch, K4 launches held to attention
     sites x decode executions, peak memory) and profiled (busy share);
     DeepSeek's mean ``moe_dropped_frac`` at the 16-lane decode batch,
-    read outside those runs; the bf16 prefill forward at 2 x 2,048 tokens
+    read outside those runs; the bf16 prefill forward at 2 x 1,024 tokens
     (K3 launches held to the attention sites, logits against the plain
     attention printed; xLSTM without a kernel); then K3 and K4 at each
     family's own attention shapes (DeepSeek's Dh 128, Zamba2's Dh 112),
@@ -155,7 +155,7 @@ non-zero (nothing is caught):
     engine at 4 of its 28 layers (4 lanes x 2 requests) equal token for
     token to the sequential oracle with the compute-dtype and with the
     int8 KV cache; bf16 serving at full depth as in phase 16 (16 lanes x 1
-    request a lane, the same reduction), once with each cache (K4
+    request a lane) but of 32 new tokens, once with each cache (K4
     launches held to 28 x decode executions in both), the two runs'
     token agreement printed; the multimodal prefill at 2 x 2,048 (256
     patch embeddings on a 16 x 16 grid at t = 0, 1,792 text tokens after
@@ -231,6 +231,23 @@ non-zero (nothing is caught):
     same loss), and DeepSeek-MoE in float32 through the expert-parallel
     path (once a step on every rank) held likewise, with the tokens whose
     expert set differs from the unsharded run's in the first step counted.
+
+21. the dry-run against the card: ``python -m repro_torch.launch.dryrun
+    --arch smollm-135m --shape decode_32k`` and the same with
+    ``--multi-pod`` as subprocesses, started beside phase 2's build (CPU
+    work only) and read here (the production meshes, 32 x 8 and
+    2 x 32 x 8, on a fake process group and meta tensors: each must exit
+    0 with 256 / 512 chips, its mesh, a bottleneck and a positive peak);
+    phase 8's prefill (SmolLM-135M, bf16, 8 x 2,048, K3) counted by the op
+    counter (``launch/op_cost.py``) on meta tensors and then run on the
+    card under the same counter: FLOPs, bytes and K3's records equal
+    between the two, K3's records equal to its 30 launches, the counted
+    peak beside ``torch.cuda.max_memory_allocated`` over the step (held to
+    ``DRYRUN_PEAK_RATIO``) and ``t_compute`` / ``t_memory`` (the dry-run's
+    H100 constants) beside the measured ms; phase 6's NUTS through
+    ``fn.lower(...)``: ``compile()`` and ``cost_analysis()``, then
+    ``ProgramCounterVM.step_fn`` driven to the end, bit-exact with phase
+    6's run (outputs, ``steps``, ``block_exec``, K1/K2 launches).
 
 The output ends with three lines: a JSON object describing every kernel,
 ``nvidia-smi``'s name and power limit of the card, and
@@ -1443,8 +1460,8 @@ def phase_serve(torch) -> tuple[int, dict]:
     overload["arrivals"] = arrivals.tolist()
     first = burst[:SERVE_PROFILED]
 
-    # The profiled burst: the first 16 requests (processing the profile of
-    # 128, ~595k kernels, took about 100 s).
+    # The profiled burst: the first SERVE_PROFILED requests (processing the
+    # profile of 128, ~595k kernels, took about 100 s; of 8, 25 s).
     t0 = time.perf_counter()
     dev_ms, kernels, wall = _busy(torch, lambda: eng.serve(first))
     steps = eng.last_serve_result.steps
@@ -1768,7 +1785,7 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 2048, 8, 2  # cut from train_4k's 4,096 x 
 # Cut from 40 steps (a failure at 25), then 15 (at 12), for the smoke's
 # time limit.
 TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 10, 5, 7
-TRAIN_TIMED = 5  # steps in the timed window
+TRAIN_TIMED = 3  # steps in the timed window (cut from 5 for the time limit)
 
 
 def _train_flops(cfg, seq: int, batch: int) -> float:
@@ -2023,8 +2040,9 @@ def phase_train(torch, smi: str) -> None:
 #: layer.  xLSTM-350M: all 24 layers.
 FAMILIES = (("deepseek-moe-16b", 3, "bfloat16"), ("zamba2-7b", 7, "float32"),
             ("xlstm-350m", 24, "float32"))
-FAMILY_PREFILL = (2, 2048)  # batch x tokens of the prefill forward
+FAMILY_PREFILL = (2, 1024)  # batch x tokens of the prefill forward (cut from 2,048)
 FAMILY_REQUESTS = 1  # bf16 requests a lane (cut from 2 for the time limit)
+FAMILY_NEW_TOKENS = 16  # bf16 new tokens a request (cut from 32 for the time limit)
 
 
 def _family_oracle(torch, arch: str, depth: int, kv_cache_dtype: str = "compute") -> None:
@@ -2061,9 +2079,10 @@ def _family_oracle(torch, arch: str, depth: int, kv_cache_dtype: str = "compute"
 
 
 def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: str = "compute",
-                  params=None):
-    """bf16 at full depth: 16 lanes x 1 request a lane measured and profiled
-    (on ``params`` if given, else on seeded weights); returns the model, its
+                  params=None, new_tokens: int = FAMILY_NEW_TOKENS):
+    """bf16 at full depth: 16 lanes x 1 request a lane of ``new_tokens``
+    measured and profiled (on ``params`` if given, else on seeded weights);
+    returns the model, its
     compute weights and the measured run's output."""
     from dataclasses import replace
 
@@ -2087,8 +2106,9 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: 
     n_params = sum(x.numel() for x in leaves)
     weight_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
     init_peak = torch.cuda.max_memory_allocated()
-    ecfg = EngineConfig(lanes=16, max_context=128, max_prompt_len=32, max_new_tokens=32,
-                        requests_per_lane=FAMILY_REQUESTS, eos_id=0)
+    ecfg = EngineConfig(lanes=16, max_context=128, max_prompt_len=32,
+                        max_new_tokens=new_tokens, requests_per_lane=FAMILY_REQUESTS,
+                        eos_id=0)
     eng = GenerationEngine(model, params, ecfg)
     prompts, plens = engine_inputs(ecfg, cfg.vocab_size, seed=22)
     # Warm-up: the lowering and one short request, on one lane.
@@ -2117,7 +2137,7 @@ def _family_serve(torch, arch: str, param_dtype: str, smi: str, kv_cache_dtype: 
     print(f"families: {arch} full width bf16 ({n_params / 1e9:.3f} B params, {weight_gb:.2f} GB "
           f"of compute weights, {cfg.param_dtype} params, {kv_cache_dtype} KV cache), 16 lanes x "
           f"{FAMILY_REQUESTS} request(s) a lane, prompts "
-          f"2-32, 32 new tokens, cache 128: wall {wall:.3f} s (warm-up on one lane "
+          f"2-32, {new_tokens} new tokens, cache 128: wall {wall:.3f} s (warm-up on one lane "
           f"{warm:.2f} s), "
           f"{n_tok} tokens, {n_tok / wall:.1f} tokens/s, {res.steps} dispatches, "
           f"{wall / res.steps * 1e3:.3f} ms/dispatch, decode executions {execs} (active "
@@ -2166,15 +2186,17 @@ def _moe_dropped_frac(torch, model, params, prompts: np.ndarray) -> str:
             f"({lanes} lanes' first prompts, {steps} tokens in lockstep)")
 
 
-def _family_prefill(torch, model, params, smi: str, batch=None, what: str = "") -> None:
-    """bf16 forward at 2 x 2,048 tokens (or of ``batch``): through K3 where
+def _family_prefill(torch, model, params, smi: str, batch=None, what: str = "",
+                    prefill=FAMILY_PREFILL) -> None:
+    """bf16 forward at ``prefill`` (batch x tokens; of ``batch`` where it is
+    given, made at that size): through K3 where
     the family has attention (against the plain blocked attention), else
     the plain forward alone."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import get_model
 
     cfg = model.cfg
-    b, s = FAMILY_PREFILL
+    b, s = prefill
     if batch is None:
         batch = {"tokens": torch.from_numpy(np.random.default_rng(24).integers(
             0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()}
@@ -2204,9 +2226,10 @@ def _family_prefill(torch, model, params, smi: str, batch=None, what: str = "") 
     del lf
 
 
-def _family_kernel_checks(torch, arch: str) -> dict:
+def _family_kernel_checks(torch, arch: str, prefill=FAMILY_PREFILL) -> dict:
     """K3 and K4 at the family's own attention shapes (none in xLSTM),
-    against their plain versions: K3 at the prefill forward's bf16 shape,
+    against their plain versions: K3 at the prefill forward's bf16 shape
+    (``prefill``, batch x tokens),
     K4 at the serving batch and cache in bf16 and in float32 (the oracle
     check's dtype).  Returns each kernel's largest error."""
     from repro_torch import configs
@@ -2215,7 +2238,7 @@ def _family_kernel_checks(torch, arch: str) -> dict:
     if cfg.family == "ssm":
         return {}
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
-    err = {"flash_attention": _k3_check(torch, *FAMILY_PREFILL, *heads,
+    err = {"flash_attention": _k3_check(torch, *prefill, *heads,
                                         torch.bfloat16)["max_abs_err"]}
     err["decode_attention"] = max(_k4_check(torch, 16, 128, *heads, dtype, seed=25)["max_abs_err"]
                                   for dtype in (torch.bfloat16, torch.float32))
@@ -2258,13 +2281,16 @@ VLM_GRID = 16  # the prefill's patches: one image on a 16 x 16 (h, w) grid
 AUDIO = "hubert-xlarge"
 AUDIO_ORACLE = (4, 1, 256)  # layers, batch, frames of the float32 card-vs-CPU forward
 AUDIO_TRAIN = (2, 1024)  # batch x frames of the train step
+MULTIMODAL_PREFILL = (2, 2048)  # batch x positions of the VLM prefill and the HuBERT forward
+MULTIMODAL_NEW_TOKENS = 32  # bf16 new tokens a request of the VLM's serving
 
 
 def _vlm_batch(torch, cfg) -> dict:
-    """The multimodal prefill's inputs, 2 x 2,048 positions: 256 patch
-    embeddings (one image, t = 0 on a 16 x 16 (h, w) grid), then 1,792 text
-    tokens at ``16 + j`` on all three axes, as Qwen2-VL numbers them."""
-    b, s = FAMILY_PREFILL
+    """The multimodal prefill's inputs, ``MULTIMODAL_PREFILL`` positions:
+    256 patch embeddings (one image, t = 0 on a 16 x 16 (h, w) grid), then
+    the text tokens at ``16 + j`` on all three axes, as Qwen2-VL numbers
+    them."""
+    b, s = MULTIMODAL_PREFILL
     si = VLM_GRID * VLM_GRID
     i = np.arange(si)
     grid = np.stack([np.zeros(si), i // VLM_GRID, i % VLM_GRID])
@@ -2292,8 +2318,10 @@ def _vlm(torch, smi: str) -> dict:
         _family_oracle(torch, VLM, VLM_ORACLE_DEPTH, kv_cache_dtype=kv)
         gc.collect()
         torch.cuda.empty_cache()
-    model, params, out = _family_serve(torch, VLM, "float32", smi)
-    _, _, out8 = _family_serve(torch, VLM, "float32", smi, kv_cache_dtype="int8", params=params)
+    model, params, out = _family_serve(torch, VLM, "float32", smi,
+                                       new_tokens=MULTIMODAL_NEW_TOKENS)
+    _, _, out8 = _family_serve(torch, VLM, "float32", smi, kv_cache_dtype="int8", params=params,
+                               new_tokens=MULTIMODAL_NEW_TOKENS)
     n = min(out["tokens"].shape[-1], out8["tokens"].shape[-1])
     same = float((out["tokens"][..., :n] == out8["tokens"][..., :n]).mean())
     whole = int(sum(np.array_equal(a[:la], c[:lc]) for a, c, la, lc in zip(
@@ -2304,8 +2332,9 @@ def _vlm(torch, smi: str) -> dict:
           f"agreement {same:.4f} over the output slots, {whole} of {out['lengths'].size} "
           f"requests identical (printed, not checked: int8 rounding changes greedy picks)")
     batch = _vlm_batch(torch, model.cfg)
-    _family_prefill(torch, model, params, smi, batch=batch,
-                    what=f" (256 patches on a {VLM_GRID} x {VLM_GRID} grid and 1,792 text tokens, "
+    _family_prefill(torch, model, params, smi, batch=batch, prefill=MULTIMODAL_PREFILL,
+                    what=f" ({VLM_GRID * VLM_GRID} patches on a {VLM_GRID} x {VLM_GRID} grid "
+                         f"and {MULTIMODAL_PREFILL[1] - VLM_GRID * VLM_GRID} text tokens, "
                          "3-axis M-RoPE positions)")
     check(fa_ops.flash_attention.sm90_launches == model.attention_sites,
           f"multimodal: the prefill launched the tensor-core K3 "
@@ -2313,11 +2342,11 @@ def _vlm(torch, smi: str) -> dict:
     del model, params, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return _family_kernel_checks(torch, VLM)
+    return _family_kernel_checks(torch, VLM, MULTIMODAL_PREFILL)
 
 
 def _hubert(torch, smi: str) -> None:
-    """HuBERT-XLarge at full width: the bf16 forward over 2 x 2,048 frames,
+    """HuBERT-XLarge at full width: the bf16 forward over ``MULTIMODAL_PREFILL`` frames,
     the float32 forward at 4 layers on the card against the CPU, and the
     launcher's train step at 2 x 1,024 frames."""
     import gc
@@ -2333,7 +2362,7 @@ def _hubert(torch, smi: str) -> None:
     from repro_torch.models import get_model
 
     cfg = configs.get_config(AUDIO)
-    b, s = FAMILY_PREFILL
+    b, s = MULTIMODAL_PREFILL
     model = get_model(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     params = model.cast_for_compute(model.init(torch.Generator(device="cuda").manual_seed(27)))
@@ -3422,6 +3451,175 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
     print(f"shard: phase took {time.perf_counter() - t_phase:.1f} s (ranks {t_ranks:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# 21. the dry-run against the card
+# ---------------------------------------------------------------------------
+
+# The counted peak of phase 8's prefill over the card's
+# (``max_memory_allocated`` over the step, the arguments added back): the
+# counter sees storages, the allocator rounds blocks and keeps its own
+# workspaces (PERF.md, PR 25, fixed before the first run).
+DRYRUN_PEAK_RATIO = (0.9, 1.1)
+
+
+def _dryrun_cells() -> dict:
+    """The two production-mesh dry-runs, as subprocesses started together
+    (CPU work only: ``main`` starts them before the build and phase 21
+    reads them; they are stopped at exit whatever happens)."""
+    import atexit
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for mesh, extra in (("32x8", []), ("2x32x8", ["--multi-pod"])):
+        out = out_dir / f"phase21_dryrun_{mesh}.json"
+        with open(out_dir / f"phase21_dryrun_{mesh}.log", "w") as log:
+            procs[mesh] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+                 "--shape", "decode_32k", "--out", str(out)] + extra,
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), out)
+            atexit.register(procs[mesh][0].kill)
+    return procs
+
+
+def _counted_prefill(torch, smi: str) -> None:
+    """Phase 8's prefill counted on meta tensors and on the card."""
+    from repro_torch import configs, fake
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import make_prefill_step
+
+    cfg = configs.get_config(ARCH)
+    b, s = 8, 2048
+    meta_params = fake.build_meta(
+        lambda: get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0)))
+    with fake.modeling():
+        t0 = time.perf_counter()
+        _, fake_cost = op_cost.count(
+            make_prefill_step(get_model(cfg, use_flash=True, device="meta")), meta_params,
+            {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")})
+        t_fake = time.perf_counter() - t0
+        del meta_params
+
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    flash = get_model(cfg, use_flash=True, device="cuda")
+    params = flash.init(torch.Generator(device="cuda").manual_seed(0))
+    step = make_prefill_step(flash)
+    step(params, {"tokens": tokens})  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fa_ops.flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, real_cost = op_cost.count(step, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    card_peak = torch.cuda.max_memory_allocated() - before + real_cost.argument_bytes
+    launches = fa_ops.flash_attention.launches
+    check(tuple(out.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+          "counted prefill logits not finite")
+    k_fake = fake_cost.kernels.get("flash_attention", {}).get("count", 0)
+    k_real = real_cost.kernels.get("flash_attention", {}).get("count", 0)
+    print(f"dryrun: prefill {ARCH} bf16 {b} x {s}: counted on meta tensors in {t_fake:.2f} s: "
+          f"{fake_cost.flops:.6e} FLOPs, {fake_cost.bytes_accessed:.6e} bytes, "
+          f"{fake_cost.op_count} ops, K3 records {k_fake}; on the card: "
+          f"{real_cost.flops:.6e} FLOPs, {real_cost.bytes_accessed:.6e} bytes, "
+          f"{real_cost.op_count} ops, K3 records {k_real}, K3 launches {launches}")
+    check(fake_cost.flops == real_cost.flops,
+          f"FLOPs differ: dry-run {fake_cost.flops}, card {real_cost.flops}")
+    check(fake_cost.bytes_accessed == real_cost.bytes_accessed,
+          f"bytes differ: dry-run {fake_cost.bytes_accessed}, card {real_cost.bytes_accessed}")
+    check(k_fake == k_real == launches == cfg.num_layers,
+          f"K3 records {k_fake} (dry-run) / {k_real} (card), launches {launches}, "
+          f"want {cfg.num_layers}")
+    ratio = fake_cost.peak_bytes / card_peak
+    print(f"dryrun: peak: counted {fake_cost.peak_bytes / 1e9:.4f} GB (dry-run), "
+          f"{real_cost.peak_bytes / 1e9:.4f} GB (counter on the card), card "
+          f"max_memory_allocated over the step + arguments {card_peak / 1e9:.4f} GB "
+          f"(arguments {real_cost.argument_bytes / 1e9:.4f} GB); dry-run / card "
+          f"{ratio:.4f} (held to {DRYRUN_PEAK_RATIO})")
+    check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+          f"dry-run peak / card peak {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    t_c = fake_cost.flops / dryrun.PEAK_FLOPS * 1e3
+    t_m = fake_cost.bytes_accessed / dryrun.HBM_BW * 1e3
+    print(f"dryrun: t_compute {t_c:.3f} ms, t_memory {t_m:.3f} ms (datasheet constants) "
+          f"against {plain_ms:.3f} ms measured ({counted_ms:.3f} ms under the counter); "
+          f"measured / max term {plain_ms / max(t_c, t_m):.2f} ({smi})")
+
+
+def _nuts_aot(torch, run6: dict, launches6: dict) -> None:
+    """Phase 6's NUTS through its AOT handle and ``step_fn``."""
+    from repro_torch.kernels.stack_ops import ops
+
+    kern, args = run6["kern"], run6["args"]
+    t0 = time.perf_counter()
+    handle = kern.lower(*args)
+    text = handle.as_text()
+    handle.compile()
+    handle.compile()  # idempotent: no second run
+    torch.cuda.synchronize()
+    t_compile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cost = handle.cost_analysis()
+    t_cost = time.perf_counter() - t0
+    check(set(cost) == {"flops", "bytes accessed"} and cost["flops"] > 0
+          and cost["bytes accessed"] > 0, f"cost_analysis gave {cost}")
+    print(f"dryrun: NUTS lower(): {text.count(chr(10)) + 1} lines of lowered IR, compile "
+          f"{t_compile:.2f} s, cost_analysis {t_cost:.2f} s: {cost['flops']:.6e} FLOPs, "
+          f"{cost['bytes accessed']:.6e} bytes (one pass of the pick and every block)")
+
+    st = kern.stepper(*args)
+    vm, state, step = st.vm, st.init(), st.vm.step_fn()
+    ops.masked_push.launches = ops.masked_peek.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while vm.live(state):
+        state = step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    push, peek = ops.masked_push.launches, ops.masked_peek.launches
+    got, res = st.result(state), vm.result(state)
+    want, res6 = run6["out"], run6["res"]
+    for k in want:
+        check(torch.equal(got[k], want[k]), f"step_fn's {k} differs from phase 6's run")
+    check(res.steps == res6.steps, f"step_fn took {res.steps} steps, run() {res6.steps}")
+    check(np.array_equal(np.asarray(res.block_exec), np.asarray(res6.block_exec)),
+          "step_fn's block_exec differs from phase 6's")
+    check((push, peek) == (launches6["masked_push"], launches6["masked_peek"]),
+          f"step_fn launched K1/K2 {push}/{peek}, phase 6 "
+          f"{launches6['masked_push']}/{launches6['masked_peek']}")
+    print(f"dryrun: NUTS step_fn to the end: {res.steps} steps in {wall:.3f} s, bit-exact "
+          f"with phase 6 (outputs, steps, block_exec, K1/K2 launches {push}/{peek})")
+
+
+def phase_dryrun(torch, run6: dict, launches6: dict, smi: str, procs: dict) -> None:
+    t0 = time.perf_counter()
+    _counted_prefill(torch, smi)
+    _nuts_aot(torch, run6, launches6)
+    for mesh, (proc, out) in procs.items():
+        code = proc.wait(timeout=600)
+        check(code == 0, f"dryrun {mesh} exited {code} (chiprun_out/phase21_dryrun_{mesh}.log)")
+        rec = json.load(open(out))[0]
+        chips = 512 if mesh == "2x32x8" else 256
+        check(rec["chips"] == chips and rec["mesh"] == mesh,
+              f"dryrun {mesh}: chips {rec['chips']}, mesh {rec['mesh']}")
+        check(rec["bottleneck"] in ("compute", "memory", "collective") and rec["peak_bytes"] > 0,
+              f"dryrun {mesh}: bottleneck {rec['bottleneck']}, peak {rec['peak_bytes']}")
+        print(f"dryrun: {ARCH} x decode_32k on {mesh} ({chips} chips): t_compute "
+              f"{rec['t_compute'] * 1e3:.4f} ms, t_memory {rec['t_memory'] * 1e3:.4f} ms, "
+              f"t_collective {rec['t_collective'] * 1e3:.4f} ms, bound {rec['bottleneck']}, "
+              f"peak {rec['peak_bytes'] / 1e9:.3f} GB (fits {rec['fits']}), "
+              f"set-up {rec['lower_s']} s, step {rec['compile_s']} s")
+    print(f"dryrun: phase 21 {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     # cuBLAS picks its workspace when it makes a handle, so the setting
     # that phase 15's deterministic mode asks for comes before any CUDA work.
@@ -3441,6 +3639,7 @@ def main() -> int:
         return 0
     settings = nuts.NutsSettings(max_tree_depth=10, num_steps=2, steps_per_leaf=4)
     smi = phase_env(torch)
+    dryrun_procs = _dryrun_cells()  # on the host's CPUs beside the build
     phase_build()
     kernels = phase_kernels(torch, nuts.recommended_max_depth(settings), CHAINS)
     phase_vm(torch, 256)
@@ -3463,6 +3662,7 @@ def main() -> int:
     phase_chaos(torch)
     phase_mesh(torch, settings, run6, run9, run12, smi)
     phase_model_sharding(torch, smi)
+    phase_dryrun(torch, run6, launches, smi, dryrun_procs)
 
     kdir = "src/repro_torch/kernels"
     where = {

@@ -26,7 +26,9 @@ from .base import (
     SHAPES,
     ArchConfig,
     ShapeSpec,
+    applicable_shapes,
     reduce_for_smoke,
+    skipped_shapes,
 )
 
 REGISTRY: dict[str, ArchConfig] = {
@@ -57,6 +59,8 @@ __all__ = [
     "ShapeSpec",
     "SHAPES",
     "REGISTRY",
+    "applicable_shapes",
+    "skipped_shapes",
     "get_config",
     "get_smoke_config",
     "list_archs",

@@ -173,6 +173,29 @@ SHAPES = {
 }
 
 
+def applicable_shapes(cfg: ArchConfig) -> list[ShapeSpec]:
+    """Per-instruction applicability: encoders skip decode shapes;
+    ``long_500k`` only for sub-quadratic (ssm/hybrid) archs."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"]]
+    if cfg.supports_decode:
+        out.append(SHAPES["decode_32k"])
+        if cfg.subquadratic:
+            out.append(SHAPES["long_500k"])
+    return out
+
+
+def skipped_shapes(cfg: ArchConfig) -> dict[str, str]:
+    skip: dict[str, str] = {}
+    if not cfg.supports_decode:
+        skip["decode_32k"] = "encoder-only arch has no decode step"
+        skip["long_500k"] = "encoder-only arch has no decode step"
+    elif not cfg.subquadratic:
+        skip["long_500k"] = (
+            "pure full-attention arch; 500k decode needs sub-quadratic mixing"
+        )
+    return skip
+
+
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
     """A tiny same-family config for CPU smoke tests."""
     kw: dict = dict(

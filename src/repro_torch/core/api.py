@@ -44,7 +44,7 @@ import torch
 
 from .. import distributed
 from ..device import resolve_device
-from . import fusion, ir, local_static, lowering, pc_vm, reference
+from . import batching, fusion, ir, local_static, lowering, pc_vm, reference
 
 BACKENDS = ("pc", "local", "local_eager", "reference")
 
@@ -117,10 +117,16 @@ class BatchedProgram:
         return reference.run_reference_batch(self.program, inputs)
 
     def lower_aot(self, inputs: dict[str, Any]):
-        """Not ported: the JAX package's ahead-of-time XLA lowering."""
-        raise NotImplementedError(
-            "lower_aot() (an ahead-of-time compiled handle) is not ported yet "
-            "(ROADMAP item 4)")
+        """The AOT handle of the full batched computation
+        (:class:`repro_torch.core.batching.AotLowered`; pc backend only)."""
+        if self.backend != "pc":
+            raise ValueError("AOT lowering requires the 'pc' backend")
+        q = {
+            ir.qualify(self.program.main, p): torch.as_tensor(inputs[p]).to(
+                device=self.device, dtype=self.main.param_specs[p].dtype)
+            for p in self.main.params
+        }
+        return batching.AotLowered(self.vm, q)
 
     @property
     def utilization(self) -> dict[str, float]:

@@ -75,8 +75,9 @@ Everything runs on ``device``: the CUDA card unless the caller passes
 another device (``device="cpu"`` for the tests).  With no device given the
 card is resolved at the first call or lowering, so a module-level
 ``@autobatch`` imports on a machine with no card, where the first call
-raises.  The JAX package's ``lower()`` (an
-XLA ahead-of-time handle) is not ported.
+raises.  ``fn.lower(*args)`` (pc backend) returns an :class:`AotLowered`
+handle, the counterpart of the JAX package's XLA handle: ``as_text()``,
+``compile()`` and ``cost_analysis()``.
 
 ``mesh=`` (pc backend) shards the lanes over the ranks of a
 ``torch.distributed`` process group (``pc_vm.VMConfig.mesh``): every rank
@@ -96,14 +97,16 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import distributed
+from .. import distributed, fake
 from ..device import resolve_device
+from ..kernels.stack_ops import kernel as stack_kernel
+from ..launch import op_cost
 from ..obs import blockprof, trace as obs_trace
 from . import (analysis, ast_frontend, frontend, ir, local_static, lowering, passes, pc_vm,
                reference, tree)
 
-__all__ = ["Batched", "Shared", "AutobatchedFunction", "CacheInfo", "Stepper", "autobatch",
-           "DEFAULT_NAMESPACE"]
+__all__ = ["AotLowered", "Batched", "Shared", "AutobatchedFunction", "CacheInfo", "Stepper",
+           "autobatch", "DEFAULT_NAMESPACE"]
 
 BACKENDS = ("pc", "local", "local_eager", "reference")
 
@@ -286,6 +289,56 @@ class _ReferenceExecutor:
 
     def run(self, inputs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         return reference.run_reference_batch(self.program, inputs)
+
+
+class AotLowered:
+    """Ahead-of-time handle over a batched computation (pc backend), made by
+    :meth:`AutobatchedFunction.lower` and ``api.BatchedProgram.lower_aot``:
+    the counterpart of the JAX package's handle over an XLA lowering.
+
+    * ``as_text()``: the lowered program, block by block, as
+      :meth:`ir.LoweredProgram.pretty` prints it (the reference gives
+      StableHLO);
+    * ``compile()``: builds the kernels the program launches (the stack
+      kernels K1/K2, on a card) and warms the executor with one run of these
+      inputs, once; it is idempotent and returns the handle.  Under a mesh
+      the run is a collective: every rank compiles;
+    * ``cost_analysis()``: ``{"flops", "bytes accessed"}`` of one pass of
+      the pick and of every block body, counted op by op
+      (:mod:`repro_torch.launch.op_cost`, K1/K2 by their records) on a fake
+      state of the VM's lanes (this rank's under a mesh): what XLA's
+      ``cost_analysis()`` counts of the reference's while loop, each
+      computation once.
+    """
+
+    def __init__(self, vm: pc_vm.ProgramCounterVM, inputs: dict[str, torch.Tensor]):
+        self.vm = vm
+        self.inputs = inputs
+        self._compiled = False
+        self._cost: Optional[dict] = None
+
+    def as_text(self) -> str:
+        return self.vm.lowered.pretty()
+
+    def compile(self) -> "AotLowered":
+        if not self._compiled:
+            if self.vm.device.type == "cuda" and any(self.vm.stack_groups):
+                stack_kernel.library()
+            self.vm.run(self.inputs)
+            self._compiled = True
+        return self
+
+    def cost_analysis(self) -> dict[str, float]:
+        if self._cost is None:
+            counter = op_cost.OpCounter()
+            with fake.fake_mode():
+                state = self.vm.init_state(self.inputs)
+                with counter:
+                    counter.arguments(state)
+                    self.vm.cost_pass(state)
+            cost = counter.close()
+            self._cost = {"flops": cost.flops, "bytes accessed": cost.bytes_accessed}
+        return dict(self._cost)
 
 
 class Stepper:
@@ -620,11 +673,15 @@ class AutobatchedFunction:
             raise ValueError("diagnostics() requires the 'pc' backend")
         return passes.diagnose(self.lowered)
 
-    def lower(self, *args):
-        """Not ported: the JAX package's ahead-of-time XLA handle."""
-        raise NotImplementedError(
-            "lower() (an ahead-of-time compiled handle) is not ported yet "
-            "(ROADMAP item 4)")
+    def lower(self, *args) -> AotLowered:
+        """The :class:`AotLowered` handle of the batched computation over
+        these arguments (pc backend only); it shares the executor of plain
+        calls at this batch size, as :meth:`stepper` does."""
+        if self.backend != "pc":
+            raise ValueError("AOT lowering requires the 'pc' backend")
+        inputs, z = self._bind(args)
+        ex = self._executor(self._key(inputs, z), z)
+        return AotLowered(ex.vm, ex.qualify(inputs))
 
     @property
     def depth_report(self) -> analysis.StackDepthReport:

@@ -150,6 +150,7 @@ import torch
 from .. import distributed
 from ..distributed import LANE_AXIS
 from ..kernels.stack_ops import ops as stack_ops
+from ..launch import op_cost
 from ..launch import sharding as _sharding
 from ..obs import trace as obs_trace
 from . import ir
@@ -831,8 +832,9 @@ class ProgramCounterVM:
         scope = f"pcvm.block{bidx}"
 
         def scoped_run(state: dict[str, Any], mask: torch.Tensor) -> None:
-            # Names the block in device profiles; launches nothing.
-            with torch.profiler.record_function(scope):
+            # Names the block in device profiles and in an op counter's
+            # scopes; launches nothing.
+            with torch.profiler.record_function(scope), op_cost.scope(scope):
                 run(state, mask)
 
         return scoped_run
@@ -876,8 +878,7 @@ class ProgramCounterVM:
         ``exit_index``.  ``argmax`` takes the first maximum, as
         ``jnp.argmax`` does.  Under a mesh the same choice is made on the
         host from the counts summed over the ranks (:meth:`_global_counts`)."""
-        schedule, pc = self.config.schedule, self._pc_live(state)
-        exit_idx = self.lowered.exit_index
+        schedule, exit_idx = self.config.schedule, self.lowered.exit_index
         if schedule not in ("earliest", "popular", "lookahead"):
             raise ValueError(f"schedule {schedule!r} picks no block")
         if self.mesh is not None:
@@ -890,9 +891,15 @@ class ProgramCounterVM:
             if schedule == "lookahead":
                 score = np.where(counts > 0, 2 * counts + self._succ_host @ counts, -1)
             return int(np.argmax(score))
+        return int(self._pick_index(state))
+
+    def _pick_index(self, state: dict[str, Any]) -> torch.Tensor:
+        """:meth:`pick`'s choice on the device, unsharded (not read back)."""
+        schedule, pc = self.config.schedule, self._pc_live(state)
+        exit_idx = self.lowered.exit_index
         if schedule == "earliest":
             b = pc.min()
-        elif schedule in ("popular", "lookahead"):
+        else:
             counts = (pc.unsqueeze(0) == self._block_ids).sum(dim=1)  # int64 [B]
             score = counts
             if schedule == "lookahead":
@@ -901,7 +908,7 @@ class ProgramCounterVM:
             b = torch.where(counts.sum() > 0, score.argmax(), exit_idx)
         if self._fail_fast():
             b = torch.where((state["fault_code"] >= FAULT_NONFINITE).any(), exit_idx, b)
-        return int(b)
+        return b
 
     def _global_counts(self, state: dict[str, Any]) -> tuple[np.ndarray, bool]:
         """Under a mesh: the live lanes resting at each block, summed over
@@ -1054,6 +1061,46 @@ class ProgramCounterVM:
             if b >= exit_idx:
                 break
             self.dispatch(state, b)
+
+    def step_fn(self) -> Callable:
+        """One VM step as a function of the state, ``step(state) -> state``
+        (the JAX VM's ``step_fn``).
+
+        It honours ``config.schedule``: under a switch schedule it runs the
+        one block :meth:`pick` chooses (its one host read; nothing once no
+        lane dispatches), under ``"sweep"`` every block once, in index
+        order, each under its own mask.  A step is one iteration of
+        :meth:`run`'s loop — ``steps``, the statistics, the trace ring and
+        compaction included — and updates ``state`` in place, as the
+        blocks do; iterating it while :meth:`live` holds gives :meth:`run`'s
+        state bit for bit."""
+        if self.config.schedule == "sweep":
+            def step(state: dict[str, Any]) -> dict[str, Any]:
+                self.sweep(state)
+                return state
+        else:
+            def step(state: dict[str, Any]) -> dict[str, Any]:
+                b = self.pick(state)
+                if b < self.lowered.exit_index:
+                    self.dispatch(state, b)
+                return state
+        return step
+
+    def cost_pass(self, state: dict[str, Any]) -> None:
+        """What XLA's ``cost_analysis()`` counts of the JAX VM's loop, each
+        computation once: the pick (under ``"sweep"``, the liveness test;
+        under a mesh, this rank's counts that the ranks sum) and then every
+        block body once, each under its own mask.  For an op counter over a
+        fake state (:meth:`AotLowered.cost_analysis`); updates ``state`` in
+        place."""
+        if self.config.schedule == "sweep":
+            (self._pc_live(state) < self.lowered.exit_index).any()
+        elif self.mesh is not None:
+            (self._pc_live(state).unsqueeze(0) == self._block_ids).sum(dim=1)
+        else:
+            self._pick_index(state)
+        for b, fn in enumerate(self._block_fns):
+            fn(state, self._mask(state, b))
 
     def run(self, inputs: dict[str, torch.Tensor]) -> VMResult:
         """Execute the batched program to completion (or ``max_steps``)."""

@@ -1,9 +1,13 @@
 """Wrapper for causal GQA flash attention (K3): ``[B, S, H, Dh]`` layout in
 and out, argument checks, device dispatch and a launch count.
 
-A fake tensor (:mod:`repro_torch.fake`, as type inference passes one)
-gets an empty tensor of the output's shape, dtype and device, the shape
-rule of a kernel that launches through ``ctypes``, not a fallback.  A
+A fake tensor (:mod:`repro_torch.fake`, as type inference and the
+dry-run pass one) gets an empty tensor of the output's shape, dtype and
+device, the shape rule of a kernel that launches through ``ctypes``, not a
+fallback.  Both a fake call and a launch record their cost with the active
+op counter (:func:`repro_torch.launch.op_cost.record`, nothing when none is
+active): the FLOPs its plain version's two products count over the whole
+``S x T`` score matrix, and the bytes of q, k and v read and o written.  A
 tensor on the CPU runs the plain version in :mod:`.ref`; any other
 tensor launches a CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version,
@@ -20,8 +24,23 @@ from __future__ import annotations
 import torch
 
 from ... import fake
+from ...launch import op_cost
 from .. import _layout
 from . import kernel, ref
+
+
+def cost(q: torch.Tensor, k: torch.Tensor) -> tuple[float, float]:
+    """``(flops, bytes)`` of one call: ``4 B H S T Dh`` (QK^T and PV, as
+    the plain version computes them) and q, k, v in and o out."""
+    b, s, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    return 4.0 * b * h * s * t * dh, float((2 * b * s * h + 2 * b * t * hk) * dh * q.element_size())
+
+
+def _record(q: torch.Tensor, k: torch.Tensor) -> None:
+    if op_cost.active() is not None:
+        flops, nbytes = cost(q, k)
+        op_cost.record("flash_attention", flops=flops, nbytes=nbytes)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -64,7 +83,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention (K3) has no backward pass, as the reference's Pallas "
             "kernel has none: differentiate the model with use_flash=False")
     if fake.is_fake(q, k, v):
-        return torch.empty_like(q)
+        _record(q, k)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal)
     if q.dtype not in kernel.DTYPES:
@@ -80,6 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = kernel.flash_attention(q, k, v, causal=causal)
     flash_attention.launches += 1
+    _record(q, k)
     return out
 
 

@@ -2,10 +2,17 @@
 against the cache as the model keeps it, ``k, v [B, W, Hkv, Dh]``, with
 argument checks, device dispatch and a launch count.
 
-A fake tensor (:mod:`repro_torch.fake`, as type inference passes one)
-gets an empty tensor of the output's shape, dtype and device: it has no
-data, and the kernel launches through ``ctypes``, so this is the shape
-rule, not a fallback.  A tensor on the CPU runs the plain version in
+A fake tensor (:mod:`repro_torch.fake`, as type inference and the
+dry-run pass one) gets an empty tensor of the output's shape, dtype and
+device: it has no data, and the kernel launches through ``ctypes``, so
+this is the shape rule, not a fallback.  Both a fake call and a launch
+record their cost with the active op counter
+(:func:`repro_torch.launch.op_cost.record`, nothing when none is active):
+the FLOPs its plain version's two products count over the whole window,
+and the bytes of q and o, ``count`` and the k and v rows of each
+sequence's ``count``-long window.  A fake ``count`` has no values, so a
+fake call charges the whole window (the steady state of a decode); a launch
+reads ``count`` back, only while a counter is active.  A tensor on the CPU runs the plain version in
 :mod:`.ref`; any other
 tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version.
@@ -27,8 +34,28 @@ from __future__ import annotations
 import torch
 
 from ... import fake
+from ...launch import op_cost
 from .. import _layout
 from . import kernel, ref
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, rows: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of one call over ``rows`` cache rows in all:
+    ``4 B H W Dh`` (the plain version's two products over the window) and
+    q, o, ``count`` and the rows of k and v."""
+    b, h, dh = q.shape
+    w, hk = k.shape[1], k.shape[2]
+    s = q.element_size()
+    return 4.0 * b * h * w * dh, float(2 * b * h * dh * s + 4 * b + 2 * rows * hk * dh * s)
+
+
+def _record(q: torch.Tensor, k: torch.Tensor, count: torch.Tensor) -> None:
+    counter = op_cost.active()
+    if counter is not None:
+        with counter.paused():
+            rows = k.shape[0] * k.shape[1] if fake.is_fake(count) else int(count.sum())
+        flops, nbytes = cost(q, k, rows)
+        op_cost.record("decode_attention", flops=flops, nbytes=nbytes)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,6 +86,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows per sequence -> [B, H, Dh] in q's dtype (zeros where count is 0)."""
     _check(q, k, v, count)
     if fake.is_fake(q, k, v, count):
+        _record(q, k, count)
         return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, count)
@@ -79,6 +107,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _layout.check_aligned(q=q, k=k, v=v)
     out = kernel.decode_attention(q, k, v, count)
     decode_attention.launches += 1
+    _record(q, k, count)
     return out
 
 

@@ -20,7 +20,15 @@ Two kinds of entry point:
 Every entry point dispatches on the tensor's device: a tensor on the CPU
 runs the plain version in :mod:`.ref`; any other tensor launches the CUDA
 kernel in :mod:`.kernel` (building it on first use) or raises.  There is no
-fallback from the card to the plain version.
+fallback from the card to the plain version.  A fake tensor
+(:mod:`repro_torch.fake`, as the dry-run and ``AotLowered.cost_analysis``
+pass one) gets fresh outputs of the right shapes and writes nothing: the
+shape rule of kernels that launch through ``ctypes``.  Both a fake call and
+a launch record each launch's cost with the active op counter
+(:func:`repro_torch.launch.op_cost.record`, nothing when none is active):
+no FLOPs, as the plain version's ops count none, and the bytes a launch
+moves when every lane is masked in, the most it can move, the same on fake
+and real data.
 
 Pushes write the stack **in place** on both paths, as the TPU kernel
 aliases its stack operand to its output; new pointers and tops are fresh
@@ -43,6 +51,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ... import fake
+from ...launch import op_cost
 from . import kernel, ref
 
 
@@ -96,22 +106,45 @@ def masked_push(stack: torch.Tensor, ptr: torch.Tensor, val: torch.Tensor,
         raise ValueError("val must be contiguous")
     if val.device != stack.device:
         raise ValueError("stack, ptr, val and mask must share one device")
+    if fake.is_fake(stack, ptr, val, mask):
+        _record_push(val)
+        return stack
     if stack.device.type == "cpu":
         stack.copy_(ref.masked_push(stack, ptr, val, mask))
         return stack
     masked_push.launches += kernel.masked_push(_flat(stack, 2), ptr, _flat(val, 1), mask)
+    _record_push(val)
     return stack
+
+
+def _record_push(val: torch.Tensor) -> None:
+    if op_cost.active() is not None:
+        # Pointer and mask in (5 B a lane), each lane's row of val read and
+        # written to the stack.
+        op_cost.record("masked_push", flops=0,
+                       nbytes=5 * val.shape[0] + 2 * val.numel() * val.element_size())
 
 
 def masked_peek(stack: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
     """``stack[clamp(ptr, 0, D - 1), lane]`` per lane: stack ``[D, Z, ...]``,
     ptr int32 ``[Z]`` -> a new ``[Z, ...]`` tensor."""
     _check_common(stack, ptr)
+    if fake.is_fake(stack, ptr):
+        _record_peek(stack, ptr)
+        return stack.new_empty(stack.shape[1:])
     if stack.device.type == "cpu":
         return ref.masked_peek(stack, ptr)
     out = kernel.masked_peek(_flat(stack, 2), ptr)
     masked_peek.launches += 1
+    _record_peek(stack, ptr)
     return out.view(stack.shape[1:])
+
+
+def _record_peek(stack: torch.Tensor, ptr: torch.Tensor) -> None:
+    if op_cost.active() is not None:
+        # The pointer in, each lane's row read and written out.
+        op_cost.record("masked_peek", flops=0,
+                       nbytes=4 * ptr.numel() + 2 * stack.shape[1:].numel() * stack.element_size())
 
 
 masked_push.launches = 0
@@ -205,22 +238,32 @@ class _Group:
     def __len__(self) -> int:
         return len(self.rows)
 
-    def _outputs(self, device: torch.device, words: list[int]):
+    def _outputs(self, device: torch.device, words: Optional[list[int]]):
         """Fresh new pointers and tops (None where an entry has none), with
-        their addresses written into the table ``words``."""
+        their addresses written into the table ``words`` (none for fake
+        outputs)."""
         n, w = len(self.rows), kernel.WORDS
         ptrs = torch.empty((n, self.lanes), dtype=torch.int32, device=device)
-        base = ptrs.data_ptr()
-        for i in range(n):
-            words[w * i + kernel.NEW_PTR] = base + 4 * self.lanes * i
+        if words is not None:
+            base = ptrs.data_ptr()
+            for i in range(n):
+                words[w * i + kernel.NEW_PTR] = base + 4 * self.lanes * i
         tops = [None] * n
         for shape, dtype, idx, step in self._top_buffers:
             buf = torch.empty(shape, dtype=dtype, device=device)
-            base = buf.data_ptr()
+            base = None if words is None else buf.data_ptr()
             for j, (i, top) in enumerate(zip(idx, buf.unbind(0))):
                 tops[i] = top
-                words[w * i + kernel.NEW_TOP] = base + step * j
+                if words is not None:
+                    words[w * i + kernel.NEW_TOP] = base + step * j
         return list(ptrs.unbind(0)), tops
+
+    def _record(self, name: str) -> None:
+        """One record a launch (one a :data:`kernel.MAX_ENTRIES` entries)."""
+        if op_cost.active() is None:
+            return
+        for nbytes in self._launch_bytes:
+            op_cost.record(name, flops=0, nbytes=nbytes)
 
 
 class PushGroup(_Group):
@@ -231,11 +274,23 @@ class PushGroup(_Group):
     def __init__(self, specs: Sequence[StackSpec], has_src: Sequence[bool], lanes: int):
         super().__init__(specs, has_src, lanes)
         self.has_src = tuple(has_src)
+        # A launch with every lane masked in moves the mask once and per
+        # entry the pointers in and out and the overflow flag (9 B a lane),
+        # the old top read and pushed, and with a src the src read and the
+        # new top written.
+        m = kernel.MAX_ENTRIES
+        self._launch_bytes = [
+            lanes + sum(9 * lanes + (4 if src else 2) * lanes * row.nbytes
+                        for row, src in zip(self.rows[i:i + m], self.has_src[i:i + m]))
+            for i in range(0, len(self.rows), m)]
 
     def __call__(self, entries, mask: torch.Tensor, depth_exceeded: torch.Tensor,
                  max_depth: int) -> tuple[list[torch.Tensor], list[Optional[torch.Tensor]]]:
         if len(entries) != len(self.rows):
             raise ValueError(f"{len(entries)} entries for a group of {len(self.rows)}")
+        if fake.is_fake(mask):
+            self._record("masked_push")
+            return self._outputs(mask.device, None)
         if mask.device.type == "cpu":
             return ref.push_group(entries, mask, depth_exceeded, max_depth)
         words = self._template.copy()
@@ -255,6 +310,7 @@ class PushGroup(_Group):
                 keep.append(src)
         masked_push.launches += kernel.push(words, mask.data_ptr(), depth_exceeded.data_ptr(),
                                             max_depth, self.lanes, mask.device)
+        self._record("masked_push")
         return new_ptrs, new_tops
 
 
@@ -264,11 +320,20 @@ class PopGroup(_Group):
 
     def __init__(self, specs: Sequence[StackSpec], lanes: int):
         super().__init__(specs, [True] * len(specs), lanes)
+        # A launch moves the mask once and per entry the stack row read (or
+        # the old top kept), the new top written and the pointers in and out.
+        m = kernel.MAX_ENTRIES
+        self._launch_bytes = [lanes + sum(2 * lanes * row.nbytes + 8 * lanes
+                                          for row in self.rows[i:i + m])
+                              for i in range(0, len(self.rows), m)]
 
     def __call__(self, entries, mask: torch.Tensor
                  ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         if len(entries) != len(self.rows):
             raise ValueError(f"{len(entries)} entries for a group of {len(self.rows)}")
+        if fake.is_fake(mask):
+            self._record("masked_peek")
+            return self._outputs(mask.device, None)
         if mask.device.type == "cpu":
             return ref.pop_group(entries, mask)
         words = self._template.copy()
@@ -282,6 +347,7 @@ class PopGroup(_Group):
             words[k + kernel.TOP] = top.data_ptr()
             keep.append(top)
         masked_peek.launches += kernel.pop(words, mask.data_ptr(), self.lanes, mask.device)
+        self._record("masked_peek")
         return new_ptrs, new_tops
 
 

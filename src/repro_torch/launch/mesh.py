@@ -9,9 +9,12 @@ the caller starts the ranks and every rank runs the same program.  The
 mesh's collectives use the default group's backend as the caller set it
 (NCCL for one card a rank, ``gloo`` when ranks share a card).
 
-The reference's ``make_production_mesh`` models a TPU v5e pod (16 x 16
-chips); its only caller is the dry-run, and it comes with that slice,
-which fixes the H100 topology.
+:func:`make_production_mesh` is the deployment the dry-run models, on H100
+nodes of 8 cards: ``(data 32, model 8)`` over 256 cards, or ``(pod 2,
+data 32, model 8)`` over 512.  ``model`` is the 8 cards of one NVLink node
+(tensor and expert parallelism stay inside a node); ``data`` and ``pod``
+cross nodes over InfiniBand.  The card counts are the reference's (a TPU
+v5e pod of 16 x 16 chips, and two pods), so per-card figures compare.
 
 Nothing here opens a group at import.
 """
@@ -41,6 +44,17 @@ def make_mesh(shape, axes, device_type: str = "cuda"):
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not match its axes {axes}")
     return _make_mesh(shape, axes, device_type, _world_id())
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh on the default group the caller opened (the
+    ``"fake"`` backend for a dry-run, NCCL on real nodes), which must have
+    256 ranks, or 512 with ``multi_pod`` (a larger group lends its first
+    ranks).  Like every mesh here it is cached per default group, so it
+    never outlives the group it was made in."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def axis_sizes(mesh) -> dict:

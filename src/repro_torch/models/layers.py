@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_decode import ops as decode_ops
+from ..launch import op_cost
 from . import shard_ctx
 
 Params = dict
@@ -207,10 +208,11 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
                                cfg.mrope_sections)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if use_flash and cfg.causal and seg_mask is None:
-            return flash_ops.flash_attention(q, k, v, causal=True).reshape(b, s, -1)
-        return _blocked_attention(q, k, v, causal=cfg.causal, seg_mask=seg_mask,
-                                  q_chunk=cfg.attn_q_chunk)
+        with op_cost.scope("attn_core"):
+            if use_flash and cfg.causal and seg_mask is None:
+                return flash_ops.flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+            return _blocked_attention(q, k, v, causal=cfg.causal, seg_mask=seg_mask,
+                                      q_chunk=cfg.attn_q_chunk)
 
     # Under a mesh the core runs on each rank's batch rows and heads: the
     # plain tensors it makes (RoPE tables, causal masks) have no DTensor form.
@@ -286,36 +288,57 @@ def attention_decode(params: Params, x: torch.Tensor, cfg: ArchConfig,
     (the cache passed in is not written), quantized first when the cache is
     int8; the attention core is one K4 call over the ``min(position + 1,
     W)`` slots written so far (of the dequantized cache when int8).  Under
-    M-RoPE the token's position is the same on all three axes."""
-    b = x.shape[0]
+    M-RoPE the token's position is the same on all three axes.  Under a
+    mesh the core runs on each rank's batch rows and heads, as prefill's
+    does: a cache placed otherwise (``cache_shardings`` puts ``model`` on
+    the window) is redistributed to that layout first."""
     quantized = "k_q" in cache
-    window = cache["k_q" if quantized else "k"].shape[1]
+    names = ("k_q", "k_s", "v_q", "v_s") if quantized else ("k", "v")
     q, k_new, v_new = _project_qkv(params, x, cfg)  # S = 1
-    pos_rope = position[:, None]
-    if cfg.mrope_sections:
-        pos_rope = pos_rope[:, None].expand(b, 3, 1)
-    cos, sin = rope_angles(pos_rope, cfg.resolved_head_dim, cfg.rope_theta, cfg.mrope_sections)
-    q = apply_rope(q, cos, sin)
-    k_new = apply_rope(k_new, cos, sin)
-    slot = (position % window).long()
-    bidx = torch.arange(b, device=x.device)
 
-    def write(name: str, row: torch.Tensor) -> torch.Tensor:
-        return cache[name].index_put((bidx, slot), row[:, 0])
+    def core(q, k_new, v_new, position, *leaves):
+        b, window = q.shape[0], leaves[0].shape[1]
+        pos_rope = position[:, None]
+        if cfg.mrope_sections:
+            pos_rope = pos_rope[:, None].expand(b, 3, 1)
+        cos, sin = rope_angles(pos_rope, cfg.resolved_head_dim, cfg.rope_theta,
+                               cfg.mrope_sections)
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
+        slot = (position % window).long()
+        bidx = torch.arange(b, device=q.device)
+        old = dict(zip(names, leaves))
 
-    if quantized:
-        (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
-        new_cache = {"k_q": write("k_q", kq), "k_s": write("k_s", ks),
-                     "v_q": write("v_q", vq), "v_s": write("v_s", vs)}
-        k_cache = _dequantize_kv(new_cache["k_q"], new_cache["k_s"], x.dtype)
-        v_cache = _dequantize_kv(new_cache["v_q"], new_cache["v_s"], x.dtype)
-    else:
-        k_cache, v_cache = write("k", k_new), write("v", v_new)
-        new_cache = {"k": k_cache, "v": v_cache}
-    count = torch.clamp(position + 1, max=window).to(torch.int32)
-    out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache, count)  # [B,H,Dh]
-    out = out.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
-    return out, new_cache
+        def write(name: str, row: torch.Tensor) -> torch.Tensor:
+            return old[name].index_put((bidx, slot), row[:, 0])
+
+        if quantized:
+            (kq, ks), (vq, vs) = _quantize_kv(k_new), _quantize_kv(v_new)
+            new = {"k_q": write("k_q", kq), "k_s": write("k_s", ks),
+                   "v_q": write("v_q", vq), "v_s": write("v_s", vs)}
+            k_cache = _dequantize_kv(new["k_q"], new["k_s"], q.dtype)
+            v_cache = _dequantize_kv(new["v_q"], new["v_s"], q.dtype)
+        else:
+            k_cache, v_cache = write("k", k_new), write("v", v_new)
+            new = {"k": k_cache, "v": v_cache}
+        count = torch.clamp(position + 1, max=window).to(torch.int32)
+        with op_cost.scope("attn_core"):
+            out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache, count)  # [B,H,Dh]
+        return (out.reshape(b, 1, -1),) + tuple(new[n] for n in names)
+
+    tp = "tp" if shard_ctx.divides("tp", cfg.num_heads, cfg.num_kv_heads) else None
+    # The cache's batch rows may shard over fewer axes than the activations'
+    # (``cache_batch``: ``data`` alone on a multi-pod mesh, as
+    # ``cache_shardings`` places them); the core follows the cache.
+    rules = shard_ctx.current_rules()
+    heads = ("cache_batch" if rules and "cache_batch" in rules else "batch", None, tp, None)
+    leaves = [cache[n] for n in names]
+    cache_lg = [heads[:x.dim()] for x in leaves]
+    outs = shard_ctx.local(core, [heads, heads, heads, heads[:1]] + cache_lg,
+                           [(heads[0], None, tp)] + cache_lg, q, k_new, v_new,
+                           shard_ctx.replicate_like(position, q), *leaves)
+    out = outs[0] @ params["wo"].to(x.dtype)
+    return out, dict(zip(names, outs[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -159,9 +159,18 @@ def mamba2_decode_step(params: Params, x: torch.Tensor, cfg: ArchConfig, cache: 
     c_in = xbc_t[..., d_in + n:].float()
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"].float())  # [B, H]
     a = -torch.exp(params["a_log"].float())
-    upd = (dt[..., None] * xs)[..., None] * b_in[:, None, None, :]
-    h_new = torch.exp(dt * a)[:, :, None, None] * cache["ssm"] + upd
-    y = torch.einsum("bhpn,bn->bhp", h_new, c_in)
+
+    def ssm(xs, b_in, c_in, dt, a, state):
+        upd = (dt[..., None] * xs)[..., None] * b_in[:, None, None, :]
+        h_new = torch.exp(dt * a)[:, :, None, None] * state + upd
+        return torch.einsum("bhpn,bn->bhp", h_new, c_in), h_new
+
+    # Under a mesh the state update runs on each rank's rows and heads, as
+    # the forward's scan does.
+    tp = "tp" if shard_ctx.divides("tp", h) else None
+    heads, rows = ("batch", tp, None), ("batch", None)
+    y, h_new = shard_ctx.local(ssm, [heads, rows, rows, ("batch", tp), (tp,), heads + (None,)],
+                               [heads, heads + (None,)], xs, b_in, c_in, dt, a, cache["ssm"])
     y = y + params["d_skip"].float()[None, :, None] * xs
     y = y.reshape(bsz, 1, d_in).to(x.dtype)
     y = rms_norm_simple(y * F.silu(z), params["gate_norm"], cfg.norm_eps)

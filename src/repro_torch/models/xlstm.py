@@ -82,6 +82,16 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
     }
 
 
+def _split_heads(t: torch.Tensor, shape: tuple, h: int) -> torch.Tensor:
+    """``t`` reshaped to ``shape``, its last dim split into ``h`` heads.
+    Under a mesh whose tp axis does not divide the heads the projection's
+    columns gather first, as in ``layers._project_qkv``: DTensor's view
+    cannot split a sharded dim."""
+    if not shard_ctx.divides("tp", h):
+        t = shard_ctx.constrain(t, ("batch",) + (None,) * (t.dim() - 1))
+    return t.reshape(shape)
+
+
 def _mlstm_qkv_gates(params: Params, x: torch.Tensor, cfg: ArchConfig):
     d_in, h, p = mlstm_dims(cfg)
     bsz, s, _ = x.shape
@@ -89,9 +99,9 @@ def _mlstm_qkv_gates(params: Params, x: torch.Tensor, cfg: ArchConfig):
     up = x @ params["w_up"].to(ct)
     x_part, z_part = up[..., :d_in], up[..., d_in:]
     x_conv = _causal_conv(x_part, params["conv_w"].to(ct), params["conv_b"].to(ct))
-    q = (x_conv @ params["wq"].to(ct)).reshape(bsz, s, h, p)
-    k = (x_conv @ params["wk"].to(ct)).reshape(bsz, s, h, p) / np.sqrt(p)
-    v = (x_part @ params["wv"].to(ct)).reshape(bsz, s, h, p)
+    q = _split_heads(x_conv @ params["wq"].to(ct), (bsz, s, h, p), h)
+    k = _split_heads(x_conv @ params["wk"].to(ct), (bsz, s, h, p), h) / np.sqrt(p)
+    v = _split_heads(x_part @ params["wv"].to(ct), (bsz, s, h, p), h)
     if_pre = (x_conv @ params["w_if"].to(ct) + params["b_if"].to(ct)).float()
     return q, k, v, z_part, if_pre[..., :h], _log_sigmoid(if_pre[..., h:]), x_conv
 
@@ -183,9 +193,9 @@ def mlstm_decode_step(params: Params, x: torch.Tensor, cfg: ArchConfig, cache: P
     x_part, z_part = up[..., :d_in], up[..., d_in:]
     hist = torch.cat([cache["conv"], x_part], dim=1)
     x_conv = _conv_step(hist, params, ct)
-    q = (x_conv @ params["wq"].to(ct)).reshape(bsz, h, p).float()
-    k = ((x_conv @ params["wk"].to(ct)).reshape(bsz, h, p) / np.sqrt(p)).float()
-    v = (x_part[:, 0] @ params["wv"].to(ct)).reshape(bsz, h, p).float()
+    q = _split_heads(x_conv @ params["wq"].to(ct), (bsz, h, p), h).float()
+    k = (_split_heads(x_conv @ params["wk"].to(ct), (bsz, h, p), h) / np.sqrt(p)).float()
+    v = _split_heads(x_part[:, 0] @ params["wv"].to(ct), (bsz, h, p), h).float()
     if_pre = (x_conv @ params["w_if"].to(ct) + params["b_if"].to(ct)).float()
     log_i, log_f = if_pre[..., :h], _log_sigmoid(if_pre[..., h:])
     m_new = torch.maximum(log_f + cache["m"], log_i)  # [B,H]
@@ -310,8 +320,17 @@ def slstm_decode_step(params: Params, x: torch.Tensor, cfg: ArchConfig, cache: P
                       ) -> tuple[torch.Tensor, Params]:
     """x: [B, 1, d] -> (y [B, 1, d], new cache)."""
     hist = torch.cat([cache["conv"], x], dim=1)
-    state = (cache["c"], cache["n"], cache["h"], cache["m"])
-    (c, n, hid, m), out = _slstm_cell(params, cfg, x[:, 0], _conv_step(hist, params, x.dtype),
-                                      state)
-    y = _slstm_out(params, out[:, None, :], cfg, x.dtype)
+
+    def cell(x_t, x_conv_t, c, n, hid, m, w_gates, b_gates, r_gates):
+        weights = {"w_gates": w_gates, "b_gates": b_gates, "r_gates": r_gates}
+        return _slstm_cell(weights, cfg, x_t, x_conv_t, (c, n, hid, m))[0]
+
+    # Under a mesh the cell runs on each rank's rows with whole weights, as
+    # the forward's recurrence does.
+    rows = ("batch", None)
+    c, n, hid, m = shard_ctx.local(
+        cell, [rows] * 6 + [(None, None), (None,), (None,) * 4], [rows] * 4,
+        x[:, 0], _conv_step(hist, params, x.dtype), cache["c"], cache["n"], cache["h"],
+        cache["m"], params["w_gates"], params["b_gates"], params["r_gates"])
+    y = _slstm_out(params, hid[:, None, :], cfg, x.dtype)
     return y, {"conv": hist[:, 1:], "c": c, "n": n, "h": hid, "m": m}

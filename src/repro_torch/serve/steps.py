@@ -21,6 +21,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..mcmc import prng
+from ..models import shard_ctx
 from ..models.transformer import Model
 
 
@@ -36,7 +37,9 @@ def make_prefill_step(model: Model) -> Callable:
 def sample_token(logits: torch.Tensor, key: torch.Tensor,
                  temperature: float = 0.0) -> torch.Tensor:
     """Greedy (T=0) or temperature sampling with one key for the batch.
-    logits: [B, V] f32 -> int32 [B]."""
+    logits: [B, V] f32 -> int32 [B].  Under a model's rules the vocabulary
+    is gathered first (each rank keeps its batch rows)."""
+    logits = shard_ctx.constrain(logits, ("batch", None))
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     return prng.categorical(key, logits / temperature).to(torch.int32)
@@ -48,7 +51,8 @@ def make_serve_step(model: Model, temperature: float = 0.0) -> Callable:
 
     def serve_step(params, cache, tokens, pos, key):
         logits, cache = model.decode_step(params, cache, tokens, pos)
-        return sample_token(logits, key, temperature), cache
+        with shard_ctx.use_rules(model.axis_rules):
+            return sample_token(logits, key, temperature), cache
 
     return serve_step
 

@@ -129,10 +129,15 @@ def test_shim_matches_the_jax_shim(jax_runs, name, backend):
 
 
 def test_warns_and_refuses_lower_aot():
+    """The shim warns, ``lower_aot`` gives the AOT handle (pc backend) and
+    a bad backend is refused."""
+    from repro_torch.core import batching as t_batching
+
     with pytest.warns(DeprecationWarning, match="batching.autobatch"):
         bp = t_api.autobatch(testing.build_fib(), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        bp.lower_aot({"n": np.array([1, 2], np.int32)})
+    handle = bp.lower_aot({"n": np.array([1, 2], np.int32)})
+    assert isinstance(handle, t_batching.AotLowered) and handle.vm is bp.vm
+    assert set(handle.cost_analysis()) == {"flops", "bytes accessed"}
     with pytest.raises(ValueError, match="backend must be one of"):
         t_api.BatchedProgram(testing.build_fib(), 2, backend="nope", device="cpu")
 

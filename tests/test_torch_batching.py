@@ -493,9 +493,20 @@ def test_batch_size_sizes_a_call_with_no_batched_argument():
 
 
 def test_aot_lower_is_not_ported():
-    bf = T.autobatch(build_axpy_builder(T))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        bf.lower(np.ones(2, np.float32), np.ones(2, np.float32), np.ones(2, np.float32))
+    """``lower()`` in both packages: a handle with the program's text, a
+    compile step and a cost dict of FLOPs and bytes accessed; the port's
+    text is its lowered IR, and axpy's two multiplies are elementwise (no
+    product FLOPs in either count of products)."""
+    args = (np.ones(2, np.float32), np.ones(2, np.float32), np.ones(2, np.float32))
+    j, t = (p.autobatch(build_axpy_builder(p)).lower(*args) for p in BOTH)
+    assert isinstance(t, t_batching.AotLowered) and isinstance(j, j_batching.AotLowered)
+    assert t.as_text() == t.vm.lowered.pretty() and "axpy" in t.as_text()
+    assert j.as_text()
+    assert t.compile() is t and j.compile() is not None
+    t_cost, j_cost = t.cost_analysis(), j.cost_analysis()
+    assert {"flops", "bytes accessed"} <= set(j_cost)
+    assert set(t_cost) == {"flops", "bytes accessed"} and t_cost["flops"] == 0.0
+    assert t_cost["bytes accessed"] > 0
 
 
 def test_diagnostics_match_the_reference():

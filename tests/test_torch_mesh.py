@@ -196,12 +196,18 @@ class TestAutobatchMesh:
             np.testing.assert_array_equal(got, plain)
             np.testing.assert_array_equal(got, [0, 6, 9, 3])
 
-    def test_aot_lower_waits_for_item_4(self):
-        """The JAX test_aot_lower_and_cost_analysis's counterpart: lower()
-        is ROADMAP item 4, with or without a mesh."""
-        fn = t_batching.autobatch(workers.build_fib(), mesh=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            fn.lower(np.arange(4, dtype=np.int32))
+    def test_aot_lower_waits_for_item_4(self, ranks):
+        """The JAX test_aot_lower_and_cost_analysis's counterpart: under a
+        mesh each rank's handle holds its two lanes, prints the lowered
+        program, compiles (a collective run) and counts the same cost."""
+        costs = []
+        for r in ranks:
+            text_ok, lanes, compiled, cost, out = r["api"]["aot"]
+            assert text_ok and lanes == 2 and compiled
+            assert set(cost) == {"flops", "bytes accessed"} and cost["bytes accessed"] > 0
+            np.testing.assert_array_equal(out, [0, 1, 3, 6])
+            costs.append(cost)
+        assert costs[0] == costs[1]
 
     def test_legacy_api_shim_passes_mesh(self, ranks):
         for r in ranks:

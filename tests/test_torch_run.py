@@ -2,10 +2,14 @@
 counterpart of ``benchmarks/run.py``) on the CPU: its arguments reach each
 sub-benchmark (their mains replaced by recorders), one real tiny run
 writes records that parse as strict JSON, ``--mesh`` reaches fig5 and
-serve as in the JAX driver, and what the port lacks or must never do is
-refused — the roofline (item 14), ``--use-kernel off`` (a fallback on the
-card) and the JAX package's record paths."""
+serve as in the JAX driver, ``--only roofline`` renders the dry-run's
+records of both production meshes, and what the port must never do is
+refused — ``--use-kernel off`` (a fallback on the card) and the JAX
+package's record paths."""
 import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -95,8 +99,8 @@ def test_mesh_reaches_fig5_and_serve(recorded, tmp_path, mesh, serve_mesh):
 
 
 @pytest.mark.parametrize("argv, says", [
-    (["--only", "roofline"], "item 14"),
-    (["--only", "fig5,roofline"], "item 14"),
+    (["--only", "roofline,fig7"], "unknown benchmarks"),
+    (["--only", "fig5,roofline", "--use-kernel", "off"], "fallback"),
     (["--use-kernel", "off"], "fallback"),
     (["--use-kernel", "on,off"], "fallback"),
     (["--json-out", "BENCH_fig5.json"], "JAX package's record"),
@@ -107,3 +111,21 @@ def test_refusals(argv, says, recorded):
     with pytest.raises(SystemExit, match=says):
         torch_run.main(argv)
     assert recorded == {}
+
+
+def test_roofline_renders_the_dryrun_records(tmp_path, capsys):
+    """A reduced-config cell's record (SmolLM-135M, 2 layers, decode_32k on
+    32 x 8; the dry-run runs in its own process, whose fake process group
+    it opens) rendered by ``--only roofline`` for both production meshes."""
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "tests.torch_dryrun_workers", "--record",
+         str(tmp_path / "smollm-135m__decode_32k__32x8.json")], cwd=root,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join([str(root / "src"), str(root)])},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert torch_run.main(["--only", "roofline", "--dryrun-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "mesh 32x8" in out and "mesh 2x32x8" in out
+    row = next(line for line in out.splitlines() if line.startswith("smollm-135m"))
+    assert "decode_32k" in row and row.split()[5] in ("compute", "memory", "collective")

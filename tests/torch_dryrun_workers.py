@@ -1,0 +1,64 @@
+"""What tests/test_torch_dryrun.py and test_torch_run.py run in a fresh
+process: the dry-run opens a process group of the ``"fake"`` backend,
+which is global to its process.  It imports no JAX.
+
+    python -m tests.torch_dryrun_workers OUT.json          # the checks
+    python -m tests.torch_dryrun_workers --record OUT.json # a reduced cell's record
+"""
+import json
+import sys
+
+import torch
+
+
+def sharded_linear() -> dict:
+    """A row-parallel linear on a ``(data 2, model 2)`` mesh of meta tensors:
+    ``x [8, 64]`` over (data, model), ``w [64, 32]`` rows over model, the
+    product's partial sums all-reduced over model."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    x = DTensor.from_local(torch.empty(4, 32, device="meta"), mesh, [Shard(0), Shard(1)],
+                           run_check=False, shape=torch.Size((8, 64)), stride=(64, 1))
+    w = DTensor.from_local(torch.empty(32, 32, device="meta"), mesh, [Replicate(), Shard(0)],
+                           run_check=False, shape=torch.Size((64, 32)), stride=(32, 1))
+    _, cost = op_cost.count(lambda a, b: (a @ b).redistribute(mesh, [Shard(0), Replicate()]),
+                            x, w, meshes=[mesh])
+    return dict(flops=cost.flops, unsharded_flops=2.0 * 8 * 64 * 32,
+                collectives=cost.collectives)
+
+
+def production() -> dict:
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, num_chips
+
+    out = {"meshes": {}}
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        out["meshes"][str(multi)] = [list(mesh.shape), list(mesh.mesh_dim_names), num_chips(mesh)]
+    out["cell"] = dryrun.run_cell("smollm-135m", "decode_32k", verbose=False)
+    return out
+
+
+def main(argv) -> int:
+    from repro_torch import fake
+    from repro_torch.launch import dryrun
+
+    if argv[0] == "--record":
+        rec = dryrun.run_cell("smollm-135m", "decode_32k", cfg_overrides={"num_layers": 2},
+                              verbose=False)
+        with open(argv[1], "w") as f:
+            json.dump([rec], f, default=float)
+        return 0
+    fake.open_fake_group(dryrun.FAKE_WORLD)
+    res = {"linear": sharded_linear(), **production()}
+    with open(argv[0], "w") as f:
+        json.dump(res, f, default=float)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

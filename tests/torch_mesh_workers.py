@@ -156,8 +156,8 @@ def _clampsum_program():
 
 
 def _api_cases(device) -> dict:
-    """The decorator, shared arguments, the deprecated shim and overflow
-    under mesh=2 (tests/test_mesh.py's TestAutobatchMesh)."""
+    """The decorator, shared arguments, the deprecated shim, the AOT handle
+    and overflow under mesh=2 (tests/test_mesh.py's TestAutobatchMesh)."""
 
     @autobatch(in_specs=(Batched(I32),), out_spec=I32, max_depth=24, device=device)
     def fib(n):
@@ -194,6 +194,17 @@ def _api_cases(device) -> dict:
     out["shim"] = (_host(shim({"n": nn})["out"]),
                    any(issubclass(w.category, DeprecationWarning) for w in caught),
                    shim.last_result.sched.num_devices)
+
+    @autobatch(in_specs=(Batched(I32),), out_spec=I32, max_depth=16, mesh=2, device=device)
+    def tri(n):
+        if n < 1:
+            return n
+        return n + tri(n - 1)
+
+    handle = tri.lower(torch.arange(4, dtype=torch.int32))
+    out["aot"] = (handle.as_text() == tri.lowered.pretty(), handle.vm.lanes,
+                  handle.compile() is handle, handle.cost_analysis(),
+                  _host(tri(torch.arange(4, dtype=torch.int32))))
 
     @autobatch(in_specs=(Batched(I32),), out_spec=I32, max_depth=4, mesh=2, device=device)
     def deep(n):
