@@ -40,7 +40,10 @@ non-zero (nothing is caught):
    the measured run's), its kernel count, top kernels and K1/K2's total;
 7. attention kernels: K3 ``flash_attention`` at the prefill shape (B=8,
    S=T=2048, H=9, Hkv=3, Dh=64) in bf16 (tensor cores) and float32 (CUDA
-   cores) and at Dh=128, G=2, and K4 ``decode_attention`` at the serving
+   cores), at Dh=128, G=2, and in bf16 at the padded head dims: Zamba2-7B's
+   heads (2 x 2,048, H=Hkv=32, Dh=112, causal) and HuBERT-XLarge's (2 x
+   2,048, H=Hkv=16, Dh=80, not causal), each launch held to the route's
+   kernel; K4 ``decode_attention`` at the serving
    shape (B=64, H=9, Hkv=3, Dh=64, W=512, ``count`` drawn from 0 to W) in
    bf16 and float32, each against its plain version (tolerances stated
    there), with device time per launch, time per call, the plain
@@ -146,8 +149,9 @@ non-zero (nothing is caught):
     sites x decode executions, peak memory) and profiled (busy share);
     DeepSeek's mean ``moe_dropped_frac`` at the 16-lane decode batch,
     read outside those runs; the bf16 prefill forward at 2 x 1,024 tokens
-    (K3 launches held to the attention sites, logits against the plain
-    attention printed; xLSTM without a kernel); then K3 and K4 at each
+    (K3 launches held to the attention sites, every one on the tensor-core
+    kernel, logits against the plain attention printed; xLSTM without a
+    kernel, its ms printed); then K3 and K4 at each
     family's own attention shapes (DeepSeek's Dh 128, Zamba2's Dh 112),
     K4 in bf16 and float32, against their plain versions, timed as in
     phase 7;
@@ -758,12 +762,14 @@ def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=1e-2, atol=2e-2)}
 
 
-def _k3_check(torch, b: int, s: int, h: int, hk: int, dh: int, dtype) -> dict:
-    """K3 (causal) on seeded ``[B, S, H, Dh]`` operands against its plain
-    version, and its device time a launch beside its call time, the plain
+def _k3_check(torch, b: int, s: int, h: int, hk: int, dh: int, dtype,
+              causal: bool = True) -> dict:
+    """K3 on seeded ``[B, S, H, Dh]`` operands against its plain version,
+    and its device time a launch beside its call time, the plain
     version's, one SDPA call's and the bound; prints one line."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.testing import attention_inputs
@@ -771,29 +777,33 @@ def _k3_check(torch, b: int, s: int, h: int, hk: int, dh: int, dtype) -> dict:
     name = str(dtype).replace("torch.", "")
     q, k, v = (x.to("cuda", dtype) for x in attention_inputs(b, s, s, h, hk, dh, seed=7))
     sm90_before = fa_ops.flash_attention.sm90_launches
-    got = fa_ops.flash_attention(q, k, v)
-    want = fa_ref.attention(q, k, v)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     on_sm90 = fa_ops.flash_attention.sm90_launches == sm90_before + 1
-    # The tensor-core kernel takes bf16 at Dh 64 and 128, the CUDA-core one the rest.
-    check(on_sm90 == (dtype == torch.bfloat16 and dh in (64, 128)),
+    # The tensor-core kernel takes bf16 at every head dim, the CUDA-core one float32.
+    check(fa_kernel.route(dtype) == ("sm90" if dtype == torch.bfloat16 else "cuda_cores"),
+          f"K3 {name} Dh={dh}: route {fa_kernel.route(dtype)}")
+    check(on_sm90 == (fa_kernel.route(dtype) == "sm90"),
           f"K3 {name} Dh={dh} took the wrong kernel (tensor cores: {on_sm90})")
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[name])
     err = float((got.float() - want.float()).abs().max())
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kern_dev = _device_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 5, 3)
-    call = _call_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 10)
-    plain = _device_ms(torch, lambda: fa_ref.attention(q, k, v), 3, 2)
+    kern_dev = _device_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=causal), 5, 3)
+    call = _call_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=causal), 10)
+    plain = _device_ms(torch, lambda: fa_ref.attention(q, k, v, causal=causal), 3, 2)
     lib = _device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 5, 3)
-    flops = 4 * b * h * s * s * dh / 2
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 5, 3)
+    flops = 4 * b * h * s * s * dh / (2 if causal else 1)
     nbytes = (2 * b * s * h * dh + 2 * b * s * hk * dh) * q.element_size()
     bound, by = _bound_ms(flops, nbytes, name)
     kind = "tensor cores" if on_sm90 else "CUDA cores"
-    print(f"kernel flash_attention {name:8s} ({kind}) B={b} S=T={s} H={h} Hkv={hk} Dh={dh}: "
+    print(f"kernel flash_attention {name:8s} ({kind}) B={b} S=T={s} H={h} Hkv={hk} Dh={dh} "
+          f"{'causal' if causal else 'non-causal'}: "
           f"device {kern_dev * 1e3:9.1f} us/launch, call {call * 1e3:9.1f} us "
           f"(plain {plain * 1e3:9.1f}, sdpa {lib * 1e3:8.1f}, bound {bound * 1e3:7.1f} us "
-          f"by {by}; {flops / kern_dev / 1e9:.1f} TFLOP/s); max |err| {err:.3g}")
+          f"by {by}; {flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.3f} of the "
+          f"bound); max |err| {err:.3g}")
     return dict(ms=kern_dev, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
                 call_ms=call, max_abs_err=err)
 
@@ -853,6 +863,9 @@ def _k4_check(torch, b: int, w: int, h: int, hk: int, dh: int, dtype, seed: int 
                 call_ms=call, max_abs_err=err)
 
 
+K3_PADDED_SHAPES = ((2, 2048, 32, 32, 112, True), (2, 2048, 16, 16, 80, False))
+
+
 def phase_attention_kernels(torch) -> dict:
     """K3 at the prefill shapes and K4 at the serving shape, against their
     plain versions; returns per-kernel numbers at the main path's shape
@@ -867,6 +880,11 @@ def phase_attention_kernels(torch) -> dict:
             max_err["flash_attention"] = max(max_err["flash_attention"], row["max_abs_err"])
             if (dh, dtype) == (64, torch.bfloat16):
                 report["flash_attention"] = row
+    # The padded head dims: Zamba2-7B's heads (causal) and HuBERT-XLarge's
+    # (its encoder attends both ways), each at 2 x 2,048.
+    for b, s, h, hk, dh, causal in K3_PADDED_SHAPES:
+        row = _k3_check(torch, b, s, h, hk, dh, torch.bfloat16, causal=causal)
+        max_err["flash_attention"] = max(max_err["flash_attention"], row["max_abs_err"])
     for dtype in (torch.bfloat16, torch.float32):
         row = _k4_check(torch, 64, 512, 9, 3, 64, dtype)
         max_err["decode_attention"] = max(max_err["decode_attention"], row["max_abs_err"])
@@ -2210,6 +2228,9 @@ def _family_prefill(torch, model, params, smi: str, batch=None, what: str = "",
         check(launches == model.attention_sites,
               f"families: {cfg.name} prefill launched K3 {launches} times, want "
               f"{model.attention_sites}")
+        check(fa_ops.flash_attention.sm90_launches == launches,
+              f"families: {cfg.name} prefill launched the tensor-core K3 "
+              f"{fa_ops.flash_attention.sm90_launches} of {launches} times")
         check(bool(torch.isfinite(lf).all()), f"families: {cfg.name} prefill logits not finite")
         line = (f"families: {cfg.name} prefill forward bf16, {b} x {s} tokens{what}: "
                 f"{wall * 1e3:.3f} ms, "
@@ -3637,6 +3658,7 @@ def main() -> int:
         smi = phase_env(torch)
         phase_model_sharding(torch, smi, backend=sys.argv[2])
         return 0
+    t_smoke = time.perf_counter()
     settings = nuts.NutsSettings(max_tree_depth=10, num_steps=2, steps_per_leaf=4)
     smi = phase_env(torch)
     dryrun_procs = _dryrun_cells()  # on the host's CPUs beside the build
@@ -3683,6 +3705,8 @@ def main() -> int:
          "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"]}
         for name, (src, replaces) in where.items()]}
+    print(f"smoke: every phase in {time.perf_counter() - t_smoke:.1f} s (limit 1200 s, "
+          f"the build included) on {smi}")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

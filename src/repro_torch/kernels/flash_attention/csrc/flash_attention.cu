@@ -12,9 +12,10 @@
 // Layout: q and out [B, S, H, Dh], k and v [B, T, Hkv, Dh] (the model's
 // own layout, so no transpose is made), each read through its batch, row
 // and head strides in elements with the last axis contiguous; out is
-// contiguous.  Inputs are float32 or bf16; all arithmetic is float32 on
-// CUDA cores (as the TPU kernel casts its tiles to f32) and the output is
-// rounded once to the input type.
+// contiguous.  Float32 only: bf16 inputs at every head dim take the
+// tensor-core kernel (flash_attention_sm90.cu, kernel.py's route).  All
+// arithmetic is float32 on CUDA cores, as the TPU kernel casts its tiles
+// to f32.
 //
 // Bound: operations.  The causal work is about 4*B*H*S*T*Dh/2 FLOPs over
 // (B*S*H + 2*B*T*Hkv + B*S*H)*Dh*s bytes; at the prefill shape (B=8,
@@ -41,7 +42,6 @@
 // allocates nothing, and returns cudaGetLastError().
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,36 +53,28 @@ constexpr int kRowsPerThread = 4;  // 16 row groups x 4 rows = 64
 constexpr int kColLanes = 8;       // lanes sharing one row group
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 struct Strides {
   long long b, s, h;  // elements; the head-dim axis is contiguous
 };
 
 // Copy rows [row0, row0 + 64) of one head into a float32 tile [64][DH + 1];
 // rows past `rows` are zero.
-template <typename T, int DH>
-__device__ void load_tile(float* tile, const T* __restrict__ base, long long row_stride,
+template <int DH>
+__device__ void load_tile(float* tile, const float* __restrict__ base, long long row_stride,
                           int row0, int rows) {
   for (int e = threadIdx.x; e < kBlockK * DH; e += kThreads) {
     const int r = e / DH;
     const int d = e - r * DH;
     const int row = row0 + r;
     tile[r * (DH + 1) + d] =
-        row < rows ? to_f32(base[static_cast<long long>(row) * row_stride + d]) : 0.f;
+        row < rows ? base[static_cast<long long>(row) * row_stride + d] : 0.f;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, Strides qs, Strides ks, Strides vs, int seq_q, int seq_k,
+flash_kernel(float* __restrict__ out, const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, Strides qs, Strides ks, Strides vs, int seq_q, int seq_k,
              int heads, int group, float scale, int causal) {
   constexpr int kCols = DH / kColLanes;  // output columns per thread
   extern __shared__ float smem[];
@@ -100,10 +92,10 @@ flash_kernel(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__
   const int tx = threadIdx.x % kColLanes;
   const int q0 = iq * kBlockQ;
 
-  const T* q_base = q + b * qs.b + h * qs.h + static_cast<long long>(q0) * qs.s;
-  load_tile<T, DH>(q_tile, q_base, qs.s, 0, seq_q - q0);
-  const T* k_base = k + b * ks.b + hk * ks.h;
-  const T* v_base = v + b * vs.b + hk * vs.h;
+  const float* q_base = q + b * qs.b + h * qs.h + static_cast<long long>(q0) * qs.s;
+  load_tile<DH>(q_tile, q_base, qs.s, 0, seq_q - q0);
+  const float* k_base = k + b * ks.b + hk * ks.h;
+  const float* v_base = v + b * vs.b + hk * vs.h;
 
   float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][kCols];
 #pragma unroll
@@ -122,8 +114,8 @@ flash_kernel(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__
   for (int jt = 0; jt < num_k_tiles; ++jt) {
     const int k0 = jt * kBlockK;
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, DH>(k_tile, k_base, ks.s, k0, seq_k);
-    load_tile<T, DH>(v_tile, v_base, vs.s, k0, seq_k);
+    load_tile<DH>(k_tile, k_base, ks.s, k0, seq_k);
+    load_tile<DH>(v_tile, v_base, vs.s, k0, seq_k);
     __syncthreads();
 
     float s[kRowsPerThread][kColLanes];
@@ -201,61 +193,57 @@ flash_kernel(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__
     const int row = q0 + ty * kRowsPerThread + i;
     if (row >= seq_q) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<long long>(b) * seq_q + row) * heads + h) * DH;
+    float* o = out + ((static_cast<long long>(b) * seq_q + row) * heads + h) * DH;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) o[tx + kColLanes * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < kCols; ++j) o[tx + kColLanes * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch(void* out, const void* q, const void* k, const void* v, Strides qs, Strides ks,
            Strides vs, int batch, int seq_q, int seq_k, int heads, int kv_heads, float scale,
            int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * kBlockQ * (DH + 1) + kBlockQ * (kBlockK + 1));
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<T*>(out), static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qs, ks, vs, seq_q, seq_k, heads, heads / kv_heads, scale, causal);
+  flash_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<float*>(out), static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), qs, ks, vs, seq_q, seq_k, heads, heads / kv_heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_dh(int head_dim, void* out, const void* q, const void* k, const void* v, Strides qs,
                 Strides ks, Strides vs, int batch, int seq_q, int seq_k, int heads, int kv_heads,
                 float scale, int causal, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
-    case 32: return launch<T, 32>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
-    case 64: return launch<T, 64>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
-    case 80: return launch<T, 80>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
-    case 112: return launch<T, 112>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
-    case 128: return launch<T, 128>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 16: return launch<16>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 32: return launch<32>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 64: return launch<64>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 80: return launch<80>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 112: return launch<112>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
+    case 128: return launch<128>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.
+// float32 only (bf16 takes the tensor-core kernel, flash_attention_sm90.cu).
+// Strides are in elements.
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k, const void* v,
                                    long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    int batch, int seq_q, int seq_k, int heads, int kv_heads,
-                                   int head_dim, float scale, int causal, int dtype,
-                                   void* stream) {
+                                   int head_dim, float scale, int causal, void* stream) {
   if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
       batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_dh<float>(head_dim, out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
-    case 1: return dispatch_dh<__nv_bfloat16>(head_dim, out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_dh(head_dim, out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads,
+                     scale, causal, s);
 }

@@ -4,8 +4,9 @@
 //
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention/kernel.py, _flash_kernel) for bf16
-// inputs with a head dim of 64 or 128; float32 and smaller head dims keep
-// the CUDA-core kernel in flash_attention.cu.  It computes
+// inputs at every head dim the port serves: 16, 32, 64, 80, 112 and 128
+// (80 and 112 are HuBERT-XLarge's and Zamba2-7B's); float32 keeps the
+// CUDA-core kernel in flash_attention.cu.  It computes
 //   out[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h / G] * scale) v[b, t, h / G]
 // over t <= s when causal (top-left alignment, rows >= cols), with the
 // online softmax's running max and sum in float32 and the output rounded
@@ -27,18 +28,28 @@
 // pointer 16-byte aligned; the wrapper checks both and raises otherwise.
 // out is contiguous.
 //
+// Padding: the kernel is templated on Dh and works at a padded width DP,
+// Dh rounded up to 64 (16 and 32 -> 64; 80 and 112 -> 128).  The tensor
+// maps keep the real Dh as their innermost extent and every box is 64
+// columns, so TMA's out-of-bounds fill (FLOAT_OOB_FILL_NONE: zeros) supplies
+// columns Dh .. DP - 1 of Q, K and V; each box's expect_tx counts the whole
+// box, fill included.  Q.K^T takes Dh / 16 k-steps (zero columns would add
+// nothing), P.V runs at n = DP with the extra accumulator columns (zero, as
+// V's are) never stored, and the epilogue stores Dh columns a row.
+//
 // Bound: operations.  4*B*H*S*T*Dh/2 FLOPs when causal against about
 // (2*B*S*H + 2*B*T*Hkv)*Dh*2 bytes: at the prefill shape (B=8, S=T=2048,
 // H=9, Hkv=3, Dh=64) ~770 FLOPs a byte, above the H100's ~295, so the
-// tensor cores are the limit.
+// tensor cores are the limit.  A padded head dim does DP / Dh of the P.V
+// work the bound counts (1.14x at Dh 112, 1.6x at Dh 80).
 //
 // Design: one CTA of two consumer warpgroups (256 threads) for 128 query
 // rows of one (head, batch), 64 rows a warpgroup; query tiles numbered so
 // that the longest rows (the most keys) start first.  Q is loaded once;
 // K and V come in tiles of 128 keys through a two-stage ring in shared
 // memory.  Every tile is a TMA box of 64 bf16 columns (128 bytes, one
-// swizzle row) with 128-byte swizzle, so a head dim of 128 is two boxes;
-// swizzled tiles are 1024-byte aligned.  Thread 0 issues tile j+1's
+// swizzle row) with 128-byte swizzle, so a padded width of 128 is two
+// boxes; swizzled tiles are 1024-byte aligned.  Thread 0 issues tile j+1's
 // loads before tile j's math, so one tile is always in flight; loads
 // complete on mbarriers (K and V apart, so Q.K^T starts before V lands),
 // and one __syncthreads a tile frees a stage for its next load.
@@ -54,17 +65,17 @@
 //     m64nN accumulator layout is the A-fragment layout of the next
 //     product); B = V from shared memory is MN-major (contiguous along Dh),
 //     so the transpose-B bit is set: 8 k-steps of 16 keys, 2048 bytes
-//     apart, a head dim of 128 reaching its second box through the
+//     apart, a padded width of 128 reaching its second box through the
 //     descriptor's leading byte offset.  O is rescaled by alpha in
 //     registers before the product.
 //   wgmma.fence precedes each batch of products; commit and wait_group 0
 //     follow it, and an empty asm on every accumulator register keeps the
 //     compiler from touching them while a product is in flight.
 //   Epilogue: 1/max(l, 1e-30), rounded to bf16, stored as bf16 pairs to
-//     the contiguous output; rows past S (a 64-row remainder tile, loaded
-//     as TMA's zero fill) are not stored.
-// At Dh = 64 a thread needs 128 registers, so two CTAs share an SM and one
-// CTA's softmax overlaps the other's products; at Dh = 128 (168 registers)
+//     the contiguous output (Dh columns, row stride H * Dh); rows past S
+//     (a 64-row remainder tile, loaded as TMA's zero fill) are not stored.
+// At DP = 64 a thread needs 128 registers, so two CTAs share an SM and one
+// CTA's softmax overlaps the other's products; at DP = 128 (168 registers)
 // one CTA runs an SM.  No producer warp, no setmaxnreg and no overlap of a
 // warpgroup's own softmax with its products yet: later steps.
 //
@@ -90,11 +101,17 @@ constexpr int kBoxBytes = kBlockN * kRowBytes;  // 16 KB (kBlockM == kBlockN)
 static_assert(kBlockM == kBlockN, "Q boxes and K/V boxes share one size");
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory, from a 1024-byte aligned base: Q, two K stages, two V
-// stages (each DH / 64 boxes), then the mbarriers: Q, K[2], V[2].
+// The padded width of a head dim: a whole number of 64-column boxes.
 template <int DH>
+__host__ __device__ constexpr int padded() {
+  return (DH + kBoxCols - 1) / kBoxCols * kBoxCols;
+}
+
+// Shared memory, from a 1024-byte aligned base: Q, two K stages, two V
+// stages (each DP / 64 boxes), then the mbarriers: Q, K[2], V[2].
+template <int DP>
 struct Smem {
-  static constexpr int kBoxes = DH / kBoxCols;
+  static constexpr int kBoxes = DP / kBoxCols;
   static constexpr int kTile = kBoxes * kBoxBytes;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTile;
@@ -258,8 +275,8 @@ __device__ __forceinline__ void tile_max(float (&s)[64], float& mx0, float& mx1,
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], uint32_t a0, uint32_t a1,
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint64_t desc_b);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], uint32_t a0, uint32_t a1,
@@ -278,9 +295,10 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
                   int seq_q, int seq_k, int heads, int group, float scale_log2, int causal) {
-  using L = Smem<DH>;
+  constexpr int DP = padded<DH>();
+  using L = Smem<DP>;
   constexpr int kBoxes = L::kBoxes;
-  constexpr int kAcc = DH / 2;  // O floats per thread: 64 rows x DH over 128 threads
+  constexpr int kAcc = DP / 2;  // O floats per thread: 64 rows x DP over 128 threads
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::kQ;
@@ -350,7 +368,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     if (tid == 0 && j + 1 < n_tiles) load_kv(j + 1);  // its stage was freed last tile
     __syncwarp();
 
-    // S = Q.K^T for this warpgroup's 64 rows x 128 keys.
+    // S = Q.K^T for this warpgroup's 64 rows x 128 keys (the real Dh only).
     float s[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) s[i] = 0.f;
@@ -414,7 +432,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       const uint32_t va = v_s + stage * L::kTile + kk * 16 * kRowBytes;
-      wgmma_pv<DH>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+      wgmma_pv<DP>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
                    sw128_desc(va, kBoxBytes, 8 * kRowBytes));
     }
     wgmma_commit();
@@ -429,7 +447,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  // out is contiguous [B, S, H, DH]; o[4c + e] is column 8c + col_lane + e % 2.
+  // out is contiguous [B, S, H, DH]; o[4c + e] is column 8c + col_lane + e % 2,
+  // and columns DH .. DP - 1 (padding) are not stored.
   __nv_bfloat16* o0 = out + ((static_cast<long long>(b) * seq_q + row0) * heads + h) * DH;
   __nv_bfloat16* o1 = o0 + 8ll * heads * DH;
 #pragma unroll
@@ -497,7 +516,7 @@ int launch(void* out, const void* q, const void* k, const void* v, const long lo
   if (err == 0) err = make_map(&k_map, k, DH, kv_heads, seq_k, batch, ks[2], ks[1], ks[0]);
   if (err == 0) err = make_map(&v_map, v, DH, kv_heads, seq_k, batch, vs[2], vs[1], vs[0]);
   if (err != 0) return err;
-  const int smem = Smem<DH>::kBytes;
+  const int smem = Smem<padded<DH>()>::kBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_sm90_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -510,7 +529,7 @@ int launch(void* out, const void* q, const void* k, const void* v, const long lo
 
 }  // namespace
 
-// bf16 only; head_dim 64 or 128.  Strides are in elements.
+// bf16 only; head_dim 16, 32, 64, 80, 112 or 128.  Strides are in elements.
 extern "C" int flash_attention_sm90_fwd(void* out, const void* q, const void* k, const void* v,
                                         long long q_sb, long long q_ss, long long q_sh,
                                         long long k_sb, long long k_ss, long long k_sh,
@@ -523,7 +542,11 @@ extern "C" int flash_attention_sm90_fwd(void* out, const void* q, const void* k,
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh}, vs[3] = {v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16: return launch<16>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
+    case 32: return launch<32>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
     case 64: return launch<64>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
+    case 80: return launch<80>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
+    case 112: return launch<112>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
     case 128: return launch<128>(out, q, k, v, qs, ks, vs, batch, seq_q, seq_k, heads, kv_heads, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

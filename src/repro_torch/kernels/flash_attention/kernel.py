@@ -2,10 +2,12 @@
 replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:flash_attention``.
 
-Two kernels, chosen by :func:`route` from the dtype and head dim alone:
-``csrc/flash_attention_sm90.cu`` (bf16, Dh 64 or 128: TMA loads and
-``wgmma`` on the tensor cores) and ``csrc/flash_attention.cu`` (float32,
-and bf16 with Dh 16, 32, 80 or 112: float32 FMAs on the CUDA cores).  Both
+Two kernels, chosen by :func:`route` from the dtype alone:
+``csrc/flash_attention_sm90.cu`` (bf16 at every head dim in
+:data:`HEAD_DIMS`: TMA loads and ``wgmma`` on the tensor cores; a head dim
+that is not a multiple of 64 runs at its padded width, 64 or 128, with
+TMA's zero fill in the extra columns) and ``csrc/flash_attention.cu``
+(float32: float32 FMAs on the CUDA cores).  Both
 take the model's ``[B, S, H, Dh]`` / ``[B, T, Hkv, Dh]`` layout and read each
 operand through its strides; :mod:`.ops` validates arguments and counts
 launches.  Each library is built with ``nvcc`` at its first launch (see
@@ -26,9 +28,8 @@ from .. import _build
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu",)
 SM90_SOURCES = (_CSRC / "flash_attention_sm90.cu",)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)  # float32 on the CUDA cores, bf16 on the tensor cores
 HEAD_DIMS = (16, 32, 64, 80, 112, 128)
-SM90_HEAD_DIMS = (64, 128)
 BLOCK = 64  # query and key rows per tile
 
 _P = ctypes.c_void_p
@@ -41,7 +42,7 @@ def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on the first call)."""
     lib = _build.load("flash_attention", SOURCES)
     lib.flash_attention_fwd.argtypes = (
-        [_P] * 4 + [_L] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+        [_P] * 4 + [_L] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]
     )
     lib.flash_attention_fwd.restype = _I
     return lib
@@ -58,24 +59,27 @@ def library_sm90() -> ctypes.CDLL:
     return lib
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which CUDA kernel takes these operands: ``"sm90"`` (TMA + wgmma,
-    bf16 with Dh 64 or 128) or ``"cuda_cores"`` (everything else)."""
-    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "cuda_cores"
+def route(dtype: torch.dtype) -> str:
+    """Which CUDA kernel takes operands of ``dtype``, at every head dim in
+    :data:`HEAD_DIMS`: ``"sm90"`` (TMA + wgmma, bf16) or ``"cuda_cores"``
+    (float32)."""
+    return "sm90" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool) -> torch.Tensor:
-    """q ``[B, S, H, Dh]``; k, v ``[B, T, Hkv, Dh]`` on one CUDA device, of
-    one dtype in :data:`DTYPES`, last axis contiguous -> a new contiguous
+    """The CUDA-core kernel: q ``[B, S, H, Dh]``; k, v ``[B, T, Hkv, Dh]``,
+    float32 on one CUDA device, last axis contiguous -> a new contiguous
     ``[B, S, H, Dh]``."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the CUDA-core kernel takes float32, got {q.dtype}")
     b, s, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     code = library().flash_attention_fwd(
         out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, s, t, h, hk, dh, 1.0 / math.sqrt(dh), int(causal), DTYPES[q.dtype],
+        b, s, t, h, hk, dh, 1.0 / math.sqrt(dh), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if code != 0:
@@ -86,9 +90,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool) -> torch.Tensor:
     """The tensor-core kernel: q ``[B, S, H, Dh]``; k, v ``[B, T, Hkv, Dh]``,
-    bf16 on one CUDA device with Dh in :data:`SM90_HEAD_DIMS`, base pointers
+    bf16 on one CUDA device with Dh in :data:`HEAD_DIMS`, base pointers
     and all strides but the last multiples of 16 bytes -> a new contiguous
     ``[B, S, H, Dh]``."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernel takes bfloat16, got {q.dtype}")
     b, s, h, dh = q.shape
     t, hk = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)

@@ -93,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {q.shape[-1]} not in {kernel.HEAD_DIMS}")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need a contiguous last (head-dim) axis")
-    if kernel.route(q.dtype, q.shape[-1]) == "sm90":
+    if kernel.route(q.dtype) == "sm90":
         _layout.check_aligned(q=q, k=k, v=v)
         out = kernel.flash_attention_sm90(q, k, v, causal=causal)
         flash_attention.sm90_launches += 1

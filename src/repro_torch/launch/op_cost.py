@@ -14,9 +14,12 @@ where nothing is computed or allocated.  Per op:
   ``2 * prod(result) * (C_in / groups) * prod(kernel)`` for a convolution
   (its backward: the same for each gradient it makes).  Eager code runs
   every iteration of a Python loop, so a loop of 12 counts its body 12
-  times: ``hlo_cost.py``'s trip-count recovery, which XLA's while loops
-  need because ``cost_analysis()`` counts a loop body once, has no
-  counterpart here.
+  times.  A loop too long to run op by op on fake tensors (the sLSTM's
+  scan over 32,768 tokens) runs one trip under :func:`trips`, as
+  ``hlo_cost.py`` counts an XLA ``while`` loop's body times its trip
+  count: the ops of that trip, and of its autograd nodes' backward, count
+  ``n`` times, and the storages it leaves live count ``n`` times from
+  :meth:`Trips.hold` until freed.
 * **HBM bytes**: operand plus result bytes of every op (a broadcast
   operand counts its distinct elements).  Views and metadata ops count
   zero, and so does an allocation (``empty``).  Eager PyTorch fuses
@@ -35,7 +38,8 @@ where nothing is computed or allocated.  Per op:
   ``scope_bytes[name]`` / ``scope_flops[name]`` (the reference reads its
   ``jax.named_scope`` labels from each instruction's ``op_name``).  The
   backward of a scoped op counts in the scope too: the counter notes the
-  autograd node a scoped op makes and attributes the ops run for that node.
+  autograd node a scoped op makes and attributes the ops run for that node
+  (:func:`trips` marks its nodes the same way).
 * **Kernels**: the port's kernels launch through ``ctypes``, where no mode
   sees them, and on a fake tensor they compute nothing.  Each kernel
   wrapper calls :func:`record` with its FLOPs (what its plain version's ops
@@ -58,7 +62,7 @@ an output's shape, are no rank's work and are skipped.
 Enter the counter inside a ``FakeTensorMode``, so that it sees each op
 before the fake mode answers it.  Nothing here is private to PyTorch
 beyond ``torch._C._current_autograd_node`` and the autograd sequence
-number, which the scopes' backward attribution reads.
+number, which the scopes' and trips' backward attribution reads.
 """
 from __future__ import annotations
 
@@ -141,6 +145,51 @@ def _scope(c: "OpCounter", name: str):
         yield
     finally:
         c._scopes.pop()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Count nothing within (aliases that stand for tensors a trip counted
+    already); with no counter active, nothing happens."""
+    c = active()
+    if c is None:
+        yield
+    else:
+        with c.paused():
+            yield
+
+
+class Trips:
+    """One trip of a loop standing for ``n``: within ``with``, every op (and
+    the backward of every autograd node made there) counts ``n`` times;
+    :meth:`hold`, called once the loop is done, makes each storage the trip
+    made that is still live count ``n`` times until it is freed, as the
+    ``n`` trips' would be.  With no counter active it does nothing."""
+
+    def __init__(self, counter: Optional["OpCounter"], n: int):
+        self._counter, self.n = counter, n
+        self._keys: set = set()
+
+    def __enter__(self):
+        if self._counter is not None:
+            self._counter._trips.append(self)
+            self._counter._unheld.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self._counter is not None:
+            self._counter._trips.remove(self)
+
+    def hold(self) -> None:
+        if self._counter is not None and self in self._counter._unheld:
+            self._counter._unheld.remove(self)
+            self._counter._hold(self._keys, self.n)
+        self._keys = set()
+
+
+def trips(n: int) -> Trips:
+    """A :class:`Trips` of ``n`` for the active counter."""
+    return Trips(active(), n)
 
 
 @dataclass
@@ -251,6 +300,9 @@ class OpCounter(TorchDispatchMode):
         self._cost = Cost()
         self._scopes: list[str] = []
         self._scoped_nodes: dict[int, tuple] = {}
+        self._trips: list[Trips] = []
+        self._unheld: list[Trips] = []  # their storages' keys are followed until freed
+        self._node_trips: dict[int, int] = {}
         self._live: dict[int, int] = {}
         self._live_bytes = 0
         self._args: set[int] = set()
@@ -300,16 +352,33 @@ class OpCounter(TorchDispatchMode):
                 names.update(self._scoped_nodes.get(node._sequence_nr(), ()))
         return names
 
+    def _trip_count(self) -> int:
+        """How many times an op counts here: the product of the trips in
+        force and, in a backward pass, the trips of the node it runs for."""
+        n = math.prod(t.n for t in self._trips)
+        if self._node_trips:
+            node = torch._C._current_autograd_node()
+            if node is not None:
+                n *= self._node_trips.get(node._sequence_nr(), 1)
+        return n
+
     def _note_scoped_node(self, args: tuple, kwargs: dict) -> None:
-        """Under a scope, the autograd node this op made (if it made one)
-        is the scope's: its backward counts there."""
-        if not self._scopes or not torch.is_grad_enabled():
+        """Under a scope (or trips), the autograd node this op made (if it
+        made one) is the scope's: its backward counts there (that many
+        times)."""
+        if not (self._scopes or self._trips) or not torch.is_grad_enabled():
             return
         if any(t.requires_grad for t in _tensors((args, kwargs))):
-            self._scoped_nodes[torch._C._autograd._get_sequence_nr() - 1] = tuple(self._scopes)
+            seq = torch._C._autograd._get_sequence_nr() - 1
+            if self._scopes:
+                self._scoped_nodes[seq] = tuple(self._scopes)
+            if self._trips:
+                self._node_trips[seq] = math.prod(t.n for t in self._trips)
 
     def _add(self, flops: float, nbytes: float) -> None:
         c = self._cost
+        n = self._trip_count()
+        flops, nbytes = flops * n, nbytes * n
         c.flops += flops
         c.bytes_accessed += nbytes
         for name in self._scope_names():
@@ -321,7 +390,7 @@ class OpCounter(TorchDispatchMode):
         if name.startswith("prim::"):  # device and layout queries
             return
         c = self._cost
-        c.op_count += 1
+        c.op_count += self._trip_count()
         outs = _tensors(out)
         ns, _, op = name.partition("::")
         kind = _COLLECTIVE_OPS.get(op) if ns in _COLLECTIVE_NAMESPACES else None
@@ -333,7 +402,7 @@ class OpCounter(TorchDispatchMode):
             ins = {id(t): t for t in _tensors((args, kwargs))}
             nbytes = sum(_footprint(t) for t in ins.values()) + sum(_footprint(t) for t in outs)
         flops, product = _flops(name, args, out)
-        c.dot_count += product
+        c.dot_count += product * self._trip_count()
         self._add(flops, nbytes)
         for t in outs:
             self._track(t)
@@ -343,20 +412,22 @@ class OpCounter(TorchDispatchMode):
             self._dims = _group_dims(self._meshes)
         group = _group_of(args, kwargs)
         dim = self._dims.get(group, group or "?")
-        nbytes = float(sum(t.numel() * t.element_size() for t in outs))
+        n = self._trip_count()
+        nbytes = n * float(sum(t.numel() * t.element_size() for t in outs))
         e = self._cost.collectives.setdefault(kind, {"count": 0, "bytes": 0.0, "dims": {}})
-        e["count"] += 1
+        e["count"] += n
         e["bytes"] += nbytes
         d = e["dims"].setdefault(dim, {"count": 0, "bytes": 0.0})
-        d["count"] += 1
+        d["count"] += n
         d["bytes"] += nbytes
 
     def _record(self, name: str, flops: float, nbytes: float) -> None:
+        n = self._trip_count()
         k = self._cost.kernels.setdefault(name, {"count": 0, "flops": 0.0, "bytes": 0.0})
-        k["count"] += 1
-        k["flops"] += flops
-        k["bytes"] += nbytes
-        self._cost.dot_count += flops > 0
+        k["count"] += n
+        k["flops"] += flops * n
+        k["bytes"] += nbytes * n
+        self._cost.dot_count += (flops > 0) * n
         self._add(flops, nbytes)
 
     # ------------------------------------------------------------ memory
@@ -370,15 +441,29 @@ class OpCounter(TorchDispatchMode):
         key = st._cdata
         if key not in self._live:
             self._live[key] = st.nbytes()
-            self._live_bytes += self._live[key]
-            c = self._cost
-            c.peak_bytes = max(c.peak_bytes, self._live_bytes)
+            self._grow(self._live[key])
             weakref.finalize(st, self._free, key)
+            for trip in self._trips:
+                trip._keys.add(key)
         return key
+
+    def _grow(self, nbytes: int) -> None:
+        self._live_bytes += nbytes
+        self._cost.peak_bytes = max(self._cost.peak_bytes, self._live_bytes)
+
+    def _hold(self, keys: set, n: int) -> None:
+        """Each of ``keys`` still live counts ``n`` times until freed."""
+        for key in keys:
+            if key in self._live:
+                extra = self._live[key] * (n - 1)
+                self._live[key] += extra
+                self._grow(extra)
 
     def _free(self, key: int) -> None:
         if not self._closed and key in self._live:
             self._live_bytes -= self._live.pop(key)
+            for trip in self._unheld:  # a new storage may take the freed one's key
+                trip._keys.discard(key)
 
     def _leaves(self, trees) -> list[torch.Tensor]:
         out = []

@@ -8,7 +8,11 @@ terms inside a chunk are masked ``[L, L]`` products, and the state
 exponential gating is max-stabilized in log space (float32).  The sLSTM
 mixes its hidden state into the gates, so it runs as a Python loop over
 time with block-diagonal per-head recurrent weights, one cell a token, as
-the reference's ``lax.scan`` over time does.
+the reference's ``lax.scan`` over time does; the gates' input products
+and the weights' casts, which do not depend on the recurrence, are made
+once before the loop.  On fake tensors (the dry-run) the loop is counted
+per trip, as the reference's HLO counter counts a ``while`` loop
+(:func:`_scan_per_trip`).
 
 Maxima are ``torch.amax``/``torch.maximum``, whose gradients split ties
 evenly, as ``jnp.max``/``jnp.maximum``'s do.
@@ -19,7 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import fake
 from ..configs.base import ArchConfig
+from ..launch import op_cost
 from . import shard_ctx
 from .layers import Params, _normal, pdtype, rms_norm_simple
 
@@ -238,24 +244,33 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
     }
 
 
-def _slstm_cell(params: Params, cfg: ArchConfig, x_t, x_conv_t, state):
-    """One sLSTM step.  x_t, x_conv_t: [B, d]; state (c, n, h, m), each
-    [B, d] float32.  Returns (new state, hidden [B, d])."""
+def _slstm_inputs(wg: torch.Tensor, bg: torch.Tensor, x: torch.Tensor, x_conv: torch.Tensor,
+                  d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gates' input pre-activations ``x @ W + b`` of every position at
+    once (they do not depend on the recurrence): z/o read the raw input and
+    i/f the conv-smoothed one (per paper), one ``[..., d] x [d, 2d]``
+    product each.  Returns ``(zo, if_)``, each ``[..., 2, d]``."""
+    zo = x @ torch.cat([wg[:, :d], wg[:, 3 * d:]], dim=1) + torch.cat([bg[:d], bg[3 * d:]])
+    if_ = x_conv @ wg[:, d:3 * d] + bg[d:3 * d]
+    return zo.unflatten(-1, (2, d)), if_.unflatten(-1, (2, d))
+
+
+def _slstm_step(zo_t: torch.Tensor, if_t: torch.Tensor, r: torch.Tensor, state, cfg: ArchConfig):
+    """One step of the recurrence from its input pre-activations ``zo_t``,
+    ``if_t`` ``[B, 2, d]`` and the recurrent weights ``r`` ``[4, H, Dh, Dh]``
+    (all in the compute dtype); state (c, n, h, m), each ``[B, d]``
+    float32.  Returns the new state."""
     d = cfg.d_model
     h = cfg.num_heads
-    dh = d // h
     c, n, hid, m = state
-    ct = x_t.dtype
-    wg = params["w_gates"].to(ct)
-    bg = params["b_gates"].to(ct)
     # recurrent block-diagonal contribution from the previous hidden state
-    rec = torch.einsum("bhp,ghpq->gbhq", hid.reshape(-1, h, dh).to(ct),
-                       params["r_gates"].to(ct)).reshape(4, -1, d)
-    # z/o read the raw input; i/f read the conv-smoothed input (per paper)
-    z_pre = x_t @ wg[:, :d] + bg[:d] + rec[0]
-    i_pre = x_conv_t @ wg[:, d:2 * d] + bg[d:2 * d] + rec[1]
-    f_pre = x_conv_t @ wg[:, 2 * d:3 * d] + bg[2 * d:3 * d] + rec[2]
-    o_pre = x_t @ wg[:, 3 * d:] + bg[3 * d:] + rec[3]
+    rec = torch.einsum("bhp,ghpq->gbhq", hid.reshape(-1, h, d // h).to(r.dtype),
+                       r).reshape(4, -1, d)
+    r_z, r_i, r_f, r_o = rec.unbind(0)
+    z_in, o_in = zo_t.unbind(-2)
+    i_in, f_in = if_t.unbind(-2)
+    # (x @ W + b) + rec, the reference's order of the sums; the rest in float32
+    z_pre, i_pre, f_pre, o_pre = z_in + r_z, i_in + r_i, f_in + r_f, o_in + r_o
     z = torch.tanh(z_pre.float())
     log_i = i_pre.float()
     log_f = _log_sigmoid(f_pre.float())
@@ -266,7 +281,16 @@ def _slstm_cell(params: Params, cfg: ArchConfig, x_t, x_conv_t, state):
     c_new = f_s * c + i_s * z
     n_new = f_s * n + i_s
     hid_new = o * (c_new / torch.maximum(n_new, n_new.new_tensor(1.0)))
-    return (c_new, n_new, hid_new, m_new), hid_new
+    return c_new, n_new, hid_new, m_new
+
+
+def _slstm_cell(params: Params, cfg: ArchConfig, x_t, x_conv_t, state):
+    """One sLSTM step (the decode step's).  x_t, x_conv_t: [B, d]; state
+    (c, n, h, m), each [B, d] float32.  Returns (new state, hidden [B, d])."""
+    wg, bg, r = (params[k].to(x_t.dtype) for k in ("w_gates", "b_gates", "r_gates"))
+    zo, if_ = _slstm_inputs(wg, bg, x_t, x_conv_t, cfg.d_model)
+    new = _slstm_step(zo, if_, r, state, cfg)
+    return new, new[2]
 
 
 def _slstm_out(params: Params, hid: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
@@ -278,23 +302,90 @@ def _slstm_out(params: Params, hid: torch.Tensor, cfg: ArchConfig, dtype) -> tor
     return y @ params["w_down"].to(dtype)
 
 
+def _slstm_scan(x, x_conv, w_gates, b_gates, r_gates, cfg: ArchConfig) -> torch.Tensor:
+    """The recurrence over time: hidden states ``[B, S, d]`` float32.  The
+    weights' casts and the input products are made once, before the loop;
+    each step runs the recurrent product and the elementwise cell."""
+    s = x.shape[1]
+    wg, bg, r = (w.to(x.dtype) for w in (w_gates, b_gates, r_gates))
+    zo, if_ = _slstm_inputs(wg, bg, x, x_conv, cfg.d_model)
+    zo_s, if_s = zo.unbind(1), if_.unbind(1)
+    state = init_slstm_state(cfg, x.shape[0], x.device)
+    if s >= 3 and fake.is_fake(x):
+        return _scan_per_trip(zo_s, if_s, r, state, cfg)
+    return _scan_steps(zo_s, if_s, r, state, cfg)
+
+
+def _scan_steps(zo_s, if_s, r, state, cfg: ArchConfig) -> torch.Tensor:
+    """Every step of the recurrence in turn: hidden states ``[B, S, d]``
+    float32."""
+    hs = []
+    for zo_t, if_t in zip(zo_s, if_s):
+        state = _slstm_step(zo_t, if_t, r, state, cfg)
+        hs.append(state[2])
+    return torch.stack(hs, dim=1)
+
+
+def _scan_per_trip(zo_s, if_s, r, state, cfg: ArchConfig) -> torch.Tensor:
+    """The scan's shape rule and trip count on fake tensors, as the
+    reference's ``hlo_cost.py`` counts a ``while`` loop: the first and the
+    last step run as they are (their backward differs: the first state
+    takes no gradient, the last state feeds no next step), and one middle
+    step, fed and read through :class:`_Tie` and :class:`_Fan`, stands for
+    the ``S - 2`` others under :func:`op_cost.trips` (its ops, and its
+    backward's, count ``S - 2`` times; what it leaves live, the hidden
+    state and under autograd its saved tensors, counts ``S - 2`` times
+    from the loop's end until freed).  The stack and the unbinds' backward
+    see ``S`` distinct tensors, as in the real loop."""
+    s = len(zo_s)
+    state = _slstm_step(zo_s[0], if_s[0], r, state, cfg)
+    hs = [state[2]]
+    with op_cost.trips(s - 2) as trip:
+        state = _slstm_step(_Tie.apply(*zo_s[1:-1]), _Tie.apply(*if_s[1:-1]), r, state, cfg)
+    hs.append(state[2])
+    state = _slstm_step(zo_s[-1], if_s[-1], r, state, cfg)
+    trip.hold()
+    return torch.stack([hs[0], *_Fan.apply(hs[1], s - 2), state[2]], dim=1)
+
+
+class _Tie(torch.autograd.Function):
+    """``xs[0]`` standing for every one of ``xs``; each gets the gradient
+    (as an alias of its own).  Nothing it does is counted."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.n = len(xs)
+        with op_cost.uncounted():
+            return xs[0].view_as(xs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        with op_cost.uncounted():
+            return tuple(g.view_as(g) for _ in range(ctx.n))
+
+
+class _Fan(torch.autograd.Function):
+    """``n`` aliases of ``x``; the first one's gradient is ``x``'s.
+    Nothing it does is counted."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        ctx.set_materialize_grads(False)
+        with op_cost.uncounted():
+            return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return gs[0], None
+
+
 def slstm_forward(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    bsz, s, _ = x.shape
     x_conv = _causal_conv(x, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
-
-    def scan(x, x_conv, w_gates, b_gates, r_gates):
-        cell = {"w_gates": w_gates, "b_gates": b_gates, "r_gates": r_gates}
-        state = init_slstm_state(cfg, x.shape[0], x.device)
-        hs = []
-        for t in range(s):
-            state, hid = _slstm_cell(cell, cfg, x[:, t], x_conv[:, t], state)
-            hs.append(hid)
-        return torch.stack(hs, dim=1)
-
     # Under a mesh the recurrence runs on each rank's rows with whole
     # weights: its state starts as plain tensors with no DTensor form.
     rows = ("batch", None, None)
-    hid = shard_ctx.local(scan, [rows, rows, (None, None), (None,), (None,) * 4], rows,
+    hid = shard_ctx.local(lambda *a: _slstm_scan(*a, cfg),
+                          [rows, rows, (None, None), (None,), (None,) * 4], rows,
                           x, x_conv, params["w_gates"], params["b_gates"], params["r_gates"])
     return _slstm_out(params, hid, cfg, x.dtype)
 

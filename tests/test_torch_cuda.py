@@ -353,7 +353,7 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, h, hk, dh, c
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
-    on_sm90 = fa_kernel.route(dtype, dh) == "sm90"
+    on_sm90 = fa_kernel.route(dtype) == "sm90"
     assert fa_ops.flash_attention.sm90_launches == before_sm90 + on_sm90
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), fa_ref.attention(q, k, v, causal=causal).float(),
@@ -377,11 +377,16 @@ def test_flash_attention_reads_strided_heads(cuda):
     (2, 128, 256, 9, 3, 64, False),   # S != T, G = 3 (SmolLM-135M's heads)
     (1, 384, 384, 8, 1, 64, True),    # G = 8, three key tiles
     (1, 320, 320, 6, 2, 128, True),   # Dh = 128 with a remainder tile
+    (1, 192, 192, 4, 4, 112, True),   # Dh = 112 (padded to 128), G = 1, a remainder tile
+    (2, 256, 256, 4, 4, 80, False),   # Dh = 80 (padded to 128)
+    (2, 128, 128, 4, 2, 16, True),    # Dh = 16 (padded to 64)
+    (1, 192, 192, 4, 2, 32, False),   # Dh = 32 (padded to 64), a remainder tile
 ], ids=str)
 def test_flash_attention_sm90_matches_plain(cuda, b, s, t, h, hk, dh, causal):
-    """bf16 with Dh 64 or 128 goes through the TMA + wgmma kernel, within
-    the bf16 tolerance of the plain version."""
-    assert fa_kernel.route(torch.bfloat16, dh) == "sm90"
+    """bf16 at every head dim goes through the TMA + wgmma kernel (a head
+    dim under a multiple of 64 padded by TMA's zero fill), within the bf16
+    tolerance of the plain version."""
+    assert fa_kernel.route(torch.bfloat16) == "sm90"
     q, k, v = (x.to(cuda, torch.bfloat16) for x in attention_inputs(b, s, t, h, hk, dh, seed=6))
     before, before_sm90 = fa_ops.flash_attention.launches, fa_ops.flash_attention.sm90_launches
     got = fa_ops.flash_attention(q, k, v, causal=causal)
@@ -390,6 +395,22 @@ def test_flash_attention_sm90_matches_plain(cuda, b, s, t, h, hk, dh, causal):
     assert fa_ops.flash_attention.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), fa_ref.attention(q, k, v, causal=causal).float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_flash_attention_sm90_reads_strided_heads(cuda):
+    """Dh 112 with k and v as head slices of one wider tensor: the tensor
+    maps read them through their strides, padded columns and all."""
+    q, k, v = (x.to(cuda, torch.bfloat16) for x in attention_inputs(2, 192, 192, 8, 4, 112,
+                                                                     seed=9))
+    kv = torch.cat([k, v], dim=2)  # [B, T, 2*Hkv, Dh]
+    k_view, v_view = kv[:, :, :4], kv[:, :, 4:]
+    assert not k_view.is_contiguous()
+    before_sm90 = fa_ops.flash_attention.sm90_launches
+    got = fa_ops.flash_attention(q, k_view, v_view)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.sm90_launches == before_sm90 + 1
+    torch.testing.assert_close(got.float(), fa_ref.attention(q, k, v).float(),
                                **TOL[torch.bfloat16])
 
 

@@ -17,6 +17,11 @@ arithmetic (the counterpart of tests/test_dryrun.py).
   K3's bytes to ``attn_flash_io_bytes``'s per-application model; and the
   flash identity ``bytes(plain) - scope_bytes["attn_core"] + flash_io ==
   bytes(use_flash)`` exactly on a reduced prefill.
+* The sLSTM's scan counted per trip on fake tensors (one middle step for
+  ``S - 2``, ``op_cost.trips``) equals the same code counted op by op, at
+  S = 256 on the 2-layer xLSTM smoke config in bf16, for a prefill and a
+  train step under each remat: FLOPs and bytes within 1e-9 relative, op
+  and product counts equal, peak bytes within 1 %.
 * In a subprocess (the fake group is global to its process, and opening
   it here would leave it to every later test of this worker): both
   production meshes, and ``smollm-135m x decode_32k`` on 32 x 8 end to end.
@@ -48,7 +53,10 @@ from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.launch import dryrun, op_cost  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import xlstm as X  # noqa: E402
 from repro_torch.serve.steps import make_prefill_step  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train import train_step as ts  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = t_configs.list_archs()
@@ -185,6 +193,63 @@ def test_flash_identity_on_a_reduced_prefill():
     assert fl.kernels["flash_attention"]["count"] == cfg.num_layers
     assert "flash_attention" not in plain.kernels
     assert fl.flops == plain.flops  # K3 records its plain version's products
+
+
+def _xlstm_cost(kind: str, remat: str, s: int = 256, b: int = 2) -> op_cost.Cost:
+    """A prefill or a train step of the 2-layer xLSTM smoke config (one
+    mLSTM, one sLSTM) in bf16 on meta tensors, counted."""
+    cfg = t_configs.reduce_for_smoke(t_configs.get_config("xlstm-350m"))
+    cfg = type(cfg)(**{**cfg.__dict__, "compute_dtype": "bfloat16"})
+    assert cfg.num_layers == 2 and "slstm" in cfg.xlstm_pattern
+    params = fake.build_meta(
+        lambda: get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0)))
+    model = get_model(cfg, device="meta")
+    tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
+    with fake.modeling():
+        if kind == "prefill":
+            with torch.no_grad():
+                return op_cost.count(make_prefill_step(model), params, {"tokens": tokens})[1]
+        tcfg = ts.TrainConfig(microbatches=1, remat=remat, opt=opt_lib.OptimizerConfig())
+        return op_cost.count(ts.make_train_step(model, tcfg), params,
+                             opt_lib.init_opt_state(params, tcfg.opt), {"tokens": tokens})[1]
+
+
+@pytest.mark.parametrize("kind,remat", [("prefill", None), ("train", "full"),
+                                        ("train", "none")])
+def test_slstm_scan_per_trip_counts_as_op_by_op(monkeypatch, kind, remat):
+    """The dry-run's per-trip count of the sLSTM scan (its first and last
+    steps, and one middle step standing for the other S - 2) against the
+    same code run every trip on fake tensors."""
+    per_trip = []
+    scan = X._scan_per_trip
+    monkeypatch.setattr(X, "_scan_per_trip", X._scan_steps)
+    want = _xlstm_cost(kind, remat)
+    monkeypatch.setattr(X, "_scan_per_trip", lambda *a: per_trip.append(1) or scan(*a))
+    got = _xlstm_cost(kind, remat)
+    assert per_trip  # (remat="full" runs the layer again in the backward pass)
+    assert got.flops == pytest.approx(want.flops, rel=1e-9)
+    assert got.bytes_accessed == pytest.approx(want.bytes_accessed, rel=1e-9)
+    assert (got.op_count, got.dot_count) == (want.op_count, want.dot_count)
+    assert got.peak_bytes == pytest.approx(want.peak_bytes, rel=0.01)
+    assert (got.argument_bytes, got.output_bytes) == (want.argument_bytes, want.output_bytes)
+
+
+def test_trips_count_a_loop_body_and_its_backward_n_times():
+    """One trip under ``trips(12)`` counts as the 12-trip loop above, its
+    weight gradient too; what it leaves live counts 12 times once held."""
+    x = torch.randn(8, 16)
+    w = torch.randn(16, 16, requires_grad=True)
+    counter = op_cost.OpCounter()
+    with counter:
+        with op_cost.trips(12) as trip:
+            y = x @ w
+        trip.hold()
+        live = counter._live_bytes
+        y.sum().backward()
+    cost = counter.close()
+    # forward x @ w and its weight gradient x^T @ dy, 12 times each
+    assert cost.flops == 2 * 4096 * 12 and cost.dot_count == 24
+    assert live >= 12 * 8 * 16 * 4  # y, held for 12 trips
 
 
 @pytest.fixture(scope="module")

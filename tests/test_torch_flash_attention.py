@@ -120,11 +120,32 @@ def test_device_tensor_raises_when_the_build_fails(monkeypatch):
 
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
-    (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.bfloat16, 16, "sm90"), (torch.bfloat16, 32, "sm90"),
+    (torch.bfloat16, 80, "sm90"), (torch.bfloat16, 112, "sm90"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 80, "cuda_cores"), (torch.float32, 112, "cuda_cores"),
 ], ids=str)
 def test_route_depends_on_dtype_and_head_dim_only(dtype, dh, want):
-    assert t_kernel.route(dtype, dh) == want
+    """Every head dim the kernels take is routed by its dtype alone."""
+    assert dh in t_kernel.HEAD_DIMS
+    assert t_kernel.route(dtype) == want
+
+
+@pytest.mark.parametrize("wrapper,dtype", [
+    ("flash_attention", torch.bfloat16), ("flash_attention", torch.float16),
+    ("flash_attention_sm90", torch.float32), ("flash_attention_sm90", torch.float16),
+], ids=str)
+def test_kernel_wrapper_refuses_another_dtype(monkeypatch, wrapper, dtype):
+    """Each kernel's wrapper takes its own element type only, before it
+    builds or launches anything."""
+    def no_build():
+        raise AssertionError("built a kernel library for the wrong dtype")
+
+    monkeypatch.setattr(t_kernel, "library", no_build)
+    monkeypatch.setattr(t_kernel, "library_sm90", no_build)
+    q = torch.zeros((1, 64, 4, 64), dtype=dtype, device="meta")
+    with pytest.raises(TypeError, match="takes"):
+        getattr(t_kernel, wrapper)(q, q, q, causal=True)
 
 
 @pytest.mark.parametrize("ptr,strides,itemsize,bad", [

@@ -60,6 +60,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "tools" / "torch_nuts_ab.py", REPO / "tools" / "torch_chaos.py",
     REPO / "tools" / "torch_vmtrace.py", REPO / "tools" / "torch_pgo.py",
     REPO / "tools" / "torch_irlint.py", REPO / "tools" / "torch_verify_cost.py",
+    REPO / "tools" / "torch_serve_ab.py",
     REPO / "benchmarks" / "torch_fig5.py", REPO / "benchmarks" / "torch_fig6.py",
     REPO / "benchmarks" / "torch_serve_bench.py", REPO / "benchmarks" / "torch_run.py",
     REPO / "benchmarks" / "common.py",

@@ -21,7 +21,8 @@
   JAX package's sharded step (not its unsharded one, which drops others).
 * **The MoE's gradients** on that path equal ``jax.grad`` of the same
   sharded loss (a double-counted combine would scale them by the ``model``
-  size).
+  size); DeepSeek-MoE-16B's router alone at full width, sharded and
+  unsharded in the same ranks, differs by rounding (float64).
 * **Checkpoints**: a sharded state saves the logical arrays, restores
   unsharded and back onto the mesh bit-exact, and replays a step with the
   same loss; the restart loop replays a failure bit-exact; meshes smaller
@@ -285,6 +286,21 @@ def test_moe_expert_gradients_match_jax(runs):
         np.testing.assert_allclose(got[name], w, rtol=0,
                                    atol=1e-5 * max(np.abs(w).max(), 1e-30), err_msg=name)
         assert np.abs(w).max() > 0
+
+
+def test_moe_router_alone_sharded_matches_unsharded(runs):
+    """DeepSeek-MoE-16B's router alone at full width (d 2,048, 64 experts,
+    4,096 tokens), rows over ``data``, against the unsharded router with
+    the same routing: its gradient differs by rounding alone, under 1e-9 of
+    its largest magnitude with the route in float64 (seen: 7.9e-16) and
+    under 1e-5 in float32 (seen: 4.5e-7), so the sharded composition (each
+    rank's rows, the load-balance means over DTensor rows, the ``Partial``
+    gradient) is exact."""
+    for r in runs[0]:
+        router = r["router"]
+        assert router["float32"]["same_routing"] and router["float64"]["same_routing"]
+        assert router["float64"]["gap"] < 1e-9, router
+        assert router["float32"]["gap"] < 1e-5, router
 
 
 def test_sharded_save_restores_unsharded_and_back_bit_exact(runs):

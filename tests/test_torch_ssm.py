@@ -9,7 +9,11 @@ Trees, forward logits, loss and every gradient leaf (finite through the
 mLSTM's ``-inf`` masks, ties in its maxima split as ``jax.grad`` splits
 them), 20 decode steps past a 16-slot window (logits and every cache
 leaf), the chunked mLSTM from a carried state and the sLSTM cell with its
-gradient.  The serving engine is held to the JAX package's sequential
+gradient, and the sLSTM layer alone (its scan, with the input products
+hoisted out of the loop) with its input gradient.  The bf16 smoke config
+is held the same way (forward, loss, gradients, decode steps, the layer
+and the cell) within bf16 tolerances (``BF16``).  The serving engine is
+held to the JAX package's sequential
 oracle (``reference_generate``, which starts each request from
 ``init_cache``) and to the port's: it resets each lane's cache to
 ``init_cache`` (stabilizers at -1e30), where the JAX package's engine
@@ -36,6 +40,29 @@ from tests import torch_parity as tp  # noqa: E402
 ARCH = "xlstm-350m"
 VARIANTS = {"smoke": {}, "groups": dict(num_layers=4),
             "pairs": dict(num_layers=3, xlstm_pattern=("mlstm", "mlstm", "slstm"))}
+
+
+# bf16 rounds at other places in the two packages (XLA's CPU backend runs a
+# fusion's elementwise chain in float32 and rounds once; eager PyTorch
+# rounds after every op), a few ulps of 2**-8 compounded over 32 recurrent
+# steps and two layers: values within 1/16 of the reference's largest
+# magnitude (the layer alone 1/32), each gradient leaf within 1/8 of its
+# largest, the loss within 1e-3.  Largest seen: logits 1.9 %, decode 3.2 %,
+# caches 1.8 %, gradients 5.7 %, the layer 0.9 %.
+BF16 = dict(value=1 / 16, layer=1 / 32, grad=1 / 8, loss=1e-3)
+
+
+def _close_bf16(got, want, frac: float, what: str = "") -> None:
+    """``got`` within ``frac`` of ``want``'s largest magnitude, compared in
+    float32 where ``want`` is finite and above the stabilizers' floor
+    (``M_FLOOR`` entries must sit at the same places)."""
+    g = tp.np_(got).astype(np.float32)
+    w = tp.np_(want).astype(np.float32)
+    live = np.abs(w) < 1e29
+    np.testing.assert_array_equal(np.abs(g) < 1e29, live, err_msg=what)
+    if live.any():
+        np.testing.assert_allclose(g[live], w[live], rtol=0, err_msg=what,
+                                   atol=frac * float(np.abs(w[live]).max()))
 
 
 def _state_inputs(cfg, seed: int):
@@ -79,7 +106,7 @@ def units():
 
     grads, (new, hid) = jax.grad(cell_sum, has_aux=True)(
         (jnp.asarray(x_t), jnp.asarray(xc_t), tuple(map(jnp.asarray, st))))
-    return dict(cfg=c["cfg"], params=c["params"],
+    return dict(cfg=c["cfg"], jcfg=cfg, params=c["params"], jsp=sp,
                 mlstm=(np.asarray(out), [np.asarray(s) for s in fin]),
                 slstm=([np.asarray(s) for s in new], np.asarray(hid),
                        jax.tree.map(np.asarray, grads)))
@@ -147,6 +174,74 @@ def test_slstm_cell_and_its_gradient_match_jax(units):
     want_flat = [want_grads[0], want_grads[1], *want_grads[2]]
     for got, want in zip(grads, want_flat, strict=True):
         tp.close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_layer_and_its_input_gradient_match_jax(units, dtype):
+    """``slstm_forward`` alone (the hoisted input products, the scan over
+    32 tokens, the GeGLU) and the gradient of its output's sum with respect
+    to its input."""
+    cfg, jcfg = units["cfg"], units["jcfg"]
+    sp = {k: v[0] for k, v in units["params"]["groups"]["slstm"]["cell"].items()}
+    x = np.random.default_rng(3).normal(size=(tp.B, tp.S, cfg.d_model)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+    y = X.slstm_forward(sp, xt, cfg)
+    gx, = torch.autograd.grad(y.float().sum(), xt)
+    jy, vjp = jax.vjp(lambda a: JX.slstm_forward(units["jsp"], a, jcfg),
+                      jnp.asarray(x).astype(getattr(jnp, dtype)))
+    jgx, = vjp(jnp.ones_like(jy))
+    assert y.dtype == xt.dtype and gx.dtype == xt.dtype
+    if dtype == "float32":
+        tp.close(y, jy)
+        tp.close(gx, jgx)
+    else:
+        _close_bf16(y, jy, BF16["layer"])
+        _close_bf16(gx, jgx, BF16["layer"])
+
+
+def test_slstm_cell_in_bf16_matches_jax(units):
+    """The decode step's cell on bf16 inputs (float32 state)."""
+    cfg, jcfg = units["cfg"], units["jcfg"]
+    sp = {k: v[0] for k, v in units["params"]["groups"]["slstm"]["cell"].items()}
+    x_t, xc_t, st = _cell_inputs(cfg, 2)
+    new, hid = X._slstm_cell(sp, cfg, torch.from_numpy(x_t).bfloat16(),
+                             torch.from_numpy(xc_t).bfloat16(), tuple(map(torch.from_numpy, st)))
+    jnew, jhid = JX._slstm_cell(units["jsp"], jcfg, jnp.asarray(x_t, jnp.bfloat16),
+                                jnp.asarray(xc_t, jnp.bfloat16), tuple(map(jnp.asarray, st)))
+    _close_bf16(hid, jhid, BF16["layer"])
+    for got, want in zip(new, jnew, strict=True):
+        _close_bf16(got, want, BF16["layer"])
+
+
+@pytest.fixture(scope="module")
+def fam16():
+    c = tp.carry(ARCH, compute_dtype="bfloat16")
+    c["jax"] = tp.jax_results(c)
+    return c
+
+
+def test_bf16_forward_and_decode_steps_match_jax(fam16):
+    logits, _ = fam16["model"].forward(fam16["params"],
+                                       {"tokens": torch.from_numpy(fam16["tokens"])})
+    assert logits.dtype == torch.bfloat16
+    _close_bf16(logits, fam16["jax"]["logits"], BF16["value"])
+    logits, cache = tp.port_decode(fam16)
+    _close_bf16(logits, fam16["jax"]["decode"], BF16["value"])
+    got, want = tp.leaves(cache), tp.leaves(fam16["jax"]["cache"])
+    assert got.keys() == want.keys()
+    for k in want:
+        _close_bf16(got[k], want[k], BF16["value"], k)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_bf16_loss_and_grads_match_jax(fam16, remat):
+    (loss, _), grads = tp.port_loss_and_grads(fam16, remat)
+    np.testing.assert_allclose(float(loss), fam16["jax"]["loss"], rtol=BF16["loss"])
+    got, want = tp.leaves(grads), tp.leaves(fam16["jax"]["grads"])
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.isfinite(got[k].astype(np.float32)).all(), k
+        _close_bf16(got[k], want[k], BF16["grad"], k)
 
 
 @pytest.mark.parametrize("fam", ["smoke"], indirect=True)

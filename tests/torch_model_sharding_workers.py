@@ -160,10 +160,80 @@ def _odd_heads(mesh, device) -> dict:
     return out
 
 
+ROUTER_TOKENS = 4 * 1024  # phase 20's DeepSeek batch: 4 sequences of 1,024
+
+
+def _router_grads(cfg, x, w, c, rules=None) -> torch.Tensor:
+    """The gradient of ``sum(top_p * c) + moe_aux_loss`` (the combine
+    weights' and the load-balance loss's paths) with respect to the router
+    weight ``w``, under ``rules`` if given; gathered."""
+    from repro_torch.models import shard_ctx
+
+    w = w.detach().requires_grad_(True)
+    with shard_ctx.use_rules(rules):
+        top_p, _, aux = moe_lib.router_probs({"router": w}, x, cfg)
+        loss = (top_p * c).sum() + aux["moe_aux_loss"]
+    g, = torch.autograd.grad(loss, w)
+    return g.full_tensor() if hasattr(g, "full_tensor") else g
+
+
+def _router_gaps(mesh, device) -> dict:
+    """DeepSeek-MoE-16B's router alone at full width (d 2,048, 64
+    experts, top 6) on ``ROUTER_TOKENS`` seeded tokens, sharded over the
+    mesh (rows over ``data``, the weight whole, as the model's step runs
+    it) and unsharded, with the same routing: the router gradient's largest
+    difference over its largest magnitude, in float32 (the model's
+    arithmetic) and with the route computed in float64."""
+    from repro_torch import configs
+    from repro_torch.models import shard_ctx
+
+    cfg = configs.get_config("deepseek-moe-16b")
+    rules = {"batch": mesh_lib.data_axes(mesh), "tp": "model", "ep": "model",
+             "sizes": mesh_lib.axis_sizes(mesh), "mesh": mesh}
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((ROUTER_TOKENS, cfg.d_model), generator=gen, dtype=torch.float64)
+    w = torch.randn((cfg.d_model, cfg.num_experts), generator=gen, dtype=torch.float64)
+    w = w / cfg.d_model ** 0.5
+    c = torch.randn((ROUTER_TOKENS, cfg.top_k), generator=gen, dtype=torch.float64)
+    route = moe_lib._route
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        if dtype == torch.float64:  # the route's products and softmax in float64 too
+            moe_lib._route = lambda x, r, cfg: route(x, r, cfg) if x.dtype != torch.float64 \
+                else _route64(x, r, cfg)
+        try:
+            xd, wd, cd = (t.to(device, dtype) for t in (x, w, c))
+            want = _router_grads(cfg, xd, wd, cd)
+            placed = sh.distribute({"x": xd, "w": wd, "c": cd},
+                                   {"x": sh.NamedSharding(mesh, ("data", None)),
+                                    "w": sh.NamedSharding(mesh, (None, None)),
+                                    "c": sh.NamedSharding(mesh, ("data", None))})
+            got = _router_grads(cfg, placed["x"], placed["w"], placed["c"], rules)
+            with shard_ctx.use_rules(rules):
+                ids = moe_lib.router_probs({"router": placed["w"]}, placed["x"], cfg)[1]
+        finally:
+            moe_lib._route = route
+        same = torch.equal(ids.full_tensor(), moe_lib.router_probs({"router": wd}, xd, cfg)[1])
+        scale = float(want.abs().max())
+        out[name] = dict(gap=float((got - want).abs().max()) / scale, scale=scale,
+                         same_routing=bool(same))
+    return out
+
+
+def _route64(x: torch.Tensor, router: torch.Tensor, cfg):
+    """``moe._route`` with its product and softmax in float64."""
+    probs = torch.softmax(x @ router, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :cfg.top_k], top_e[:, :cfg.top_k]
+    if cfg.moe_renorm_topk:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return probs, top_p, top_e
+
+
 def model_sharding(rank: int, device: torch.device, np_params: dict, ckpt_dir: str) -> dict:
     """Saves on meshes smaller than the world, one train step of each
-    family on the mesh, the MoE's expert-weight gradients and its path, and
-    the checkpoint cases.  DTensor's
+    family on the mesh, the MoE's expert-weight gradients and its path, the
+    checkpoint cases, and DeepSeek's router alone at full width.  DTensor's
     all-gathers take the route the card's gloo ranks take."""
     distributed.route_gloo_all_gather("CPU")
     mesh = mesh_lib.make_mesh(*MESH, device_type=device.type)
@@ -189,7 +259,8 @@ def model_sharding(rank: int, device: torch.device, np_params: dict, ckpt_dir: s
             steps[arch]["ep_calls"] = len(ep_calls)
             steps[arch]["grads"] = _expert_grads(model, params, batch, mesh)
     out = dict(rank=rank, small_meshes=small, steps=steps, odd_heads=_odd_heads(mesh, device),
-               ckpt=_checkpoints(mesh, device, np_params["smollm-135m"], ckpt_dir))
+               ckpt=_checkpoints(mesh, device, np_params["smollm-135m"], ckpt_dir),
+               router=_router_gaps(mesh, device))
     if rank:  # every rank gathered; the first one's copy is enough
         for rec in out["steps"].values():
             rec.pop("params")
