@@ -220,21 +220,25 @@ non-zero (nothing is caught):
     after its first segment's snapshot, and resumed by a fresh engine,
     every token equal to the closed loop's.
 
-20. model sharding: a probe of the collectives gloo carries on CUDA
-    tensors (two ranks, c10d and functional); SmolLM-135M (full width and
-    depth, 4 x 1,024) and DeepSeek-MoE-16B (full width, 2 layers, capacity
-    factor E/k, so nothing drops) unsharded on the card in float32 (the
+20. model sharding: SmolLM-135M (full width, 4 of its 30 layers, 4 x
+    1,024) and DeepSeek-MoE-16B (full width, 2 layers, capacity factor
+    E/k, so nothing drops) unsharded on the card in float32 (the
     reference) and in bf16 (a control that must exceed each limit of
-    ``SHARD_TOL``); then four ranks on a ``(data 2, model 2)`` mesh over
-    gloo: SmolLM through ``build_trainer(mesh=)`` in bf16 (its collectives
-    a step and ms a step), the same in float32 held to the unsharded
-    float32 run within ``SHARD_TOL`` (losses, the parameters' update and
-    AdamW's first moment after the first step, shard by shard), its
-    state saved after step 2, restored whole (bit-identical to the
+    ``SHARD_TOL``), and SmolLM at full depth in bf16; then four ranks on a
+    ``(data 2, model 2)`` mesh over gloo: first a probe of the collectives
+    gloo carries on CUDA tensors (c10d and functional), then SmolLM at
+    full width and depth through ``build_trainer(mesh=)`` in bf16 (its
+    collectives a step and ms a step), SmolLM at 4 layers in float32 held to the
+    unsharded float32 run within ``SHARD_TOL`` (losses, the parameters'
+    update and AdamW's first moment after the first step, shard by shard),
+    its state saved after step 2, restored whole (bit-identical to the
     gathered DTensors) and back onto the mesh with step 3 replayed (the
-    same loss), and DeepSeek-MoE in float32 through the expert-parallel
-    path (once a step on every rank) held likewise, with the tokens whose
-    expert set differs from the unsharded run's in the first step counted.
+    same loss), the same at two microbatches held likewise, with each
+    rank's FLOPs in the first step at one and at two microbatches counted
+    (``op_cost``) and held equal within 3 %, and DeepSeek-MoE in float32
+    through the expert-parallel path (once a step on every rank) held
+    likewise, with the tokens whose expert set differs from the unsharded
+    run's in the first step counted.
 
 21. the dry-run against the card: ``python -m repro_torch.launch.dryrun
     --arch smollm-135m --shape decode_32k`` and the same with
@@ -244,11 +248,14 @@ non-zero (nothing is caught):
     0 with 256 / 512 chips, its mesh, a bottleneck and a positive peak);
     phase 8's prefill (SmolLM-135M, bf16, 8 x 2,048, K3) counted by the op
     counter (``launch/op_cost.py``) on meta tensors and then run on the
-    card under the same counter: FLOPs, bytes and K3's records equal
-    between the two, K3's records equal to its 30 launches, the counted
-    peak beside ``torch.cuda.max_memory_allocated`` over the step (held to
-    ``DRYRUN_PEAK_RATIO``) and ``t_compute`` / ``t_memory`` (the dry-run's
-    H100 constants) beside the measured ms; phase 6's NUTS through
+    card under the same counter: FLOPs, bytes, ops, counted peaks and K3's
+    records equal between the two, K3's records equal to its 30 launches,
+    the counted peak over ``torch.cuda.max_memory_allocated`` over the step
+    held to ``DRYRUN_PEAK_RATIO``, and ``t_compute`` / ``t_memory`` (the
+    dry-run's H100 constants) beside the measured ms; likewise a
+    SmolLM-135M train step (4 x 1,024, two microbatches) and a decode step
+    (64 sequences, a 512-row cache, K4's records) (``_hold_counted``);
+    phase 6's NUTS through
     ``fn.lower(...)``: ``compile()`` and ``cost_analysis()``, then
     ``ProgramCounterVM.step_fn`` driven to the end, bit-exact with phase
     6's run (outputs, ``steps``, ``block_exec``, K1/K2 launches).
@@ -2937,6 +2944,12 @@ def phase_mesh(torch, settings, run6: dict, run9: dict, run12: dict, smi: str) -
 
 SHARD_MESH = ((2, 2), ("data", "model"))
 SHARD_SEQ, SHARD_BATCH, SHARD_STEPS, MOE_STEPS = 1024, 4, 3, 2
+# SmolLM-135M's float32 runs: full width cut to F32_LAYERS layers (for the
+# time limit), SHARD_STEPS steps at one microbatch and MB_STEPS at
+# SHARD_MICROBATCHES (each microbatch one sequence a data rank), each held
+# to the same steps unsharded; each rank counts its FLOPs in the first
+# step of each.
+F32_LAYERS, SHARD_MICROBATCHES, MB_STEPS = 4, 2, 2
 MOE_ARCH = "deepseek-moe-16b"
 # Phase 20's limits for the float32 sharded runs against the unsharded
 # float32 runs: the largest loss difference, the update gap
@@ -2950,10 +2963,10 @@ SHARD_TOL = {"smollm": {"loss": 1e-5, "update": 1e-3, "mu": 1e-4},
              "moe": {"loss": 2e-5, "update": 5e-3, "mu": 2e-2}}
 # The collectives the sharded step issues on CUDA tensors (DTensor's
 # redistributions, through the functional API) and their c10d forms.
-PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
-             "all_to_all_single", "barrier")
-FUNCOL_OPS = ("all_reduce", "reduce_scatter_tensor", "all_to_all_single",
-              "all_gather_into_tensor")
+PROBE_CALLS = (tuple(("c10d", op) for op in (
+    "all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
+    "all_to_all_single", "barrier")) + tuple(("funcol", op) for op in (
+        "all_reduce", "reduce_scatter_tensor", "all_to_all_single", "all_gather_into_tensor")))
 
 
 def _probe_call(torch, api: str, name: str, rank: int, n: int, device) -> bool:
@@ -3003,8 +3016,8 @@ def _probe_call(torch, api: str, name: str, rank: int, n: int, device) -> bool:
 
 
 def _probe_rank(rank: int, device, calls: tuple) -> dict:
-    """One of two ranks on the card: each ``(api, collective)`` on a CUDA
-    tensor, checked, and its time a call (ms, after a warm-up)."""
+    """One rank of phase 20: each ``(api, collective)`` on a CUDA tensor
+    over every rank, checked, and its time a call (ms, after a warm-up)."""
     import torch
     import torch.distributed as dist
 
@@ -3020,28 +3033,24 @@ def _probe_rank(rank: int, device, calls: tuple) -> dict:
     return out
 
 
-def _probe(work: Path) -> None:
-    """Phase 20's probe: which collectives gloo carries on CUDA tensors,
-    two ranks on the card, through c10d and through the functional API
-    that DTensor uses (its all-gather routed by ``spawn``,
-    ``distributed.route_gloo_all_gather``)."""
-    from repro_torch import distributed
-
-    calls = (tuple(("c10d", op) for op in PROBE_OPS)
-             + tuple(("funcol", op) for op in FUNCOL_OPS))
-    got = distributed.spawn(_probe_rank, 2, rendezvous_dir=work, backend=MESH_BACKEND,
-                            args=(calls,), timeout=120)
-    for api, op in calls:
-        res = [r[(api, op)] for r in got]
+def _probe_report(ranks: list) -> None:
+    """Phase 20's probe, run by its ranks first: which collectives gloo
+    carries on CUDA tensors, the ranks sharing the card, through c10d and
+    through the functional API that DTensor uses (its all-gather routed by
+    ``spawn``, ``distributed.route_gloo_all_gather``)."""
+    for api, op in PROBE_CALLS:
+        res = [r["probe"][(api, op)] for r in ranks]
         ok = all(v == "ok" for v, _ in res)
-        print(f"shard: probe {MESH_BACKEND} {api} {op} on CUDA tensors, 2 ranks on one card: "
-              + (f"ok, {max(ms for _, ms in res):.3f} ms a call" if ok else res[0][0]))
+        print(f"shard: probe {MESH_BACKEND} {api} {op} on CUDA tensors, {len(ranks)} ranks on "
+              f"one card: " + (f"ok, {max(ms for _, ms in res):.3f} ms a call" if ok
+                               else res[0][0]))
         check(ok, f"gloo does not carry {api} {op} on CUDA tensors")
     print("shard: (gloo's own coalesced all-gather, which the functional one calls unrouted, "
-          "crashes its rank on CUDA tensors: PERF.md §6)")
+          "crashes its rank on CUDA tensors: PERF.md §6); probe "
+          f"{max(r['probe_s'] for r in ranks):.1f} s in the ranks")
 
 
-def _train_parts(torch, cfg, device, steps: int, init: bool = True):
+def _train_parts(torch, cfg, device, steps: int, init: bool = True, microbatches: int = 1):
     """``build_trainer``'s parts for a config of our own (same seed, same
     optimizer), unsharded, at phase 20's batch (no parameters or optimizer
     state without ``init``)."""
@@ -3052,7 +3061,7 @@ def _train_parts(torch, cfg, device, steps: int, init: bool = True):
     from repro_torch.train import train_step as ts
 
     model = get_model(cfg, device=device)
-    tcfg = ts.TrainConfig(microbatches=1, remat="none", opt=opt_lib.OptimizerConfig(
+    tcfg = ts.TrainConfig(microbatches=microbatches, remat="none", opt=opt_lib.OptimizerConfig(
         peak_lr=1e-3, warmup_steps=max(10, steps // 20), total_steps=steps))
     params = model.init(torch.Generator().manual_seed(0)) if init else None
     return (model, params, None if params is None else opt_lib.init_opt_state(params, tcfg.opt),
@@ -3096,20 +3105,20 @@ def _run_steps(torch, parts, n: int, before_last=None, first=None
 
 
 def _unsharded_run(torch, parts, n: int, moe: bool = False) -> dict:
-    """``n`` unsharded steps: losses, the initial and final parameters and
-    AdamW's first moment after the first step on the host, ms a step (and
-    the MoE layer's moe_dropped_frac at phase 20's batch)."""
+    """``n`` unsharded steps: losses, the final parameters and AdamW's
+    first moment after the first step on the host, ms a step (and the MoE
+    layer's moe_dropped_frac at phase 20's batch)."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.layers import cdtype
 
-    init, mu, ids = _host_params(parts[1]), {}, []
+    mu, ids = {}, []
     undo = _record_routing(moe_lib, ids)
     try:
         losses, ms, (params, _) = _run_steps(
             torch, parts, n, first=lambda st: mu.update(_host_params(st[1]["mu"])))
     finally:
         undo()
-    out = dict(losses=losses, params=_host_params(params), mu=mu, ms=ms, init=init)
+    out = dict(losses=losses, params=_host_params(params), mu=mu, ms=ms)
     if moe:
         out["routing"] = ids[0]
         cfg = parts[0].cfg
@@ -3221,9 +3230,13 @@ def _shard_rank(rank: int, device, work: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    out: dict = {"rank": rank, "device": str(device)}
+    if torch.distributed.get_backend() == MESH_BACKEND:  # (0) the probe
+        t0 = time.perf_counter()
+        out["probe"] = _probe_rank(rank, device, PROBE_CALLS)
+        out["probe_s"] = time.perf_counter() - t0
     ref = torch.load(Path(work) / "unsharded.pt", weights_only=False, mmap=True)
     mesh = mesh_lib.make_mesh(*SHARD_MESH, device_type="cuda")
-    out: dict = {"rank": rank, "device": str(device)}
 
     # (a) SmolLM-135M, full width and depth, through the launcher (bf16):
     # its collectives and its time a step.
@@ -3244,13 +3257,17 @@ def _shard_rank(rank: int, device, work: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) The same SmolLM steps in float32 compute, its state saved after
-    # step 2, restored whole and back onto the mesh, and step 3 replayed;
-    # (c) DeepSeek-MoE-16B's expert-parallel path at full width, 2 layers,
-    # in float32.  Both are held to the unsharded float32 runs, where only
-    # the order of the sums differs.
-    out["smollm32"] = _sharded_run(torch, _f32(configs.get_config(ARCH)), device, mesh,
-                                   SHARD_STEPS, ref["smollm"], ckpt=Path(work) / "ckpt")
+    # (b) SmolLM at F32_LAYERS layers in float32 compute, its state saved
+    # after step 2, restored whole and back onto the mesh, and step 3
+    # replayed; the same at SHARD_MICROBATCHES; (c) DeepSeek-MoE-16B's
+    # expert-parallel path at full width, 2 layers, in float32.  Each is
+    # held to its unsharded float32 run, where only the order of the sums
+    # differs.
+    cfg32 = _f32(_smollm_cfg(configs))
+    out["smollm32"] = _sharded_run(torch, cfg32, device, mesh, SHARD_STEPS, ref["smollm"],
+                                   ckpt=Path(work) / "ckpt", count=True)
+    out["mb"] = _sharded_run(torch, cfg32, device, mesh, MB_STEPS, ref["mb"],
+                             microbatches=SHARD_MICROBATCHES, count=True)
     calls = []
     ep = moe_lib._moe_ep
     moe_lib._moe_ep = lambda *a, **k: calls.append(1) or ep(*a, **k)
@@ -3267,8 +3284,14 @@ def _f32(cfg):
     return dataclasses.replace(cfg, compute_dtype="float32")
 
 
+def _smollm_cfg(configs):
+    import dataclasses
+
+    return dataclasses.replace(configs.get_config(ARCH), num_layers=F32_LAYERS)
+
+
 def _sharded_run(torch, cfg, device, mesh, n: int, ref: dict, moe: bool = False,
-                 ckpt: Path | None = None) -> dict:
+                 ckpt: Path | None = None, microbatches: int = 1, count: bool = False) -> dict:
     """``n`` steps of ``cfg`` on the mesh, the weights made on the host
     (placing them moves one leaf at a time to the card, so four ranks do
     not each hold the whole model there): losses, ms a step, its
@@ -3276,9 +3299,11 @@ def _sharded_run(torch, cfg, device, mesh, n: int, ref: dict, moe: bool = False,
     ``ref`` (:func:`_local_gaps`; and the MoE layer's moe_dropped_frac).  With
     ``ckpt``, the state after step ``n - 1`` is saved there, restored whole
     (held to the gathered DTensors) and back onto the mesh, and step ``n``
-    replayed from it."""
+    replayed from it.  With ``count``, this rank's FLOPs in the first
+    step (untimed) are counted (``op_cost``)."""
     import gc
 
+    from repro_torch.launch import op_cost
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import train as launch_train
     from repro_torch.models import moe as moe_lib
@@ -3290,9 +3315,18 @@ def _sharded_run(torch, cfg, device, mesh, n: int, ref: dict, moe: bool = False,
     t0 = time.perf_counter()
     _, params, opt_state, _, _ = _train_parts(torch, cfg, "cpu", n)
     init = _host_params(params)
-    model, _, _, step, stream = _train_parts(torch, cfg, device, n, init=False)
+    model, _, _, step, stream = _train_parts(torch, cfg, device, n, init=False,
+                                             microbatches=microbatches)
     params, opt_state, step = launch_train.shard_trainer(model, params, opt_state, step, mesh)
     kept: dict = {}
+    flops: list = []
+
+    def first_counted(*args):
+        if flops or not count:
+            return step(*args)
+        out, cost = op_cost.count(step, *args, meshes=[mesh])
+        flops.append(cost.flops)
+        return out
 
     def save(state):
         t = time.perf_counter()
@@ -3303,12 +3337,13 @@ def _sharded_run(torch, cfg, device, mesh, n: int, ref: dict, moe: bool = False,
     undo = _record_routing(moe_lib, ids)
     try:
         losses, ms, (params, opt_state) = _run_steps(
-            torch, (model, params, opt_state, step, stream), n,
+            torch, (model, params, opt_state, first_counted, stream), n,
             before_last=None if ckpt is None else save,
             first=lambda st: kept.update(mu=_shards(st[1]["mu"], ref["mu"])))
     finally:
         undo()
-    out = dict(losses=losses, ms=ms, gaps=_local_gaps(torch, params, kept["mu"], ref, init))
+    out = dict(losses=losses, ms=ms, gaps=_local_gaps(torch, params, kept["mu"], ref, init),
+               flops=flops[0] if flops else None)
     if ckpt is not None:
         ck, gathered = ckpt_lib.Checkpointer(str(ckpt)), kept["gathered"]
         whole = ck.restore(n - 1, like=gathered)
@@ -3361,12 +3396,6 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
     work = ROOT / "build" / "phase20"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    # (0) Which collectives gloo carries on CUDA tensors.
-    if backend == MESH_BACKEND:
-        t0 = time.perf_counter()
-        _probe(work)
-        print(f"shard: probe took {time.perf_counter() - t0:.1f} s")
-
     # (1) The unsharded runs on the card in float32 compute (the
     # reference) and in bf16 (the control that the limits must tell from
     # it), each freed before the next (and what earlier phases left cached,
@@ -3377,13 +3406,26 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
     torch.cuda.empty_cache()
 
     ref, control, plain_ms, dropped, flips = {}, {}, {}, (), 0
-    for what, cfg, n in (("smollm", configs.get_config(ARCH), SHARD_STEPS),
+    # SmolLM at full depth in bf16, beside the ranks' build_trainer steps.
+    full = _train_parts(torch, configs.get_config(ARCH), "cuda", SHARD_STEPS)
+    ref["full_bf16_losses"], plain_ms["full"] = _run_steps(torch, full, 2)[:2]
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    for what, cfg, n in (("smollm", _smollm_cfg(configs), SHARD_STEPS),
                          ("moe", _moe_cfg(configs), MOE_STEPS)):
-        bf16 = _unsharded_run(torch, _train_parts(torch, cfg, "cuda", n), n, moe=what == "moe")
+        # One set of initial weights for both (they do not depend on the
+        # compute dtype, and a step does not write its inputs).
+        model, params, opt_state, step, stream = _train_parts(torch, cfg, "cuda", n)
+        init = _host_params(params)
+        bf16 = _unsharded_run(torch, (model, params, opt_state, step, stream), n,
+                              moe=what == "moe")
         gc.collect()
         torch.cuda.empty_cache()
-        f32 = _unsharded_run(torch, _train_parts(torch, _f32(cfg), "cuda", n), n,
+        model, _, _, step, stream = _train_parts(torch, _f32(cfg), "cuda", n, init=False)
+        f32 = _unsharded_run(torch, (model, params, opt_state, step, stream), n,
                              moe=what == "moe")
+        del model, params, opt_state, step, stream
         scale = {k: float(v.abs().max()) for k, v in f32["mu"].items()}
         ref[what] = dict(losses=f32["losses"], params=f32["params"], mu=f32["mu"],
                          mu_scale=scale)
@@ -3394,17 +3436,30 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
             flips = _flips(bf16["routing"], f32["routing"])
         control[what] = dict(
             loss=max(abs(a - b) for a, b in zip(bf16["losses"], f32["losses"])),
-            update=_update_gap(torch, bf16["params"], f32["params"], f32["init"]),
+            update=_update_gap(torch, bf16["params"], f32["params"], init),
             mu=_mu_gap(bf16["mu"], f32["mu"], scale)[0])
         del bf16, f32
         gc.collect()
         torch.cuda.empty_cache()
+    # The reference of the ranks' steps at SHARD_MICROBATCHES.
+    f32 = _unsharded_run(torch, _train_parts(torch, _f32(_smollm_cfg(configs)), "cuda",
+                                             MB_STEPS, microbatches=SHARD_MICROBATCHES),
+                         MB_STEPS)
+    ref["mb"] = dict(losses=f32["losses"], params=f32["params"], mu=f32["mu"],
+                     mu_scale={k: float(v.abs().max()) for k, v in f32["mu"].items()})
+    plain_ms["mb"] = f32["ms"]
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()  # (the ranks need the card)
     torch.save(ref, work / "unsharded.pt")
-    for what in ("smollm", "moe"):  # the ranks read the arrays from the file
+    for what in ("smollm", "moe", "mb"):  # the ranks read the files
         ref[what] = {"losses": ref[what]["losses"]}
     gc.collect()
-    for what, name, n in (("smollm", f"SmolLM-135M full width, {SHARD_BATCH} x {SHARD_SEQ}",
-                           SHARD_STEPS),
+    print(f"shard: unsharded on the card ({smi}): SmolLM-135M full width and depth, "
+          f"{SHARD_BATCH} x {SHARD_SEQ}, bf16: {plain_ms['full']:.1f} ms a step, losses "
+          f"{ref['full_bf16_losses']}")
+    for what, name, n in (("smollm", f"SmolLM-135M full width, {F32_LAYERS} layers, "
+                           f"{SHARD_BATCH} x {SHARD_SEQ}", SHARD_STEPS),
                           ("moe", f"DeepSeek-MoE-16B full width, 2 layers, {SHARD_BATCH} x "
                            f"{SHARD_SEQ}, capacity factor {_moe_cfg(configs).capacity_factor:.3f}",
                            MOE_STEPS)):
@@ -3427,6 +3482,8 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
     ranks = distributed.spawn(_shard_rank, int(np.prod(SHARD_MESH[0])), rendezvous_dir=work,
                               backend=backend, args=(str(work),), timeout=900)
     t_ranks = time.perf_counter() - t0
+    if backend == MESH_BACKEND:
+        _probe_report(ranks)
     r0 = ranks[0]
     print(f"shard: {len(ranks)} ranks on {torch.cuda.device_count()} card(s) over {backend}, "
           f"on {sorted({r['device'] for r in ranks})}, mesh "
@@ -3434,22 +3491,33 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
           f"(rank 0, DTensor's CommDebugMode): {r0['comm']}")
     for r in ranks:
         s = r["smollm"]
-        dl = max(abs(a - b) for a, b in zip(s["losses"], ref["smollm_bf16_losses"]))
+        dl = max(abs(a - b) for a, b in zip(s["losses"], ref["full_bf16_losses"]))
         print(f"shard: rank {r['rank']} SmolLM-135M through build_trainer(mesh=), bf16: "
-              f"{s['ms']:.1f} ms a step (unsharded {plain_ms['smollm'][0]:.1f}), losses "
+              f"{s['ms']:.1f} ms a step (unsharded {plain_ms['full']:.1f}), losses "
               f"{s['losses']}, within {dl:.3g} of the unsharded bf16 run's (two bf16 runs "
               f"that round their sums in other places; not held)")
-        for what, got, key, n in (("SmolLM-135M float32", r["smollm32"], "smollm", SHARD_STEPS),
-                                  ("DeepSeek-MoE-16B float32", r["moe"], "moe", MOE_STEPS)):
+        one, more = r["smollm32"]["flops"], r["mb"]["flops"]
+        print(f"shard: rank {r['rank']} SmolLM-135M float32 at {F32_LAYERS} layers, this "
+              f"rank's counted FLOPs in a step: {one:.6e} at one microbatch, {more:.6e} at "
+              f"{SHARD_MICROBATCHES} ({more / one:.4f}x)")
+        check(abs(more - one) <= 0.03 * one, f"rank {r['rank']}: {more:.6e} FLOPs at "
+              f"{SHARD_MICROBATCHES} microbatches against {one:.6e} at one")
+        runs = [(f"SmolLM-135M float32 at {F32_LAYERS} layers", r["smollm32"], "smollm",
+                 "smollm", SHARD_STEPS),
+                (f"SmolLM-135M float32 at {F32_LAYERS} layers, {SHARD_MICROBATCHES} "
+                 f"microbatches (unsharded {plain_ms['mb']:.1f} ms a step)", r["mb"], "mb",
+                 "smollm", MB_STEPS),
+                ("DeepSeek-MoE-16B float32", r["moe"], "moe", "moe", MOE_STEPS)]
+        for what, got, key, tol, n in runs:
             gaps = dict(got["gaps"], loss=max(abs(a - b) for a, b in zip(
                 got["losses"], ref[key]["losses"])))
             print(f"shard: rank {r['rank']} {what} sharded: {got['ms']:.1f} ms a step, losses "
                   f"{got['losses']}; against the unsharded float32 run after {n} steps, its "
                   f"shards: losses within {gaps['loss']!r}, update gap {gaps['update']!r}, "
-                  f"first-moment gap {gaps['mu']!r} ({gaps['mu_leaf']}) (limits {SHARD_TOL[key]}; "
+                  f"first-moment gap {gaps['mu']!r} ({gaps['mu_leaf']}) (limits {SHARD_TOL[tol]}; "
                   f"largest elementwise parameter difference {gaps['worst']!r}); "
                   f"{got['seconds']:.1f} s")
-            check(all(gaps[k] <= v for k, v in SHARD_TOL[key].items()),
+            check(all(gaps[k] <= v for k, v in SHARD_TOL[tol].items()),
                   f"rank {r['rank']} {what}: the sharded steps left the float32 limits")
         check(r["moe"]["ep_calls"] == MOE_STEPS + 1, f"rank {r['rank']}: "
               f"{r['moe']['ep_calls']} expert-parallel calls in {MOE_STEPS} steps and the "
@@ -3476,11 +3544,15 @@ def phase_model_sharding(torch, smi: str, backend: str = MESH_BACKEND) -> None:
 # 21. the dry-run against the card
 # ---------------------------------------------------------------------------
 
-# The counted peak of phase 8's prefill over the card's
+# The dry-run's peak of each counted step over the card's
 # (``max_memory_allocated`` over the step, the arguments added back): the
 # counter sees storages, the allocator rounds blocks and keeps its own
 # workspaces (PERF.md, PR 25, fixed before the first run).
 DRYRUN_PEAK_RATIO = (0.9, 1.1)
+# Phase 21's train step (one card, SmolLM-135M, bf16, remat none) and
+# decode step (phase 9's K4 shape: 64 sequences, a 512-row cache).
+COUNT_TRAIN = dict(batch=4, seq=1024, microbatches=2)
+COUNT_DECODE = dict(batch=64, window=512)
 
 
 def _dryrun_cells() -> dict:
@@ -3504,75 +3576,126 @@ def _dryrun_cells() -> dict:
     return procs
 
 
-def _counted_prefill(torch, smi: str) -> None:
-    """Phase 8's prefill counted on meta tensors and on the card."""
-    from repro_torch import configs, fake
-    from repro_torch.kernels.flash_attention import ops as fa_ops
+def _hold_counted(torch, name: str, fake_step, fake_args, step, args, smi: str,
+                  kernel: str | None = None, counter=None, want: int = 0):
+    """``name``'s step counted by the op counter on meta tensors (the
+    dry-run: ``fake_step(*fake_args)`` within ``fake.modeling()``) and on the
+    card (``step(*args)``, after a warm-up and one timed call): FLOPs,
+    bytes, ops, counted peaks and ``kernel``'s records equal, the records
+    equal to the ``want`` launches that ``counter`` saw in the counted call;
+    the dry-run's peak over the card allocator's within
+    ``DRYRUN_PEAK_RATIO``; ``t_compute`` / ``t_memory`` beside the measured
+    ms.  Returns the card's output."""
+    from repro_torch import fake
     from repro_torch.launch import dryrun, op_cost
-    from repro_torch.models import get_model
-    from repro_torch.serve.steps import make_prefill_step
 
-    cfg = configs.get_config(ARCH)
-    b, s = 8, 2048
-    meta_params = fake.build_meta(
-        lambda: get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0)))
     with fake.modeling():
         t0 = time.perf_counter()
-        _, fake_cost = op_cost.count(
-            make_prefill_step(get_model(cfg, use_flash=True, device="meta")), meta_params,
-            {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")})
+        _, fake_cost = op_cost.count(fake_step, *fake_args)
         t_fake = time.perf_counter() - t0
-        del meta_params
-
-    tokens = torch.from_numpy(np.random.default_rng(10).integers(
-        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
-    flash = get_model(cfg, use_flash=True, device="cuda")
-    params = flash.init(torch.Generator(device="cuda").manual_seed(0))
-    step = make_prefill_step(flash)
-    step(params, {"tokens": tokens})  # warm-up
+    step(*args)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step(params, {"tokens": tokens})
+    step(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    fa_ops.flash_attention.launches = 0
+    if counter is not None:
+        counter.launches = 0
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    out, real_cost = op_cost.count(step, params, {"tokens": tokens})
+    out, real_cost = op_cost.count(step, *args)
     torch.cuda.synchronize()
     counted_ms = (time.perf_counter() - t0) * 1e3
     card_peak = torch.cuda.max_memory_allocated() - before + real_cost.argument_bytes
-    launches = fa_ops.flash_attention.launches
-    check(tuple(out.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(out).all()),
-          "counted prefill logits not finite")
-    k_fake = fake_cost.kernels.get("flash_attention", {}).get("count", 0)
-    k_real = real_cost.kernels.get("flash_attention", {}).get("count", 0)
-    print(f"dryrun: prefill {ARCH} bf16 {b} x {s}: counted on meta tensors in {t_fake:.2f} s: "
-          f"{fake_cost.flops:.6e} FLOPs, {fake_cost.bytes_accessed:.6e} bytes, "
-          f"{fake_cost.op_count} ops, K3 records {k_fake}; on the card: "
-          f"{real_cost.flops:.6e} FLOPs, {real_cost.bytes_accessed:.6e} bytes, "
-          f"{real_cost.op_count} ops, K3 records {k_real}, K3 launches {launches}")
-    check(fake_cost.flops == real_cost.flops,
-          f"FLOPs differ: dry-run {fake_cost.flops}, card {real_cost.flops}")
-    check(fake_cost.bytes_accessed == real_cost.bytes_accessed,
-          f"bytes differ: dry-run {fake_cost.bytes_accessed}, card {real_cost.bytes_accessed}")
-    check(k_fake == k_real == launches == cfg.num_layers,
-          f"K3 records {k_fake} (dry-run) / {k_real} (card), launches {launches}, "
-          f"want {cfg.num_layers}")
+    launches = counter.launches if counter is not None else 0
+    k_fake, k_real = fake_cost.kernels.get(kernel, {}), real_cost.kernels.get(kernel, {})
     ratio = fake_cost.peak_bytes / card_peak
-    print(f"dryrun: peak: counted {fake_cost.peak_bytes / 1e9:.4f} GB (dry-run), "
-          f"{real_cost.peak_bytes / 1e9:.4f} GB (counter on the card), card "
-          f"max_memory_allocated over the step + arguments {card_peak / 1e9:.4f} GB "
-          f"(arguments {real_cost.argument_bytes / 1e9:.4f} GB); dry-run / card "
-          f"{ratio:.4f} (held to {DRYRUN_PEAK_RATIO})")
-    check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
-          f"dry-run peak / card peak {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    print(f"dryrun: {name}: counted on meta tensors in {t_fake:.2f} s: {fake_cost.flops:.6e} "
+          f"FLOPs, {fake_cost.bytes_accessed:.6e} bytes, {fake_cost.op_count} ops, peak "
+          f"{fake_cost.peak_bytes} bytes; on the card: {real_cost.flops:.6e} FLOPs, "
+          f"{real_cost.bytes_accessed:.6e} bytes, {real_cost.op_count} ops, peak "
+          f"{real_cost.peak_bytes} bytes"
+          + (f"; {kernel} records {k_fake} (dry-run) / {k_real} (card), {launches} launches"
+             if kernel else ""))
+    print(f"dryrun: {name}: card max_memory_allocated over the step + arguments "
+          f"{card_peak / 1e9:.4f} GB (arguments {real_cost.argument_bytes / 1e9:.4f} GB); "
+          f"dry-run / card {ratio:.4f} (held to {DRYRUN_PEAK_RATIO})")
     t_c = fake_cost.flops / dryrun.PEAK_FLOPS * 1e3
     t_m = fake_cost.bytes_accessed / dryrun.HBM_BW * 1e3
-    print(f"dryrun: t_compute {t_c:.3f} ms, t_memory {t_m:.3f} ms (datasheet constants) "
-          f"against {plain_ms:.3f} ms measured ({counted_ms:.3f} ms under the counter); "
-          f"measured / max term {plain_ms / max(t_c, t_m):.2f} ({smi})")
+    print(f"dryrun: {name}: t_compute {t_c:.3f} ms, t_memory {t_m:.3f} ms (datasheet "
+          f"constants) against {plain_ms:.3f} ms measured ({counted_ms:.3f} ms under the "
+          f"counter); measured / max term {plain_ms / max(t_c, t_m):.2f} ({smi})")
+    for what, a, c in (("FLOPs", fake_cost.flops, real_cost.flops),
+                       ("bytes", fake_cost.bytes_accessed, real_cost.bytes_accessed),
+                       ("ops", fake_cost.op_count, real_cost.op_count),
+                       ("counted peaks", fake_cost.peak_bytes, real_cost.peak_bytes),
+                       (f"{kernel} records", k_fake, k_real)):
+        check(a == c, f"{name}: {what} differ: dry-run {a}, card {c}")
+    if kernel:
+        check(k_real.get("count") == launches == want,
+              f"{name}: {kernel} records {k_real.get('count')}, launches {launches}, "
+              f"want {want}")
+    check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+          f"{name}: dry-run peak / card peak {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    return out
+
+
+def _counted_steps(torch, smi: str) -> None:
+    """Phase 8's prefill, a SmolLM-135M train step at two microbatches and a
+    decode step at phase 9's K4 shape, each held by :func:`_hold_counted`."""
+    from repro_torch import configs, fake
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import make_prefill_step, make_serve_step
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfg = configs.get_config(ARCH)
+    host = get_model(cfg, device="cpu")
+    meta_params = fake.build_meta(lambda: host.init(torch.Generator().manual_seed(0)))
+    model = get_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    meta = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")  # noqa: E731
+
+    def tokens(seed, *shape, high=cfg.vocab_size):
+        return torch.from_numpy(np.random.default_rng(seed).integers(
+            0, high, shape).astype(np.int32)).cuda()
+
+    b, s = 8, 2048
+    out = _hold_counted(
+        torch, f"prefill {ARCH} bf16 {b} x {s}",
+        make_prefill_step(get_model(cfg, use_flash=True, device="meta")),
+        (meta_params, {"tokens": meta(b, s)}),
+        make_prefill_step(get_model(cfg, use_flash=True, device="cuda")),
+        (params, {"tokens": tokens(10, b, s)}),
+        smi, "flash_attention", fa_ops.flash_attention, cfg.num_layers)
+    check(tuple(out.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+          "counted prefill logits not finite")
+
+    b, s, n = COUNT_TRAIN["batch"], COUNT_TRAIN["seq"], COUNT_TRAIN["microbatches"]
+    tcfg = ts.TrainConfig(microbatches=n, remat="none", opt=opt_lib.OptimizerConfig())
+    _, _, metrics = _hold_counted(
+        torch, f"train step {ARCH} bf16 {b} x {s}, {n} microbatches, remat none",
+        ts.make_train_step(get_model(cfg, device="meta"), tcfg),
+        (meta_params, opt_lib.init_opt_state(meta_params, tcfg.opt), {"tokens": meta(b, s)}),
+        ts.make_train_step(model, tcfg),
+        (params, opt_lib.init_opt_state(params, tcfg.opt), {"tokens": tokens(11, b, s)}), smi)
+    check(bool(torch.isfinite(metrics["loss"])), "counted train step's loss not finite")
+
+    b, w = COUNT_DECODE["batch"], COUNT_DECODE["window"]
+    new_tok, _ = _hold_counted(
+        torch, f"decode step {ARCH} bf16, {b} sequences, a {w}-row cache",
+        torch.no_grad()(make_serve_step(get_model(cfg, device="meta"))),
+        (meta_params, fake.build_meta(lambda: host.init_cache(b, w)), meta(b), meta(b),
+         meta(2)),
+        torch.no_grad()(make_serve_step(model)),
+        (params, model.init_cache(b, w), tokens(12, b), tokens(13, b, high=w),
+         torch.zeros((2,), dtype=torch.int32, device="cuda")),
+        smi, "decode_attention", fd_ops.decode_attention, cfg.num_layers)
+    check(tuple(new_tok.shape) == (b,) and bool(((new_tok >= 0) & (new_tok < cfg.vocab_size))
+                                               .all()), "counted decode step's tokens")
 
 
 def _nuts_aot(torch, run6: dict, launches6: dict) -> None:
@@ -3622,7 +3745,7 @@ def _nuts_aot(torch, run6: dict, launches6: dict) -> None:
 
 def phase_dryrun(torch, run6: dict, launches6: dict, smi: str, procs: dict) -> None:
     t0 = time.perf_counter()
-    _counted_prefill(torch, smi)
+    _counted_steps(torch, smi)
     _nuts_aot(torch, run6, launches6)
     for mesh, (proc, out) in procs.items():
         code = proc.wait(timeout=600)

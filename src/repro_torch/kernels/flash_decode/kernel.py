@@ -62,6 +62,19 @@ def split_plan(batch: int, kv_heads: int, window: int) -> SplitPlan:
     return SplitPlan(splits, CHUNK, (kv_heads, batch, splits))
 
 
+def buffers(q: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What a launch allocates: the output ``[B, H, Dh]`` and the float32
+    partials (acc[G, Dh], m, l) per (b, hk, split) for the combine (empty
+    with one split).  A fake call allocates the same, so a step counted on
+    fake tensors holds what the card holds."""
+    b, h, dh = q.shape
+    w, hk = k.shape[1], k.shape[2]
+    splits = split_plan(b, hk, w).splits
+    return torch.empty_like(q), torch.empty(
+        b * hk * splits * (h // hk) * (dh + 2) if splits > 1 else 0, dtype=torch.float32,
+        device=q.device)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      count: torch.Tensor) -> torch.Tensor:
     """q contiguous ``[B, H, Dh]``; k, v ``[B, W, Hkv, Dh]`` with a
@@ -71,10 +84,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, dh = q.shape
     w, hk = k.shape[1], k.shape[2]
     plan = split_plan(b, hk, w)
-    out = torch.empty_like(q)
-    # float32 partials (acc[G, Dh], m, l) per (b, hk, split) for the combine.
-    part = torch.empty(b * hk * plan.splits * (h // hk) * (dh + 2) if plan.splits > 1 else 0,
-                       dtype=torch.float32, device=q.device)
+    out, part = buffers(q, k)
     code = library().flash_decode_fwd(
         out.data_ptr(), part.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         count.data_ptr(), *k.stride()[:3], *v.stride()[:3],

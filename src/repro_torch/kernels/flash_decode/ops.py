@@ -4,16 +4,18 @@ argument checks, device dispatch and a launch count.
 
 A fake tensor (:mod:`repro_torch.fake`, as type inference and the
 dry-run pass one) gets an empty tensor of the output's shape, dtype and
-device: it has no data, and the kernel launches through ``ctypes``, so
+device, beside the partials a launch allocates (``kernel.buffers``): it
+has no data, and the kernel launches through ``ctypes``, so
 this is the shape rule, not a fallback.  Both a fake call and a launch
-record their cost with the active op counter
+record the same cost with the active op counter
 (:func:`repro_torch.launch.op_cost.record`, nothing when none is active):
 the FLOPs its plain version's two products count over the whole window,
-and the bytes of q and o, ``count`` and the k and v rows of each
-sequence's ``count``-long window.  A fake ``count`` has no values, so a
-fake call charges the whole window (the steady state of a decode); a launch
-reads ``count`` back, only while a counter is active.  A tensor on the CPU runs the plain version in
-:mod:`.ref`; any other
+and the bytes of q and o, ``count`` and the k and v rows of the whole
+window, as the plain version reads them.  A fake ``count`` has no values,
+and a launch does not read it back (a host read inside a counted step),
+so both charge the window (the steady state of a decode), and a step
+counted on the card equals its dry-run.  A tensor on the CPU runs the
+plain version in :mod:`.ref`; any other
 tensor launches the CUDA kernel in :mod:`.kernel` (building it on first
 use) or raises.  There is no fallback from the card to the plain version.
 The kernel has no backward: on the card a call under autograd raises
@@ -49,12 +51,11 @@ def cost(q: torch.Tensor, k: torch.Tensor, rows: int) -> tuple[float, float]:
     return 4.0 * b * h * w * dh, float(2 * b * h * dh * s + 4 * b + 2 * rows * hk * dh * s)
 
 
-def _record(q: torch.Tensor, k: torch.Tensor, count: torch.Tensor) -> None:
-    counter = op_cost.active()
-    if counter is not None:
-        with counter.paused():
-            rows = k.shape[0] * k.shape[1] if fake.is_fake(count) else int(count.sum())
-        flops, nbytes = cost(q, k, rows)
+def _record(q: torch.Tensor, k: torch.Tensor) -> None:
+    """The call's cost over the whole window, on a launch and on a fake
+    tensor alike."""
+    if op_cost.active() is not None:
+        flops, nbytes = cost(q, k, k.shape[0] * k.shape[1])
         op_cost.record("decode_attention", flops=flops, nbytes=nbytes)
 
 
@@ -86,8 +87,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows per sequence -> [B, H, Dh] in q's dtype (zeros where count is 0)."""
     _check(q, k, v, count)
     if fake.is_fake(q, k, v, count):
-        _record(q, k, count)
-        return torch.empty_like(q)
+        _record(q, k)
+        return kernel.buffers(q, k)[0]
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, count)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
@@ -107,7 +108,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _layout.check_aligned(q=q, k=k, v=v)
     out = kernel.decode_attention(q, k, v, count)
     decode_attention.launches += 1
-    _record(q, k, count)
+    _record(q, k)
     return out
 
 

@@ -14,9 +14,18 @@ A port of the JAX package's ``models/layers.py`` with its conventions:
 * Positions are ``[B, S]``, or ``[B, 3, S]`` (t, h, w) under M-RoPE
   (``cfg.mrope_sections``, the vlm family).
 
-Under a mesh (``shard_ctx``), ``_project_qkv`` pins tensor parallelism to
-the head axis where the heads divide.  Prefill attention goes through K3 when ``use_flash`` is
-set on a causal layer with no ``seg_mask``, as in the reference; decode
+Under a mesh (``shard_ctx``) each product states the Megatron layout
+(``shard_ctx.column_product`` / ``row_product``: the weight gathered over
+the FSDP axes where the batch shards over them, its ``tp`` dim kept): the
+column-parallel outputs (q, k, v, the FFN hidden) stay on ``("batch", ...,
+"tp")`` and the row-parallel ones (``wo``, ``wd``, ``w2``) are all-reduced
+into the residual's layout before they join it.  ``_project_qkv`` pins tensor
+parallelism to the head axis where the heads divide; where ``tp`` does not
+divide the heads, q, k and v gather their columns over ``tp`` and every
+``tp`` rank computes the attention core of its batch rows over all heads,
+as the reference does (its ``constrain_strict`` leaves them unconstrained).
+Prefill attention goes through K3 when ``use_flash`` is set on a causal
+layer with no ``seg_mask``, as in the reference; decode
 attention always goes through K4, on the dequantized cache when it is int8
 (the JAX package computes the same masked softmax in plain XLA there).
 """
@@ -152,9 +161,9 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
     dh = cfg.resolved_head_dim
     h, hk = cfg.num_heads, cfg.num_kv_heads
     ct = x.dtype
-    q = x @ params["wq"].to(ct)
-    k = x @ params["wk"].to(ct)
-    v = x @ params["wv"].to(ct)
+    q = shard_ctx.column_product(x, params["wq"].to(ct))
+    k = shard_ctx.column_product(x, params["wk"].to(ct))
+    v = shard_ctx.column_product(x, params["wv"].to(ct))
     if cfg.qkv_bias:
         q = q + params["bq"].to(ct)
         k = k + params["bk"].to(ct)
@@ -223,7 +232,7 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
                           ("batch", None, tp), q, k, v,
                           shard_ctx.replicate_like(positions, q),
                           None if seg_mask is None else shard_ctx.replicate_like(seg_mask, q))
-    return out @ params["wo"].to(x.dtype)
+    return shard_ctx.row_product(out, params["wo"].to(x.dtype))
 
 
 def _blocked_attention(q, k, v, *, causal: bool, seg_mask: torch.Tensor | None,
@@ -337,7 +346,8 @@ def attention_decode(params: Params, x: torch.Tensor, cfg: ArchConfig,
     outs = shard_ctx.local(core, [heads, heads, heads, heads[:1]] + cache_lg,
                            [(heads[0], None, tp)] + cache_lg, q, k_new, v_new,
                            shard_ctx.replicate_like(position, q), *leaves)
-    out = outs[0] @ params["wo"].to(x.dtype)
+    # (the core's rows follow the cache's; the product's take the batch's)
+    out = shard_ctx.row_product(shard_ctx.hidden(outs[0]), params["wo"].to(x.dtype))
     return out, dict(zip(names, outs[1:]))
 
 
@@ -357,9 +367,9 @@ def init_swiglu(gen: torch.Generator, cfg: ArchConfig, d: int, d_ff: int, device
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     ct = x.dtype
-    g = F.silu(x @ params["wg"].to(ct))
-    u = x @ params["wu"].to(ct)
-    return (g * u) @ params["wd"].to(ct)
+    g = F.silu(shard_ctx.column_product(x, params["wg"].to(ct)))
+    u = shard_ctx.column_product(x, params["wu"].to(ct))
+    return shard_ctx.row_product(g * u, params["wd"].to(ct))
 
 
 def init_gelu_mlp(gen: torch.Generator, cfg: ArchConfig, d: int, d_ff: int, device) -> Params:
@@ -375,8 +385,9 @@ def init_gelu_mlp(gen: torch.Generator, cfg: ArchConfig, d: int, d_ff: int, devi
 def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     ct = x.dtype
     # jax.nn.gelu defaults to the tanh approximation.
-    h = F.gelu(x @ params["w1"].to(ct) + params["b1"].to(ct), approximate="tanh")
-    return h @ params["w2"].to(ct) + params["b2"].to(ct)
+    h = shard_ctx.column_product(x, params["w1"].to(ct))
+    h = F.gelu(h + params["b1"].to(ct), approximate="tanh")
+    return shard_ctx.row_product(h, params["w2"].to(ct)) + params["b2"].to(ct)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,13 @@ statistics are float32.
 Recurrence (per head h, state ``[P, N]``):
     h_t = exp(A_h * dt_t) * h_{t-1} + dt_t * x_t ⊗ B_t
     y_t = h_t C_t + D_h * x_t
+
+Under a mesh the projections state their layouts
+(``shard_ctx.column_product`` / ``row_product``), the scan runs on each
+rank's rows and heads, and the out-projection's partial sums are reduced
+into the residual's layout.  The projection's z/xBC/dt split and the conv's
+x/B/C split do not fall on ``tp``'s shard boundaries, so those activations
+gather over ``tp`` before the split.
 """
 from __future__ import annotations
 
@@ -51,7 +58,7 @@ def init_mamba2(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
 
 def _split_proj(params: Params, x: torch.Tensor, cfg: ArchConfig):
     d_in, h, p, n = dims(cfg)
-    zxbcdt = x @ params["w_in"].to(x.dtype)
+    zxbcdt = shard_ctx.column_product(x, params["w_in"].to(x.dtype))
     return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * n],
             zxbcdt[..., 2 * d_in + 2 * n:])
 
@@ -127,7 +134,7 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
                         xs, xbc[..., d_in:d_in + n], xbc[..., d_in + n:], dt, a)
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xs
     y = rms_norm_simple(y.reshape(bsz, s, d_in) * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype)
+    return shard_ctx.row_product(y, params["w_out"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -174,4 +181,5 @@ def mamba2_decode_step(params: Params, x: torch.Tensor, cfg: ArchConfig, cache: 
     y = y + params["d_skip"].float()[None, :, None] * xs
     y = y.reshape(bsz, 1, d_in).to(x.dtype)
     y = rms_norm_simple(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype), {"conv": hist[:, 1:], "ssm": h_new}
+    out = shard_ctx.row_product(y, params["w_out"].to(x.dtype))
+    return out, {"conv": hist[:, 1:], "ssm": h_new}

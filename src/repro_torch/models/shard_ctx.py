@@ -13,10 +13,19 @@ Rules::
 
 ``constrain(x, ("batch", None, "tp"))`` maps logical names to mesh axes,
 drops entries whose dimension does not divide, and redistributes a DTensor
-``x`` to those placements (``with_sharding_constraint``); with no rules, or
-on a plain tensor, it returns ``x`` unchanged.  :func:`local` runs a leaf
-function on each rank's shards (``local_map``) where an op has no DTensor
-sharding strategy.
+``x`` to those placements (``with_sharding_constraint``), its gradient
+too; with no rules, or on a plain tensor, it returns ``x`` unchanged.
+:func:`local` runs a leaf function on each rank's shards (``local_map``)
+where an op has no DTensor sharding strategy.
+
+Where the reference's specs fix a layout, the layers state it before the
+product rather than leave it to DTensor's strategy choice, which may
+replicate the batch and the weight (XLA's GSPMD does not):
+:func:`column_product` and :func:`row_product` put the weight in its
+product's layout (gathered over the FSDP axes, its ``tp`` dim kept), keep
+a column-parallel output on ``("batch", ..., "tp")`` (:func:`hidden`) and
+reduce a row-parallel output into the residual's ``("batch", None,
+None)`` before it joins the residual (:func:`residual`).
 """
 from __future__ import annotations
 
@@ -118,7 +127,69 @@ def constrain(x: torch.Tensor, logical: tuple) -> torch.Tensor:
     from ..launch.sharding import placements
 
     mesh = rules["mesh"]
-    return x.redistribute(mesh, placements(spec(x.shape, logical, rules), mesh))
+    target = placements(spec(x.shape, logical, rules), mesh)
+    y = x.redistribute(mesh, target)
+    if tuple(x.placements) != tuple(y.placements):
+        # The gradient takes the constrained layout too, as the cotangent of
+        # with_sharding_constraint does: a redistribute's backward sends it
+        # to the input's layout, where a partial sum stays partial, and a
+        # second one, a no-op forward, reduces it first.
+        y = y.redistribute(mesh, target)
+    return y
+
+
+def column_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a column-parallel weight ``[..., n]`` (it makes a
+    hidden), pinned to ``("batch", ..., "tp")`` (:func:`hidden`).  Where the
+    batch of ``x [B, ...]`` shards over the data axes, ``w`` takes its
+    product's layout first: its columns over ``tp``, gathered over the FSDP
+    axes (ZeRO-3's gather; its gradient reduce-scatters back), so the
+    product keeps the batch's rows and the weight's columns with no
+    collective and DTensor has no layout to choose.  Where the batch does
+    not shard (one sequence), the FSDP shards stay: each data rank takes
+    its slice of the contraction and the partial sums are reduced, as
+    GSPMD does for an activation that small."""
+    if divides("batch", x.shape[0]):
+        w = constrain(w, (None,) * (w.dim() - 1) + ("tp",))
+    return hidden(x @ w)
+
+
+def row_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a row-parallel weight ``[n, ...]`` (a hidden's output
+    projection), in the residual stream's layout (:func:`residual`).  Where
+    the batch of ``h`` shards over the data axes, ``w`` takes its rows over
+    ``tp``, gathered over the FSDP axes, first (see
+    :func:`column_product`); the product is a partial sum over ``tp``."""
+    if divides("batch", h.shape[0]):
+        w = constrain(w, ("tp",) + (None,) * (w.dim() - 1))
+    return residual(h @ w)
+
+
+def split_contraction(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, ..., d]`` whose batch does not shard over the data axes (one
+    sequence) with its last dim over them instead, so that its product
+    with a weight the data axes do not shard (a decode step's unembedding)
+    splits the contraction there, partial sums reduced after, rather than
+    repeat on every data rank; else ``x``.  (A prefill's logits are too
+    large to hold as partial sums.)"""
+    if _RULES.get() is None or divides("batch", x.shape[0]):
+        return x
+    return constrain(x, (None,) * (x.dim() - 1) + ("batch",))
+
+
+def hidden(x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel product's output ``[B, ..., n]`` pinned to
+    ``("batch", ..., "tp")``."""
+    return constrain(x, ("batch",) + (None,) * (x.dim() - 2) + ("tp",))
+
+
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output ``[B, ..., d]`` in the residual
+    stream's layout, ``("batch", None, ...)``: its partial sums over
+    ``tp`` all-reduced before it joins the residual (Megatron's reduction
+    after the row-parallel product), so no partial sum reaches a norm or
+    the next product."""
+    return constrain(x, ("batch",) + (None,) * (x.dim() - 1))
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -423,7 +423,7 @@ class Model:
             if encoder:
                 return labels.long(), mask
             tgt, m = torch.roll(labels, -1, dims=1).long(), mask * torch.roll(mask, -1, dims=1)
-            m[:, -1] = 0.0
+            m[:, -1].zero_()  # (zero_, not a scalar write: the same ops on every device)
             return tgt, m
 
         # roll has no DTensor strategy: each rank shifts its batch rows.
@@ -532,7 +532,7 @@ class Model:
                     sites.append(skv)
             new = {"mamba": _stack(mamba), "shared_kv": _stack(sites)}
         h = L.norm(params["final_norm"], h, cfg)
-        logits = L.unembed(params["embed"], h, cfg)[:, 0]
+        logits = L.unembed(params["embed"], shard_ctx.split_contraction(h), cfg)[:, 0]
         logits = shard_ctx.constrain(logits, ("batch", "tp"))
         return logits.float(), new
 

@@ -16,6 +16,13 @@ per trip, as the reference's HLO counter counts a ``while`` loop
 
 Maxima are ``torch.amax``/``torch.maximum``, whose gradients split ties
 evenly, as ``jnp.max``/``jnp.maximum``'s do.
+
+Under a mesh each product states its layout (``shard_ctx.column_product``
+/ ``row_product``) and the down-projections' partial sums are reduced into
+the residual's layout.  The
+up-projections' halves do not fall on ``tp``'s shard boundaries, so they
+gather over ``tp`` before the split; the sLSTM's recurrence runs on each
+rank's rows with whole weights on every ``tp`` rank.
 """
 from __future__ import annotations
 
@@ -98,17 +105,23 @@ def _split_heads(t: torch.Tensor, shape: tuple, h: int) -> torch.Tensor:
     return t.reshape(shape)
 
 
+def _col(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of a column-parallel weight in ``x``'s dtype
+    (``shard_ctx.column_product``)."""
+    return shard_ctx.column_product(x, w.to(x.dtype))
+
+
 def _mlstm_qkv_gates(params: Params, x: torch.Tensor, cfg: ArchConfig):
     d_in, h, p = mlstm_dims(cfg)
     bsz, s, _ = x.shape
     ct = x.dtype
-    up = x @ params["w_up"].to(ct)
+    up = shard_ctx.column_product(x, params["w_up"].to(ct))
     x_part, z_part = up[..., :d_in], up[..., d_in:]
     x_conv = _causal_conv(x_part, params["conv_w"].to(ct), params["conv_b"].to(ct))
-    q = _split_heads(x_conv @ params["wq"].to(ct), (bsz, s, h, p), h)
-    k = _split_heads(x_conv @ params["wk"].to(ct), (bsz, s, h, p), h) / np.sqrt(p)
-    v = _split_heads(x_part @ params["wv"].to(ct), (bsz, s, h, p), h)
-    if_pre = (x_conv @ params["w_if"].to(ct) + params["b_if"].to(ct)).float()
+    q = _split_heads(_col(x_conv, params["wq"]), (bsz, s, h, p), h)
+    k = _split_heads(_col(x_conv, params["wk"]), (bsz, s, h, p), h) / np.sqrt(p)
+    v = _split_heads(_col(x_part, params["wv"]), (bsz, s, h, p), h)
+    if_pre = (_col(x_conv, params["w_if"]) + params["b_if"].to(ct)).float()
     return q, k, v, z_part, if_pre[..., :h], _log_sigmoid(if_pre[..., h:]), x_conv
 
 
@@ -174,8 +187,10 @@ def mlstm_forward(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Ten
     h_out = shard_ctx.local(lambda *args: _mlstm_chunked(*args, cfg.ssm_chunk)[0],
                             [heads, heads, heads, gates, gates], heads,
                             q, k, v, log_i, log_f)
-    y = rms_norm_simple(h_out.reshape(bsz, s, d_in), params["head_norm"], cfg.norm_eps)
-    return (y * F.silu(z_part)) @ params["w_down"].to(x.dtype)
+    # (pinned: a gradient sharded over tp cannot split into heads tp does not divide)
+    h_out = shard_ctx.constrain(h_out.reshape(bsz, s, d_in), ("batch", None, tp))
+    y = rms_norm_simple(h_out, params["head_norm"], cfg.norm_eps)
+    return shard_ctx.row_product(y * F.silu(z_part), params["w_down"].to(x.dtype))
 
 
 def init_mlstm_cache(cfg: ArchConfig, batch: int, dtype, device) -> Params:
@@ -195,14 +210,14 @@ def mlstm_decode_step(params: Params, x: torch.Tensor, cfg: ArchConfig, cache: P
     d_in, h, p = mlstm_dims(cfg)
     bsz = x.shape[0]
     ct = x.dtype
-    up = x @ params["w_up"].to(ct)
+    up = shard_ctx.column_product(x, params["w_up"].to(ct))
     x_part, z_part = up[..., :d_in], up[..., d_in:]
     hist = torch.cat([cache["conv"], x_part], dim=1)
     x_conv = _conv_step(hist, params, ct)
-    q = _split_heads(x_conv @ params["wq"].to(ct), (bsz, h, p), h).float()
-    k = (_split_heads(x_conv @ params["wk"].to(ct), (bsz, h, p), h) / np.sqrt(p)).float()
-    v = _split_heads(x_part[:, 0] @ params["wv"].to(ct), (bsz, h, p), h).float()
-    if_pre = (x_conv @ params["w_if"].to(ct) + params["b_if"].to(ct)).float()
+    q = _split_heads(_col(x_conv, params["wq"]), (bsz, h, p), h).float()
+    k = (_split_heads(_col(x_conv, params["wk"]), (bsz, h, p), h) / np.sqrt(p)).float()
+    v = _split_heads(_col(x_part[:, 0], params["wv"]), (bsz, h, p), h).float()
+    if_pre = (_col(x_conv, params["w_if"]) + params["b_if"].to(ct)).float()
     log_i, log_f = if_pre[..., :h], _log_sigmoid(if_pre[..., h:])
     m_new = torch.maximum(log_f + cache["m"], log_i)  # [B,H]
     f_s = torch.exp(log_f + cache["m"] - m_new)[..., None]
@@ -213,8 +228,8 @@ def mlstm_decode_step(params: Params, x: torch.Tensor, cfg: ArchConfig, cache: P
     den = torch.maximum(torch.einsum("bhp,bhp->bh", q, n_new).abs(), torch.exp(-m_new))
     h_out = (num / den[..., None]).to(ct).reshape(bsz, 1, d_in)
     y = rms_norm_simple(h_out, params["head_norm"], cfg.norm_eps) * F.silu(z_part)
-    return y @ params["w_down"].to(ct), {"conv": hist[:, 1:], "c": c_new, "n": n_new,
-                                         "m": m_new}
+    out = shard_ctx.row_product(y, params["w_down"].to(ct))
+    return out, {"conv": hist[:, 1:], "c": c_new, "n": n_new, "m": m_new}
 
 
 # ---------------------------------------------------------------------------
@@ -296,10 +311,10 @@ def _slstm_cell(params: Params, cfg: ArchConfig, x_t, x_conv_t, state):
 def _slstm_out(params: Params, hid: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
     """Head norm and the GeGLU up/down projection (factor 4/3)."""
     y = rms_norm_simple(hid.to(dtype), params["head_norm"], cfg.norm_eps)
-    up = y @ params["w_up"].to(dtype)
+    up = shard_ctx.column_product(y, params["w_up"].to(dtype))
     half = up.shape[-1] // 2
     y = F.gelu(up[..., :half], approximate="tanh") * up[..., half:]
-    return y @ params["w_down"].to(dtype)
+    return shard_ctx.row_product(y, params["w_down"].to(dtype))
 
 
 def _slstm_scan(x, x_conv, w_gates, b_gates, r_gates, cfg: ArchConfig) -> torch.Tensor:

@@ -17,6 +17,7 @@ plain replicated values.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -37,13 +38,56 @@ class TrainConfig:
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    """``[B, ...]`` -> ``n`` batches of ``[B/n, ...]`` along the batch axis."""
+    """``[B, ...]`` -> ``n`` batches of ``[B/n, ...]`` along the batch axis:
+    microbatch ``i`` holds rows ``[i B/n, (i+1) B/n)``, as the reference's
+    ``reshape`` makes them (:func:`_microbatches`)."""
     for name, x in batch.items():
         if x.shape[0] % n:
             raise ValueError(f"batch {name!r} of {x.shape[0]} rows does not split into "
                              f"{n} microbatches")
-    chunks = {name: x.chunk(n) for name, x in batch.items()}
+    chunks = {name: _microbatches(x, n) for name, x in batch.items()}
     return [{name: c[i] for name, c in chunks.items()} for i in range(n)]
+
+
+def _microbatches(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``x [B, ...]`` as ``n`` microbatches of ``B/n`` rows.  A DTensor whose
+    rows shard over ``dp`` ranks (the data axes) keeps them sharded: each
+    microbatch is placed as ``x`` is, each rank holding ``B/(n dp)`` of its
+    rows.  Rank ``r`` holds blocks ``r n .. r n + n - 1`` of ``m = B/(n dp)``
+    rows, and block ``f`` belongs to microbatch ``f // dp`` on rank ``f %
+    dp``: one all-to-all over the data axes moves every block there (a
+    rank's rows for the whole step, never a whole microbatch; ``chunk``
+    would gather it).  Rows that do not divide so raise ``ValueError``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    rows = ([d for d, p in enumerate(x.placements) if p == Shard(0)]
+            if isinstance(x, DTensor) else [])
+    if n == 1 or not rows:
+        return list(x.chunk(n))
+    mesh = x.device_mesh
+    dp = math.prod(mesh.size(d) for d in rows)
+    if x.shape[0] % (n * dp):
+        raise ValueError(f"{x.shape[0]} rows over {dp} data ranks do not split into {n} "
+                         f"microbatches of whole rows a rank")
+    import torch.distributed._functional_collectives as fc
+
+    names = [mesh.mesh_dim_names[d] for d in rows]
+    me = 0
+    for name in names:  # this rank among the dp ranks, the outer axis first
+        me = me * mesh.size(mesh.mesh_dim_names.index(name)) + mesh.get_local_rank(name)
+    group = mesh[names[0]] if len(names) == 1 else mesh[tuple(names)]._flatten()
+    m = x.shape[0] // (n * dp)
+    local = x.to_local()
+    send = sorted(range(n), key=lambda t: ((me * n + t) % dp, t))  # blocks by destination
+    sent = [sum((me * n + t) % dp == r for t in range(n)) * m for r in range(dp)]
+    got = [sum((src * n + t) % dp == me for t in range(n)) * m for src in range(dp)]
+    blocks = local.reshape((n, m) + tuple(local.shape[1:]))[send].flatten(0, 1)
+    out = fc.all_to_all_single(blocks, got, sent, group)
+    out = out.wait() if isinstance(out, fc.AsyncCollectiveTensor) else out
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(out[i * m:(i + 1) * m], mesh, x.placements, run_check=False,
+                               shape=shape, stride=stride) for i in range(n)]
 
 
 def make_loss_fn(model: Model, cfg: TrainConfig) -> Callable:

@@ -24,7 +24,9 @@ arithmetic (the counterpart of tests/test_dryrun.py).
   and product counts equal, peak bytes within 1 %.
 * In a subprocess (the fake group is global to its process, and opening
   it here would leave it to every later test of this worker): both
-  production meshes, and ``smollm-135m x decode_32k`` on 32 x 8 end to end.
+  production meshes, ``smollm-135m x decode_32k`` on 32 x 8 end to end,
+  and one rank's share of Qwen3-14B's train step (one layer) on 32 x 8 at
+  1 and 4 microbatches against the unsharded step.
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices;
 the fixture initializes JAX first, puts the variable back and checks that
@@ -291,3 +293,19 @@ def test_smallest_production_cell_end_to_end(production):
     k4 = cell["kernels"]["decode_attention"]
     assert k4["count"] == layers and cell["scope_bytes"]["attn_core"] == k4["bytes"]
     assert cell["collective_bytes"] > 0 and "t_memory_flash" in cell
+
+
+def test_a_rank_counts_its_share_at_any_microbatch_count(production):
+    """Qwen3-14B's train step at one layer on 32 x 8: every product
+    divides over 256 ranks at its widths, so one rank's FLOPs are within
+    10 % of the unsharded step's over 256, and they do not grow with the
+    microbatches (within 3 %).  DTensor left to choose replicated the
+    MLP's work (5.91e13 at 1 microbatch, 8.06e14 at 4, against a 3.06e13
+    share).  Each of the 4 microbatches of 256 rows keeps 256 / (4 * 32)
+    rows a rank."""
+    share = production["share"]
+    one, four = (share["sharded"][str(n)] for n in (1, 4))
+    assert abs(four - one) <= 0.03 * one, share
+    assert abs(one - share["unsharded"] / 256) <= 0.10 * share["unsharded"] / 256, share
+    b, n, dp = share["global_rows"]
+    assert share["local_rows"] == [[b // (n * dp), 4096]] * n

@@ -23,6 +23,11 @@
   sharded loss (a double-counted combine would scale them by the ``model``
   size); DeepSeek-MoE-16B's router alone at full width, sharded and
   unsharded in the same ranks, differs by rounding (float64).
+* **Microbatches**: SmolLM's step at two microbatches on the mesh equals
+  the unsharded one and the JAX package's sharded one; each microbatch
+  stays sharded over ``data`` (one row a rank) and is the reference's rows;
+  a rank's counted FLOPs do not grow with the microbatches; a split that
+  would leave part of a row a rank raises.
 * **Checkpoints**: a sharded state saves the logical arrays, restores
   unsharded and back onto the mesh bit-exact, and replays a step with the
   same loss; the restart loop replays a failure bit-exact; meshes smaller
@@ -182,12 +187,15 @@ def runs(tmp_path_factory):
 
 
 def _jax_steps(np_params) -> dict:
-    """Each family's sharded step (and DeepSeek-MoE's gradients), three
-    families at a time: XLA compiles them in parallel threads."""
+    """Each family's sharded step (and DeepSeek-MoE's gradients), and
+    SmolLM's at ``workers.MICROBATCHES`` (keyed ``smollm-135m/mb2``), three
+    at a time: XLA compiles them in parallel threads."""
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 
-    def one(arch):
-        model, _, opt_state, step, stream = j_train.build_trainer(arch, mesh=mesh, **workers.KW)
+    def one(job):
+        arch, n = job
+        model, _, opt_state, step, stream = j_train.build_trainer(
+            arch, mesh=mesh, **dict(workers.KW, microbatches=n))
         params = jax.device_put(np_params[arch], j_sh.param_shardings(np_params[arch], mesh))
         batch = stream.batch(0)
         batch = jax.device_put(batch, j_sh.batch_shardings(batch, mesh))
@@ -201,12 +209,14 @@ def _jax_steps(np_params) -> dict:
         paths = lambda tree: {j_sh._path_str(p): np.asarray(x)  # noqa: E731
                               for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
         out.update(loss=float(metrics["loss"]), lr=float(metrics["lr"]),
-                   params=paths(new_params), mu=paths(new_opt["mu"]))
-        return arch, out
+                   ce=float(metrics.get("ce", np.nan)), params=paths(new_params),
+                   mu=paths(new_opt["mu"]))
+        return (arch if n == 1 else f"{arch}/mb{n}"), out
 
     # The slowest to compile first.
-    order = ("xlstm-350m", "deepseek-moe-16b", "zamba2-7b", "smollm-135m", "qwen2-vl-2b",
-             "hubert-xlarge")
+    order = [(arch, 1) for arch in ("xlstm-350m", "deepseek-moe-16b", "zamba2-7b")]
+    order += [("smollm-135m", workers.MICROBATCHES)]
+    order += [(arch, 1) for arch in ("smollm-135m", "qwen2-vl-2b", "hubert-xlarge")]
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         return dict(pool.map(one, order))
 
@@ -265,6 +275,52 @@ def test_heads_the_model_axis_does_not_divide(runs):
     unsharded step's (the reference's rules at the same shapes)."""
     got = runs[0][0]["odd_heads"]
     _hold_step(got["sharded"], got["unsharded"], "3 heads")
+
+
+def test_microbatched_sharded_step_matches_unsharded(runs):
+    """SmolLM at two microbatches through ``build_trainer(mesh=)`` against
+    the same step unsharded, within the one-step limits above."""
+    got = runs[0][0]["microbatched"]
+    _hold_step(got["sharded"], got["unsharded"], "2 microbatches")
+
+
+def test_microbatched_sharded_step_matches_jax_sharded_step(runs):
+    """SmolLM at two microbatches on the mesh against the JAX package's
+    sharded step at two microbatches: the loss and ``ce`` (the last
+    microbatch's) on every rank within ``LOSS_TOL``, the step as in
+    test_sharded_step_matches_jax_sharded_step."""
+    ranks, jax_side = runs
+    want = jax_side[f"smollm-135m/mb{workers.MICROBATCHES}"]
+    for r in ranks:
+        got = r["microbatched"]["sharded"]
+        np.testing.assert_allclose(got["loss"], want["loss"], **LOSS_TOL)
+        np.testing.assert_allclose(got["ce"], want["ce"], **LOSS_TOL)
+    _hold_step(ranks[0]["microbatched"]["sharded"], want, "2 microbatches", _port_key)
+
+
+def test_microbatches_that_split_rows_raise(runs):
+    """A batch of two rows over ``data`` 2 at two microbatches would leave
+    half a row a rank: the split raises rather than gather each
+    microbatch."""
+    for r in runs[0]:
+        assert "do not split" in (r["microbatched"]["uneven"] or ""), r["microbatched"]["uneven"]
+
+
+def test_microbatches_stay_sharded(runs):
+    """Each microbatch is the reference's rows ``[i B/n, (i+1) B/n)``,
+    placed as the batch is, each rank holding ``B/(n dp) = 4/(2 * 2)`` of
+    them; the step's ``ce`` is the last microbatch's (the reference's
+    ``aux``); each rank's counted FLOPs at 2 microbatches are within 3 %
+    of those at 1 (this mesh is too small to show replication, which the
+    32 x 8 count in test_torch_dryrun.py does)."""
+    for r in runs[0]:
+        mb = r["microbatched"]
+        assert mb["local_rows"] == [(1, 32)] * workers.MICROBATCHES, mb["placements"]
+        assert mb["reference_rows"]
+        assert abs(mb["flops"][2] - mb["flops"][1]) <= 0.03 * mb["flops"][1], mb["flops"]
+        np.testing.assert_allclose(mb["sharded"]["ce"], mb["last_ce"], **LOSS_TOL)
+        np.testing.assert_allclose(mb["unsharded"]["ce"], mb["last_ce"], **LOSS_TOL)
+        assert mb["sharded"]["ce"] != mb["sharded"]["loss"]
 
 
 def test_moe_takes_the_expert_parallel_path(runs):

@@ -31,6 +31,49 @@ def sharded_linear() -> dict:
                 collectives=cost.collectives)
 
 
+SHARE_ARCH, SHARE_LAYERS, SHARE_MICROBATCHES = "qwen3-14b", 1, (1, 4)
+
+
+def rank_share() -> dict:
+    """One rank's train step of Qwen3-14B at one layer on 32 x 8
+    (``train_4k``: 256 x 4,096 tokens, remat ``full``) counted at 1 and 4
+    microbatches; the same step unsharded (meta tensors, no mesh, the
+    global batch) counted once; and the local rows of each microbatch of
+    the placed batch."""
+    import dataclasses
+
+    from repro_torch import configs, fake
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    over = {"num_layers": SHARE_LAYERS}
+    out = {"sharded": {n: dryrun.run_cell(SHARE_ARCH, "train_4k", cfg_overrides=over,
+                                          microbatches=n, verbose=False)["hlo_flops"]
+                       for n in SHARE_MICROBATCHES}}
+    cfg = dataclasses.replace(configs.get_config(SHARE_ARCH), **over)
+    params = fake.build_meta(
+        lambda: get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0)))
+    model = get_model(cfg, device="meta")
+    tcfg = ts.TrainConfig(microbatches=1, remat="full", opt=opt_lib.OptimizerConfig())
+    batch = model.input_specs(SHAPES["train_4k"])
+    with fake.modeling():
+        out["unsharded"] = op_cost.count(ts.make_train_step(model, tcfg), params,
+                                         opt_lib.init_opt_state(params, tcfg.opt),
+                                         batch)[1].flops
+    mesh = make_production_mesh()
+    placed = dryrun._place(batch, sh.batch_shardings(batch, mesh))
+    n = SHARE_MICROBATCHES[-1]
+    out["local_rows"] = [list(mb["tokens"].to_local().shape)
+                         for mb in ts._split_microbatches(placed, n)]
+    out["global_rows"] = [batch["tokens"].shape[0], n, mesh.size(0)]
+    return out
+
+
 def production() -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh, num_chips
@@ -54,7 +97,7 @@ def main(argv) -> int:
             json.dump([rec], f, default=float)
         return 0
     fake.open_fake_group(dryrun.FAKE_WORLD)
-    res = {"linear": sharded_linear(), **production()}
+    res = {"linear": sharded_linear(), **production(), "share": rank_share()}
     with open(argv[0], "w") as f:
         json.dump(res, f, default=float)
     return 0

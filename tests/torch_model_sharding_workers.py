@@ -43,9 +43,9 @@ def _locals(tree) -> list:
     return [x.to_local().clone() for x in tree_flatten(tree)[0]]
 
 
-def _trainer(arch, mesh, device, np_params):
+def _trainer(arch, mesh, device, np_params, microbatches: int = 1):
     model, _, opt_state, step, stream = launch_train.build_trainer(
-        arch, mesh=mesh, device=device, **KW)
+        arch, mesh=mesh, device=device, **dict(KW, microbatches=microbatches))
     params = interop.lm_params_from_numpy(np_params, model.cfg, device)
     return model, sh.distribute(params, sh.param_shardings(params, mesh)), opt_state, step, stream
 
@@ -160,6 +160,57 @@ def _odd_heads(mesh, device) -> dict:
     return out
 
 
+MICROBATCHES = 2
+
+
+def _microbatched(mesh, device, np_params) -> dict:
+    """SmolLM on the mesh at ``MICROBATCHES`` microbatches through
+    ``build_trainer(mesh=)`` and unsharded, from the same weights; each
+    rank's counted FLOPs for the sharded step at 1 and at
+    ``MICROBATCHES``; each microbatch's local rows and whether it holds the
+    reference's rows; the last microbatch's loss, unsharded, at the step's
+    compute weights (the step's ``ce`` is that microbatch's); and what
+    splitting a batch of one row a microbatch over the data ranks raises."""
+    from repro_torch.launch import op_cost
+
+    arch = "smollm-135m"
+    _, params, opt_state, step, stream = _trainer(arch, mesh, device, np_params, MICROBATCHES)
+    batch = stream.batch(0)
+    new_params, new_opt, metrics = step(params, opt_state, batch)
+    out = dict(sharded=dict(loss=float(metrics["loss"]), ce=float(metrics["ce"]),
+                            lr=float(metrics["lr"]), params=_whole(new_params),
+                            mu=_whole(new_opt["mu"])))
+    flops = {}
+    for n in (1, MICROBATCHES):
+        counted = _trainer(arch, mesh, device, np_params, n)[3]
+        flops[n] = op_cost.count(counted, params, opt_state, batch, meshes=[mesh])[1].flops
+    out["flops"] = flops
+    placed = sh.distribute(batch, sh.batch_shardings(batch, mesh))
+    mbs = ts._split_microbatches(placed, MICROBATCHES)
+    rows = batch["tokens"].shape[0] // MICROBATCHES
+    out["local_rows"] = [tuple(mb["tokens"].to_local().shape) for mb in mbs]
+    out["placements"] = [str(tuple(mb["tokens"].placements)) for mb in mbs]
+    out["reference_rows"] = all(
+        torch.equal(mb["tokens"].full_tensor(), batch["tokens"][i * rows:(i + 1) * rows])
+        for i, mb in enumerate(mbs))
+    two = {"tokens": batch["tokens"][:MICROBATCHES]}  # half a row a rank a microbatch
+    try:
+        ts._split_microbatches(sh.distribute(two, sh.batch_shardings(two, mesh)), MICROBATCHES)
+        out["uneven"] = None
+    except ValueError as e:
+        out["uneven"] = str(e)
+    plain, p0, o0, plain_step, _ = launch_train.build_trainer(
+        arch, device=device, **dict(KW, microbatches=MICROBATCHES))
+    p0 = interop.lm_params_from_numpy(np_params, plain.cfg, device)
+    new_params, new_opt, metrics = plain_step(p0, o0, batch)
+    out["unsharded"] = dict(loss=float(metrics["loss"]), ce=float(metrics["ce"]),
+                            lr=float(metrics["lr"]), params=_whole(new_params),
+                            mu=_whole(new_opt["mu"]))
+    last = {k: v[-rows:] for k, v in batch.items()}
+    out["last_ce"] = float(plain.loss(plain.cast_for_compute(p0), last)[1]["ce"])
+    return out
+
+
 ROUTER_TOKENS = 4 * 1024  # phase 20's DeepSeek batch: 4 sequences of 1,024
 
 
@@ -259,6 +310,7 @@ def model_sharding(rank: int, device: torch.device, np_params: dict, ckpt_dir: s
             steps[arch]["ep_calls"] = len(ep_calls)
             steps[arch]["grads"] = _expert_grads(model, params, batch, mesh)
     out = dict(rank=rank, small_meshes=small, steps=steps, odd_heads=_odd_heads(mesh, device),
+               microbatched=_microbatched(mesh, device, np_params["smollm-135m"]),
                ckpt=_checkpoints(mesh, device, np_params["smollm-135m"], ckpt_dir),
                router=_router_gaps(mesh, device))
     if rank:  # every rank gathered; the first one's copy is enough
@@ -266,4 +318,7 @@ def model_sharding(rank: int, device: torch.device, np_params: dict, ckpt_dir: s
             rec.pop("params")
             rec.pop("mu")
             rec.pop("grads", None)
+        for rec in (out["microbatched"]["sharded"], out["microbatched"]["unsharded"]):
+            rec.pop("params")
+            rec.pop("mu")
     return out
