@@ -3317,7 +3317,8 @@ def _sharded_run(torch, cfg, device, mesh, n: int, ref: dict, moe: bool = False,
     init = _host_params(params)
     model, _, _, step, stream = _train_parts(torch, cfg, device, n, init=False,
                                              microbatches=microbatches)
-    params, opt_state, step = launch_train.shard_trainer(model, params, opt_state, step, mesh)
+    params, opt_state, step = launch_train.shard_trainer(model, params, opt_state, step, mesh,
+                                                         SHARD_BATCH)
     kept: dict = {}
     flops: list = []
 
@@ -3555,24 +3556,35 @@ COUNT_TRAIN = dict(batch=4, seq=1024, microbatches=2)
 COUNT_DECODE = dict(batch=64, window=512)
 
 
+# Phase 21's production-mesh dry-runs, ``(arch, shape, mesh)``: SmolLM-135M's
+# decode on both meshes, and DeepSeek-MoE-16B's prefill of 32 sequences on
+# 2 x 32 x 8, whose 64 data ranks do not divide its batch (it shards over
+# ``data`` alone, ``launch.mesh.batch_axes``).
+DRYRUN_CELLS = ((ARCH, "decode_32k", "32x8"), (ARCH, "decode_32k", "2x32x8"),
+                (MOE_ARCH, "prefill_32k", "2x32x8"))
+
+
 def _dryrun_cells() -> dict:
-    """The two production-mesh dry-runs, as subprocesses started together
-    (CPU work only: ``main`` starts them before the build and phase 21
-    reads them; they are stopped at exit whatever happens)."""
+    """``DRYRUN_CELLS`` as subprocesses started together (CPU work only:
+    ``main`` starts them before the build and phase 21 reads them; they are
+    stopped at exit whatever happens)."""
     import atexit
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
-    for mesh, extra in (("32x8", []), ("2x32x8", ["--multi-pod"])):
-        out = out_dir / f"phase21_dryrun_{mesh}.json"
-        with open(out_dir / f"phase21_dryrun_{mesh}.log", "w") as log:
-            procs[mesh] = (subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-                 "--shape", "decode_32k", "--out", str(out)] + extra,
+    for cell in DRYRUN_CELLS:
+        arch, shape, mesh = cell
+        name = f"phase21_dryrun_{arch}_{shape}_{mesh}"
+        out = out_dir / f"{name}.json"
+        with open(out_dir / f"{name}.log", "w") as log:
+            procs[cell] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--out", str(out)]
+                + (["--multi-pod"] if mesh == "2x32x8" else []),
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), out)
-            atexit.register(procs[mesh][0].kill)
+            atexit.register(procs[cell][0].kill)
     return procs
 
 
@@ -3747,16 +3759,20 @@ def phase_dryrun(torch, run6: dict, launches6: dict, smi: str, procs: dict) -> N
     t0 = time.perf_counter()
     _counted_steps(torch, smi)
     _nuts_aot(torch, run6, launches6)
-    for mesh, (proc, out) in procs.items():
+    for (arch, shape, mesh), (proc, out) in procs.items():
+        what = f"{arch} x {shape} on {mesh}"
         code = proc.wait(timeout=600)
-        check(code == 0, f"dryrun {mesh} exited {code} (chiprun_out/phase21_dryrun_{mesh}.log)")
+        check(code == 0, f"dryrun {what} exited {code} (chiprun_out/{out.stem}.log)")
         rec = json.load(open(out))[0]
         chips = 512 if mesh == "2x32x8" else 256
         check(rec["chips"] == chips and rec["mesh"] == mesh,
-              f"dryrun {mesh}: chips {rec['chips']}, mesh {rec['mesh']}")
+              f"dryrun {what}: chips {rec['chips']}, mesh {rec['mesh']}")
         check(rec["bottleneck"] in ("compute", "memory", "collective") and rec["peak_bytes"] > 0,
-              f"dryrun {mesh}: bottleneck {rec['bottleneck']}, peak {rec['peak_bytes']}")
-        print(f"dryrun: {ARCH} x decode_32k on {mesh} ({chips} chips): t_compute "
+              f"dryrun {what}: bottleneck {rec['bottleneck']}, peak {rec['peak_bytes']}")
+        check(rec["fits"], f"dryrun {what}: peak {rec['peak_bytes']} bytes does not fit")
+        print(f"dryrun: {what} ({chips} chips; counts against the H100 datasheet "
+              f"constants, not card measurements): {rec['hlo_flops']:.4e} FLOPs a card, "
+              f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}, t_compute "
               f"{rec['t_compute'] * 1e3:.4f} ms, t_memory {rec['t_memory'] * 1e3:.4f} ms, "
               f"t_collective {rec['t_collective'] * 1e3:.4f} ms, bound {rec['bottleneck']}, "
               f"peak {rec['peak_bytes'] / 1e9:.3f} GB (fits {rec['fits']}), "

@@ -62,7 +62,8 @@ from ..train import optimizer as opt_lib
 from ..train import train_step as ts
 from . import op_cost
 from . import sharding as sh
-from .mesh import axis_sizes, data_axes, make_mesh, make_production_mesh, num_chips
+from .mesh import (axis_rules, axis_sizes, batch_axes, make_mesh, make_production_mesh,
+                   num_chips)
 
 # ---------------------------------------------------------------------------
 # H100 hardware model (roofline constants; NVIDIA H100 80GB HBM3 SXM, 700 W,
@@ -113,12 +114,12 @@ def mesh_name(mesh) -> str:
 
 def default_microbatches(arch: str, shape_name: str, mesh) -> int:
     """Gradient-accumulation factor targeting ~8k local tokens per
-    microbatch (the production memory lever; recorded per cell).  ``mesh``
-    is a ``DeviceMesh`` or a stand-in with ``mesh_dim_names`` and
-    ``shape``."""
+    microbatch (the production memory lever; recorded per cell), over the
+    data ranks the batch shards over (``batch_axes``).  ``mesh`` is a
+    ``DeviceMesh`` or a stand-in with ``mesh_dim_names`` and ``shape``."""
     shape = SHAPES[shape_name]
     sizes = axis_sizes(mesh)
-    dp = sizes.get("data", 1) * sizes.get("pod", 1)
+    dp = math.prod(sizes[a] for a in batch_axes(mesh, shape.global_batch))
     local_tokens = shape.global_batch * shape.seq_len // dp
     local_seqs = max(1, shape.global_batch // dp)
     mb = max(1, local_tokens // 8192)
@@ -144,9 +145,9 @@ def build_case(arch: str, shape_name: str, mesh, *, unroll: bool = True,
     host = get_model(cfg, device="cpu")
     model = get_model(cfg, use_flash=use_flash, device="meta")
     # The decode cache's batch rows shard over ``data`` alone
-    # (``sharding.cache_shardings``), the activations' over every data axis.
-    model.axis_rules = {"batch": data_axes(mesh), "cache_batch": "data", "tp": "model",
-                        "ep": "model", "sizes": axis_sizes(mesh), "mesh": mesh}
+    # (``sharding.cache_shardings``), the activations' over the data axes
+    # that divide the batch (``batch_axes``, as ``batch_shardings`` places it).
+    model.axis_rules = dict(axis_rules(mesh, shape.global_batch), cache_batch="data")
     params = fake.build_meta(lambda: host.init(torch.Generator().manual_seed(0)))
     pshard = sh.param_shardings(params, mesh)
 

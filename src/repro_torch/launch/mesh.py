@@ -16,6 +16,9 @@ data 32, model 8)`` over 512.  ``model`` is the 8 cards of one NVLink node
 cross nodes over InfiniBand.  The card counts are the reference's (a TPU
 v5e pod of 16 x 16 chips, and two pods), so per-card figures compare.
 
+:func:`batch_axes` picks the data axes a batch shards over, and
+:func:`axis_rules` gives a model its rules on a mesh.
+
 Nothing here opens a group at import.
 """
 from __future__ import annotations
@@ -64,8 +67,42 @@ def axis_sizes(mesh) -> dict:
 
 
 def data_axes(mesh) -> tuple[str, ...]:
-    """Axes the global batch shards over."""
+    """Axes a global batch can shard over (the reference's rule shards it
+    over all of them or none: :func:`batch_axes` picks)."""
     return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def batch_axes(mesh, rows: int) -> tuple[str, ...]:
+    """Axes a batch of ``rows`` rows shards over: the data axes
+    (:func:`data_axes`) where their product divides ``rows``, else ``data``
+    alone where it does, else the data axes again, which then divide
+    nothing and leave the batch replicated (a rule never names an empty
+    tuple: ``shard_ctx`` would take its product of 1 as dividing
+    everything).
+
+    The reference replicates a batch that the whole tuple does not divide.
+    Its meshes (16 x 16, 2 x 16 x 16) never meet one at a shape's global
+    batch, but the port's 2 x 32 x 8 does: 32 sequences over 64 data
+    ranks.  There each pod holds every row and each data rank one, rather
+    than every rank all 32.  Pods alone are never chosen: a batch over them
+    would still be whole on each of a pod's data ranks, and the reference
+    places such a batch whole at shapes it reaches (4 rows on 2 x 16 x 16).
+    For every shape's global batch on the reference's meshes, and wherever
+    the whole tuple divides, this is :func:`data_axes`."""
+    sizes = axis_sizes(mesh)
+    for axes in (data_axes(mesh), ("data",)):
+        total = math.prod(sizes[a] for a in axes)
+        if rows % total == 0 and rows >= total:
+            return axes
+    return data_axes(mesh)
+
+
+def axis_rules(mesh, rows: int) -> dict:
+    """A model's ``axis_rules`` (``models/shard_ctx.py``) on ``mesh`` for a
+    batch of ``rows`` rows: the batch over :func:`batch_axes`, tensor and
+    expert parallelism over ``model``."""
+    return {"batch": batch_axes(mesh, rows), "tp": "model", "ep": "model",
+            "sizes": axis_sizes(mesh), "mesh": mesh}
 
 
 def num_chips(mesh) -> int:

@@ -9,7 +9,9 @@ Scheme (Megatron-style TP x FSDP, EP for MoE, pure DP across pods):
   long non-TP dimension (ZeRO-3: params and optimizer state shard here);
 * logical axis ``ep``   -> mesh ``model``: the expert axis of MoE weights;
 * batch dims            -> ``("pod", "data")`` when multi-pod else
-  ``("data",)``;
+  ``("data",)``; on a mesh whose pods and data ranks together do not
+  divide a batch, ``("data",)`` where it divides
+  (:func:`~.mesh.batch_axes`);
 * decode caches         -> the batch axis over ``data``, the largest other
   dim that divides over ``model``.
 
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from ..core.tree import tree_flatten, tree_flatten_with_path, tree_map, tree_unflatten
-from .mesh import axis_sizes, data_axes
+from .mesh import axis_sizes, batch_axes
 
 PyTree = Any
 Spec = tuple
@@ -111,16 +113,22 @@ def placements(spec: Spec, mesh) -> list:
     """DTensor placements of ``spec`` on ``mesh``: each mesh dim that a
     tensor dim names gets ``Shard(that dim)`` (a tuple of names shards the
     dim over each, in mesh order, so ``pod`` is the outer one), every other
-    mesh dim ``Replicate()``."""
+    mesh dim ``Replicate()``.  A mesh dim of one rank holds the tensor whole
+    whatever the spec names, so it stays ``Replicate()``: DTensor's views
+    cannot carry a shard on a tensor dim of size 1, which a batch of one
+    row over one data rank would be."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = mesh.mesh_dim_names
+    names, sizes = mesh.mesh_dim_names, axis_sizes(mesh)
     out = [Replicate() for _ in names]
+    named: set = set()
     for dim, entry in enumerate(spec):
         for axis in ((entry,) if isinstance(entry, str) else entry or ()):
-            if not isinstance(out[names.index(axis)], Replicate):
+            if axis in named:
                 raise ValueError(f"spec {spec} names mesh dim {axis!r} twice")
-            out[names.index(axis)] = Shard(dim)
+            named.add(axis)
+            if sizes[axis] > 1:
+                out[names.index(axis)] = Shard(dim)
     return out
 
 
@@ -189,17 +197,19 @@ def opt_state_shardings(opt_state: PyTree, params: PyTree, mesh) -> PyTree:
 
 
 def batch_shardings(batch: PyTree, mesh) -> PyTree:
-    """Shard the leading (batch) dim of every input over (pod, data)."""
-    daxes = data_axes(mesh)
+    """Shard the leading (batch) dim of every input over the axes
+    :func:`~.mesh.batch_axes` gives its rows: (pod, data) where they
+    divide, else data alone where it does, else replicated."""
     sizes = axis_sizes(mesh)
-    total = int(np.prod([sizes[a] for a in daxes]))
-
-    entry = daxes if len(daxes) > 1 else daxes[0]
 
     def one(leaf):
         shape = tuple(leaf.shape)
-        if shape and shape[0] % total == 0 and shape[0] >= total:
-            return NamedSharding(mesh, (entry,) + (None,) * (len(shape) - 1))
+        if shape:
+            axes = batch_axes(mesh, shape[0])
+            total = int(np.prod([sizes[a] for a in axes]))
+            if shape[0] % total == 0 and shape[0] >= total:
+                entry = axes if len(axes) > 1 else axes[0]
+                return NamedSharding(mesh, (entry,) + (None,) * (len(shape) - 1))
         return replicated(mesh)
 
     return tree_map(one, batch)

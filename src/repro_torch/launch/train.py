@@ -30,7 +30,7 @@ from ..train import fault_tolerance as ft
 from ..train import optimizer as opt_lib
 from ..train import train_step as ts
 from . import sharding as sh
-from .mesh import axis_sizes, data_axes
+from .mesh import axis_rules
 
 
 def build_trainer(arch: str, *, seq_len: int, global_batch: int, steps: int, lr: float,
@@ -59,18 +59,19 @@ def build_trainer(arch: str, *, seq_len: int, global_batch: int, steps: int, lr:
     opt_state = opt_lib.init_opt_state(params, tcfg.opt)
     step = ts.make_train_step(model, tcfg)
     if mesh is not None:
-        params, opt_state, step = shard_trainer(model, params, opt_state, step, mesh)
+        params, opt_state, step = shard_trainer(model, params, opt_state, step, mesh,
+                                                global_batch)
     stream = data_lib.SyntheticStream(model, shape)
     return model, params, opt_state, step, stream
 
 
-def shard_trainer(model, params, opt_state, step, mesh):
+def shard_trainer(model, params, opt_state, step, mesh, global_batch: int):
     """``(params, opt_state, step)`` on ``mesh``: the model gets the mesh's
-    ``axis_rules``, the parameters and optimizer state are placed by the
-    rules (every rank holds the same logical arrays), and the step places
-    each batch by ``batch_shardings`` before it runs."""
-    model.axis_rules = {"batch": data_axes(mesh), "tp": "model", "ep": "model",
-                        "sizes": axis_sizes(mesh), "mesh": mesh}
+    ``axis_rules`` for batches of ``global_batch`` rows, the parameters and
+    optimizer state are placed by the rules (every rank holds the same
+    logical arrays), and the step places each batch by ``batch_shardings``
+    before it runs."""
+    model.axis_rules = axis_rules(mesh, global_batch)
     oshard = sh.opt_state_shardings(opt_state, params, mesh)
     params = sh.distribute(params, sh.param_shardings(params, mesh))
     opt_state = sh.distribute(opt_state, oshard)

@@ -89,14 +89,22 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
     * **global**: one sort-and-scatter dispatch over every token.
     """
     b, s, d = x.shape
-    xf = x.reshape(b * s, d)
-    top_p, top_e, aux = router_probs(params, xf, cfg)
     rules = shard_ctx.current_rules()
     ep_axis = n_shards = None
     if rules is not None and rules.get("mesh") is not None:
         ep_axis = rules.get("ep") or rules.get("tp")
         n_shards = rules["sizes"].get(ep_axis, 0) if ep_axis else 0
-    if n_shards and n_shards > 1 and cfg.num_experts % n_shards == 0:
+    expert_parallel = bool(n_shards and n_shards > 1 and cfg.num_experts % n_shards == 0)
+    if expert_parallel:
+        # The router splits the b·s token rows over the batch's axes and
+        # the path below places b rows there: the axes must divide b.
+        daxes, dp = _batch_ranks(rules)
+        if b % dp:
+            raise ValueError(f"the expert-parallel MoE needs the batch ({b}) to divide over "
+                             f"{daxes} ({dp} ranks)")
+    xf = x.reshape(b * s, d)
+    top_p, top_e, aux = router_probs(params, xf, cfg)
+    if expert_parallel:
         k = cfg.top_k
         y = _moe_ep(params, x, top_p.reshape(b, s, k), top_e.reshape(b, s, k), cfg, rules,
                     ep_axis)
@@ -108,6 +116,15 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
     return _dispatch_compute_combine(params, x, xf, top_p, top_e, aux, capacity, cfg)
 
 
+def _batch_ranks(rules: dict) -> tuple[tuple, int]:
+    """The mesh axes the rules' ``"batch"`` names (``launch.mesh.batch_axes``)
+    and their product: the ranks the batch rows spread over."""
+    sizes = rules["sizes"]
+    batch = rules.get("batch", ())
+    daxes = tuple(a for a in ((batch,) if isinstance(batch, str) else batch) if a in sizes)
+    return daxes, int(np.prod([sizes[a] for a in daxes]))
+
+
 def _moe_ep(params, x, top_p, top_e, cfg, rules, ep_axis):
     """Expert-parallel MoE (``local_map``): local dispatch on each rank,
     its partial output summed over ``ep_axis`` by DTensor (``Partial`` ->
@@ -117,17 +134,12 @@ def _moe_ep(params, x, top_p, top_e, cfg, rules, ep_axis):
     from ..launch.sharding import placements
 
     mesh = rules["mesh"]
-    sizes = rules["sizes"]
-    daxes = tuple(a for a in rules.get("batch", ()) if a in sizes)
-    dp = int(np.prod([sizes[a] for a in daxes]))
-    n_shards = sizes[ep_axis]
+    daxes, dp = _batch_ranks(rules)
+    n_shards = rules["sizes"][ep_axis]
     e = cfg.num_experts
     e_loc = e // n_shards
     k = cfg.top_k
     b, s, d = x.shape
-    if b % dp:
-        raise ValueError(f"the expert-parallel MoE needs the batch ({b}) to divide over "
-                         f"{daxes} ({dp} ranks)")
     t_loc = max(1, b // dp) * s
     capacity = max(4, math.ceil(t_loc * k * cfg.capacity_factor / e))
     ep_dim = mesh.mesh_dim_names.index(ep_axis)

@@ -7,7 +7,7 @@ The launcher-facing entry is ``Model.axis_rules``; ``Model.forward``,
 ``loss`` and ``decode_step`` install it here for the duration of the call.
 Rules::
 
-    {"batch": ("pod", "data") | ("data",),
+    {"batch": ("pod", "data") | ("data",),   # launch.mesh.batch_axes
      "tp": "model", "ep": "model",
      "sizes": {axis: size}, "mesh": DeviceMesh}
 

@@ -25,8 +25,11 @@ arithmetic (the counterpart of tests/test_dryrun.py).
 * In a subprocess (the fake group is global to its process, and opening
   it here would leave it to every later test of this worker): both
   production meshes, ``smollm-135m x decode_32k`` on 32 x 8 end to end,
-  and one rank's share of Qwen3-14B's train step (one layer) on 32 x 8 at
-  1 and 4 microbatches against the unsharded step.
+  one rank's share of Qwen3-14B's train step (one layer) on 32 x 8 at
+  1 and 4 microbatches against the unsharded step, and ``prefill_32k`` of
+  DeepSeek-MoE-16B (two layers) and Qwen3-14B (one) on both meshes, whose
+  32 sequences shard over ``data`` alone on 2 x 32 x 8.
+* ``batch_axes`` on stand-in meshes for every shape's global batch.
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices;
 the fixture initializes JAX first, puts the variable back and checks that
@@ -293,6 +296,52 @@ def test_smallest_production_cell_end_to_end(production):
     k4 = cell["kernels"]["decode_attention"]
     assert k4["count"] == layers and cell["scope_bytes"]["attn_core"] == k4["bytes"]
     assert cell["collective_bytes"] > 0 and "t_memory_flash" in cell
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-14b"])
+def test_a_batch_pods_and_data_do_not_divide_shards_over_data(production, arch):
+    """``prefill_32k``'s 32 sequences on 2 x 32 x 8 (64 data ranks) shard
+    over ``data`` alone (``launch.mesh.batch_axes``), one sequence a rank
+    on both meshes, so a rank counts its 32 x 8 FLOPs (within 1 %) and
+    fits; both pods prefill the same sequences, so the useful ratio halves.
+    Replicated, as the reference's rule has it, DeepSeek-MoE-16B's MoE layer
+    failed (the router's 32 x 32,768 rows split over 64 ranks) and
+    Qwen3-14B at one layer counted 25x its share."""
+    cells = production["prefill"][arch]
+    one, two = cells["32x8"], cells["2x32x8"]
+    assert "error" not in one and "error" not in two, cells
+    assert abs(two["hlo_flops"] - one["hlo_flops"]) <= 0.01 * one["hlo_flops"], cells
+    assert one["fits"] and two["fits"], cells
+    assert two["peak_bytes"] <= 1.1 * one["peak_bytes"], cells
+    assert two["useful_flops_ratio"] == pytest.approx(one["useful_flops_ratio"] / 2,
+                                                      rel=0.01), cells
+    if arch == "qwen3-14b":
+        assert production["prefill"]["tokens"] == {"32x8": [1, 32768], "2x32x8": [1, 32768]}
+
+
+@pytest.mark.parametrize("mesh", [(32, 8), (2, 32, 8), (16, 16), (2, 16, 16)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_batch_axes(mesh):
+    """Every shape's global batch: the data axes wherever their product
+    divides it (every shape on the reference's 16 x 16 and 2 x 16 x 16),
+    ``("data",)`` for ``prefill_32k``'s 32 rows on 2 x 32 x 8, and the data
+    axes, which then place nothing, for ``long_500k``'s one row (its
+    rules keep naming them)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+
+    t_mesh, _ = _standins(mesh)
+    sizes = mesh_lib.axis_sizes(t_mesh)
+    full = mesh_lib.data_axes(t_mesh)
+    for shape in t_configs.SHAPES.values():
+        rows, got = shape.global_batch, mesh_lib.batch_axes(t_mesh, shape.global_batch)
+        if rows % np.prod([sizes[a] for a in full]) == 0 or rows == 1:
+            assert got == full, (shape.name, got)
+        else:
+            assert (mesh, shape.name, got) == ((2, 32, 8), "prefill_32k", ("data",))
+        spec = sh.batch_shardings({"t": torch.empty((rows, 8), device="meta")}, t_mesh)["t"]
+        want = () if rows == 1 else ((got if len(got) > 1 else got[0]), None)
+        assert tuple(spec.spec) == want, (shape.name, spec.spec)
 
 
 def test_a_rank_counts_its_share_at_any_microbatch_count(production):

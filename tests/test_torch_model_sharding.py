@@ -28,6 +28,10 @@
   stays sharded over ``data`` (one row a rank) and is the reference's rows;
   a rank's counted FLOPs do not grow with the microbatches; a split that
   would leave part of a row a rank raises.
+* **A batch over ``data`` alone**: a dense prefill on ``(pod 2, data 2,
+  model 1)`` at batch 2 and DeepSeek-MoE's on ``(pod 2, data 1, model
+  2)`` at batch 1 (the expert-parallel path), in the same four ranks,
+  equal the JAX package's unsharded prefill.
 * **Checkpoints**: a sharded state saves the logical arrays, restores
   unsharded and back onto the mesh bit-exact, and replays a step with the
   same loss; the restart loop replays a failure bit-exact; meshes smaller
@@ -49,6 +53,7 @@ from repro.configs.base import ShapeSpec as JShapeSpec  # noqa: E402
 from repro.launch import sharding as j_sh  # noqa: E402
 from repro.launch import train as j_train  # noqa: E402
 from repro.models import get_model as j_get_model  # noqa: E402
+from repro.serve import steps as j_steps  # noqa: E402
 from repro.train import optimizer as j_opt  # noqa: E402
 from repro_torch import configs, distributed, interop  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -178,7 +183,7 @@ def runs(tmp_path_factory):
     thread = threading.Thread(target=start)
     thread.start()
     try:
-        jax_side = _jax_steps(np_params)
+        jax_side = dict(_jax_steps(np_params), prefills=_jax_prefills(np_params))
     finally:
         thread.join()
     if "error" in ranks:
@@ -219,6 +224,16 @@ def _jax_steps(np_params) -> dict:
     order += [(arch, 1) for arch in ("smollm-135m", "qwen2-vl-2b", "hubert-xlarge")]
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         return dict(pool.map(one, order))
+
+
+def _jax_prefills(np_params) -> dict:
+    """The last position's logits of each of ``workers.PREFILLS``,
+    unsharded (one JAX device), from the same weights and prompts."""
+    out = {}
+    for arch in workers.PREFILLS:
+        step = jax.jit(j_steps.make_prefill_step(j_get_model(j_configs.get_smoke_config(arch))))
+        out[arch] = np.asarray(step(np_params[arch], {"tokens": workers.prefill_tokens(arch)}))
+    return out
 
 
 def _port_key(key: str) -> str:
@@ -357,6 +372,28 @@ def test_moe_router_alone_sharded_matches_unsharded(runs):
         assert router["float32"]["same_routing"] and router["float64"]["same_routing"]
         assert router["float64"]["gap"] < 1e-9, router
         assert router["float32"]["gap"] < 1e-5, router
+
+
+@pytest.mark.parametrize("arch", sorted(workers.PREFILLS))
+def test_prefill_over_data_alone_matches_jax_unsharded(runs, arch):
+    """A batch that ``pod`` x ``data`` does not divide shards over ``data``
+    alone (``launch.mesh.batch_axes``): SmolLM's 2 prompts on ``(pod 2,
+    data 2, model 1)`` one a data rank, DeepSeek-MoE's 1 prompt on ``(pod
+    2, data 1, model 2)`` through the expert-parallel path (its capacity
+    from the one prompt, as the unsharded path's).  The logits on every
+    rank are within ``tp.TOL`` of the JAX package's unsharded prefill."""
+    ranks, jax_side = runs
+    want = jax_side["prefills"][arch]
+    shape, b, s = workers.PREFILLS[arch]
+    for r in ranks:
+        got = r["prefills"][arch]
+        assert got["batch_axes"] == ["data"], got["batch_axes"]
+        assert got["local_rows"] == [b // shape[1], s]
+        assert got["ep_calls"] == (1 if arch == "deepseek-moe-16b" else 0)
+        assert got["logits"].shape == want.shape == (b, configs.get_smoke_config(
+            arch).vocab_size)
+        np.testing.assert_allclose(got["logits"], want, err_msg=f"{arch} rank {r['rank']}",
+                                   **tp.TOL)
 
 
 def test_sharded_save_restores_unsharded_and_back_bit_exact(runs):

@@ -74,6 +74,44 @@ def rank_share() -> dict:
     return out
 
 
+# ``prefill_32k`` cells (32 sequences) cut in depth: DeepSeek-MoE-16B's
+# first layer is dense, so two layers count one MoE layer.
+PREFILL_CELLS = {"deepseek-moe-16b": 2, "qwen3-14b": 1}
+
+
+def multi_pod_prefill() -> dict:
+    """Each of ``PREFILL_CELLS`` on both production meshes: the record's
+    FLOPs, peak, fits and useful ratio, or the error the cell raised; and
+    Qwen3-14B's placed ``tokens`` on a rank of each mesh."""
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import get_model
+
+    out = {}
+    for arch, layers in PREFILL_CELLS.items():
+        out[arch] = {}
+        for multi in (False, True):
+            mesh = "2x32x8" if multi else "32x8"
+            try:
+                rec = dryrun.run_cell(arch, "prefill_32k", multi_pod=multi, verbose=False,
+                                      cfg_overrides={"num_layers": layers})
+                out[arch][mesh] = {k: rec[k] for k in ("hlo_flops", "peak_bytes", "fits",
+                                                       "useful_flops_ratio")}
+            except Exception as e:  # the test names the failure
+                out[arch][mesh] = {"error": f"{type(e).__name__}: {e}"[:500]}
+    batch = get_model(configs.get_config("qwen3-14b"), device="meta").input_specs(
+        SHAPES["prefill_32k"])
+    out["tokens"] = {}
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        placed = dryrun._place(batch, sh.batch_shardings(batch, mesh))
+        out["tokens"][dryrun.mesh_name(mesh)] = list(placed["tokens"].to_local().shape)
+    return out
+
+
 def production() -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh, num_chips
@@ -97,7 +135,8 @@ def main(argv) -> int:
             json.dump([rec], f, default=float)
         return 0
     fake.open_fake_group(dryrun.FAKE_WORLD)
-    res = {"linear": sharded_linear(), **production(), "share": rank_share()}
+    res = {"linear": sharded_linear(), **production(), "share": rank_share(),
+           "prefill": multi_pod_prefill()}
     with open(argv[0], "w") as f:
         json.dump(res, f, default=float)
     return 0

@@ -2,7 +2,8 @@
 
 :func:`model_sharding` runs in each of four ranks that
 ``repro_torch.distributed.spawn`` starts on the CPU (``fn(rank, device,
-...)``), on a ``(data 2, model 2)`` mesh, and returns plain numpy and
+...)``), on a ``(data 2, model 2)`` mesh and two ``(pod, data, model)``
+meshes of the same ranks, and returns plain numpy and
 Python values for the test to hold against the JAX package's sharded runs.
 This module imports no JAX: with ``spawn`` each rank imports it anew.
 """
@@ -152,7 +153,8 @@ def _odd_heads(mesh, device) -> dict:
         opt_state = opt_lib.init_opt_state(params, tcfg.opt)
         step = ts.make_train_step(model, tcfg)
         if m is not None:
-            params, opt_state, step = launch_train.shard_trainer(model, params, opt_state, step, m)
+            params, opt_state, step = launch_train.shard_trainer(model, params, opt_state, step, m,
+                                                                 4)
         batch = data_lib.SyntheticStream(model, ShapeSpec("odd", 32, 4, "train")).batch(0)
         new_params, new_opt, metrics = step(params, opt_state, batch)
         out[name] = dict(loss=float(metrics["loss"]), lr=float(metrics["lr"]),
@@ -281,10 +283,58 @@ def _route64(x: torch.Tensor, router: torch.Tensor, cfg):
     return probs, top_p, top_e
 
 
+# Prefills whose batch the mesh's pods and data ranks together do not
+# divide: ``{arch: (mesh shape, batch, sequence)}``, on ``PREFILL_AXES``.
+# SmolLM's 2 rows shard over ``data`` 2 (not ``pod`` x ``data`` 4);
+# DeepSeek-MoE's 1 row over ``data`` 1, through the expert-parallel path
+# over ``model`` 2.
+PREFILLS = {"smollm-135m": ((2, 2, 1), 2, 16), "deepseek-moe-16b": ((2, 1, 2), 1, 16)}
+PREFILL_AXES = ("pod", "data", "model")
+
+
+def prefill_tokens(arch: str) -> np.ndarray:
+    """The seeded prompts of ``arch``'s prefill in ``PREFILLS``."""
+    from repro_torch import configs
+
+    _, b, s = PREFILLS[arch]
+    vocab = configs.get_smoke_config(arch).vocab_size
+    return np.random.default_rng(5).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def _prefills(device, np_params: dict, ep_calls: list) -> dict:
+    """Each of ``PREFILLS`` on its mesh through ``make_prefill_step``, the
+    model's rules from ``launch.mesh.axis_rules``: the last position's
+    logits gathered, this rank's rows of the placed prompts, and how many
+    times the expert-parallel path ran."""
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import make_prefill_step
+
+    out = {}
+    for arch, (shape, b, _) in PREFILLS.items():
+        mesh = mesh_lib.make_mesh(shape, PREFILL_AXES, device_type=device.type)
+        cfg = configs.get_smoke_config(arch)
+        model = get_model(cfg, device=device)
+        model.axis_rules = mesh_lib.axis_rules(mesh, b)
+        params = interop.lm_params_from_numpy(np_params[arch], cfg, device)
+        params = sh.distribute(params, sh.param_shardings(params, mesh))
+        batch = {"tokens": torch.from_numpy(prefill_tokens(arch)).to(device)}
+        batch = sh.distribute(batch, sh.batch_shardings(batch, mesh))
+        before = len(ep_calls)
+        with torch.no_grad():
+            logits = make_prefill_step(model)(params, batch)
+        out[arch] = dict(logits=logits.full_tensor().cpu().numpy(),
+                         batch_axes=list(model.axis_rules["batch"]),
+                         local_rows=list(batch["tokens"].to_local().shape),
+                         ep_calls=len(ep_calls) - before)
+    return out
+
+
 def model_sharding(rank: int, device: torch.device, np_params: dict, ckpt_dir: str) -> dict:
     """Saves on meshes smaller than the world, one train step of each
     family on the mesh, the MoE's expert-weight gradients and its path, the
-    checkpoint cases, and DeepSeek's router alone at full width.  DTensor's
+    checkpoint cases, DeepSeek's router alone at full width, and the
+    prefills of ``PREFILLS`` on their three-axis meshes.  DTensor's
     all-gathers take the route the card's gloo ranks take."""
     distributed.route_gloo_all_gather("CPU")
     mesh = mesh_lib.make_mesh(*MESH, device_type=device.type)
@@ -312,7 +362,7 @@ def model_sharding(rank: int, device: torch.device, np_params: dict, ckpt_dir: s
     out = dict(rank=rank, small_meshes=small, steps=steps, odd_heads=_odd_heads(mesh, device),
                microbatched=_microbatched(mesh, device, np_params["smollm-135m"]),
                ckpt=_checkpoints(mesh, device, np_params["smollm-135m"], ckpt_dir),
-               router=_router_gaps(mesh, device))
+               router=_router_gaps(mesh, device), prefills=_prefills(device, np_params, ep_calls))
     if rank:  # every rank gathered; the first one's copy is enough
         for rec in out["steps"].values():
             rec.pop("params")
